@@ -1,0 +1,219 @@
+"""3DETR trunk with CoDA's heads (PyTorch): the eval forward.
+
+Counterpart of coda_neurips2023_tpu/models/model_3detr.py.  Parameter names
+are the reference state dict's (as `utils.torch_convert.
+export_reference_state_dict` in the JAX package writes them), so
+`load_state_dict(strict=True)` is the weight contract.
+
+Like the JAX module, the forward returns a dict of per-decoder-layer
+tensors with a leading layer axis (`query_xyz`, `enc_xyz` and `enc_inds`
+excepted).  Only eval is ported: call `.eval()` first (BatchNorm raises in
+training mode), and run under `torch.inference_mode()` for the kernels.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from coda_neurips2023_tpu_torch.models.box_processor import BoxProcessor
+from coda_neurips2023_tpu_torch.models.helpers import GenericMLP
+from coda_neurips2023_tpu_torch.models.pointnet import PointnetSAModuleVotes
+from coda_neurips2023_tpu_torch.models.position_embedding import PositionEmbeddingCoordsSine
+from coda_neurips2023_tpu_torch.models.transformer import TransformerDecoder, TransformerEncoder
+from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+
+class CoDA3DETR(nn.Module):
+    """Class-agnostic 3DETR trunk with CoDA's six MLP heads."""
+
+    def __init__(
+        self,
+        dataset_config,
+        num_cls_predict: int = 1,
+        enc_dim: int = 256,
+        dec_dim: int = 512,
+        enc_type: str = "vanilla",
+        enc_nlayers: int = 3,
+        enc_nhead: int = 4,
+        enc_ffn_dim: int = 128,
+        enc_activation: str = "relu",
+        dec_nlayers: int = 8,
+        dec_nhead: int = 4,
+        dec_ffn_dim: int = 256,
+        preenc_npoints: int = 2048,
+        nqueries: int = 128,
+        mlp_dropout: float = 0.3,
+        position_embedding: str = "fourier",
+        with_text_head: bool = True,
+        use_color: bool = False,
+        device=None,
+    ):
+        super().__init__()
+        if enc_type != "vanilla":
+            raise NotImplementedError(f"enc_type {enc_type!r} is not ported yet")
+        self.dataset_config = dataset_config
+        self.nqueries = nqueries
+        self.pre_encoder = PointnetSAModuleVotes(
+            npoint=preenc_npoints, radius=0.2, nsample=64,
+            mlp_dims=(3 * int(use_color), 64, 128, enc_dim), normalize_xyz=True,
+            device=device,
+        )
+        self.encoder = TransformerEncoder(
+            enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, device=device
+        )
+        self.encoder_to_decoder_projection = GenericMLP(
+            enc_dim, (512, 512), dec_dim, norm="bn1d", output_use_activation=True,
+            output_use_norm=True, output_use_bias=False, device=device,
+        )
+        self.pos_embedding = PositionEmbeddingCoordsSine(
+            dec_dim, pos_type=position_embedding, device=device
+        )
+        self.query_projection = GenericMLP(
+            dec_dim, (dec_dim,), dec_dim, hidden_use_bias=True,
+            output_use_activation=True, device=device,
+        )
+        self.decoder = TransformerDecoder(
+            dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, device=device
+        )
+        out_dims = {
+            "sem_cls_head": num_cls_predict + 1,
+            "center_head": 3,
+            "size_head": 3,
+            "angle_cls_head": dataset_config.num_angle_bin,
+            "angle_residual_head": dataset_config.num_angle_bin,
+            "text_correlation_head": 512,  # CLIP embedding width
+        }
+        if not with_text_head:
+            del out_dims["text_correlation_head"]
+        self.mlp_heads = nn.ModuleDict({
+            name: GenericMLP(
+                dec_dim, (dec_dim, dec_dim), dim, norm="bn1d", dropout=mlp_dropout,
+                device=device,
+            )
+            for name, dim in out_dims.items()
+        })
+        self.box_processor = BoxProcessor(dataset_config)
+
+    def run_encoder(self, point_clouds):
+        xyz = point_clouds[..., 0:3].contiguous()
+        pre_xyz, pre_feat, pre_inds = self.pre_encoder(xyz)
+        enc_xyz, enc_feat, _ = self.encoder(pre_feat, xyz=pre_xyz)
+        return enc_xyz, enc_feat, pre_inds
+
+    def get_query_embeddings(self, enc_xyz, point_cloud_dims):
+        query_inds = furthest_point_sample(enc_xyz, self.nqueries)
+        query_xyz = gather_points(enc_xyz, query_inds)
+        pos_embed = self.pos_embedding(query_xyz, input_range=point_cloud_dims)
+        return query_xyz, self.query_projection(pos_embed)
+
+    def get_box_predictions(self, query_xyz, point_cloud_dims, box_features):
+        """box_features: (L, B, nq, dec_dim) -> dict of stacked per-layer outputs."""
+        bp = self.box_processor
+        heads = self.mlp_heads
+        cls_logits = heads["sem_cls_head"](box_features)
+        center_offset = torch.sigmoid(heads["center_head"](box_features)) - 0.5
+        size_normalized = torch.sigmoid(heads["size_head"](box_features))
+        angle_logits = heads["angle_cls_head"](box_features)
+        angle_residual_normalized = heads["angle_residual_head"](box_features)
+        angle_residual = angle_residual_normalized * (
+            math.pi / angle_residual_normalized.shape[-1]
+        )
+        # the layer axis broadcasts through the box decode
+        center_norm, center_unnorm = bp.compute_predicted_center(
+            center_offset, query_xyz, point_cloud_dims
+        )
+        angle = bp.compute_predicted_angle(angle_logits, angle_residual)
+        size_unnorm = bp.compute_predicted_size(size_normalized, point_cloud_dims)
+        semcls_prob, objectness_prob = bp.compute_objectness_and_cls_prob(cls_logits)
+        out = {
+            "sem_cls_logits": cls_logits,
+            "center_offset": center_offset,
+            "size_normalized": size_normalized,
+            "angle_logits": angle_logits,
+            "angle_residual": angle_residual,
+            "angle_residual_normalized": angle_residual_normalized,
+            "center_normalized": center_norm,
+            "center_unnormalized": center_unnorm,
+            "angle_continuous": angle,
+            "size_unnormalized": size_unnorm,
+            "box_corners": bp.box_parametrization_to_corners(center_unnorm, size_unnorm, angle),
+            "box_corners_xyz": bp.box_parametrization_to_corners_xyz(
+                center_unnorm, size_unnorm, angle
+            ),
+            "sem_cls_prob": semcls_prob,
+            "objectness_prob": objectness_prob,
+        }
+        if "text_correlation_head" in heads:
+            out["text_correlation_embedding"] = heads["text_correlation_head"](box_features)
+        return out
+
+    def forward(self, inputs: dict):
+        enc_xyz, enc_features, enc_inds = self.run_encoder(inputs["point_clouds"])
+        enc_features = self.encoder_to_decoder_projection(enc_features)
+        point_cloud_dims = (inputs["point_cloud_dims_min"], inputs["point_cloud_dims_max"])
+        query_xyz, query_embed = self.get_query_embeddings(enc_xyz, point_cloud_dims)
+        enc_pos = self.pos_embedding(enc_xyz, input_range=point_cloud_dims)
+        box_features = self.decoder(
+            torch.zeros_like(query_embed), enc_features, query_pos=query_embed, pos=enc_pos
+        )
+        preds = self.get_box_predictions(query_xyz, point_cloud_dims, box_features)
+        preds["query_xyz"] = query_xyz
+        preds["enc_xyz"] = enc_xyz
+        preds["enc_inds"] = enc_inds
+        return preds
+
+
+def get_class_scores(text_correlation_embedding, text_features, logit_scale):
+    """Open-vocabulary class scores from the distillation head.
+
+    text_correlation_embedding (..., nq, 512); text_features (ncls, 512),
+    rows normalized; logit_scale a scalar (already exp'ed) -> softmax scores
+    (..., nq, ncls).
+    """
+    emb = text_correlation_embedding
+    emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)
+    logits = torch.matmul(emb, text_features.t()) * logit_scale
+    return torch.softmax(logits, dim=-1)
+
+
+def _model_kwargs_from_args(args, dataset_config, num_cls_predict, with_text_head, device):
+    return dict(
+        dataset_config=dataset_config,
+        num_cls_predict=num_cls_predict,
+        enc_dim=args.enc_dim,
+        dec_dim=args.dec_dim,
+        enc_type=args.enc_type,
+        enc_nlayers=args.enc_nlayers,
+        enc_nhead=args.enc_nhead,
+        enc_ffn_dim=args.enc_ffn_dim,
+        enc_activation=args.enc_activation,
+        dec_nlayers=args.dec_nlayers,
+        dec_nhead=args.dec_nhead,
+        dec_ffn_dim=args.dec_ffn_dim,
+        preenc_npoints=args.preenc_npoints,
+        nqueries=args.nqueries,
+        mlp_dropout=args.mlp_dropout,
+        position_embedding=args.pos_embed,
+        with_text_head=with_text_head,
+        use_color=args.use_color,
+        device=device,
+    )
+
+
+def build_3detr_predictedbox_distillation_head(args, dataset_config, device=None):
+    """The CoDA model: a (1 object + 1 background)-way sem head; open-vocabulary
+    classes come from the 512-d text-correlation head against a text bank."""
+    model = CoDA3DETR(
+        **_model_kwargs_from_args(args, dataset_config, 1, True, device)
+    )
+    return model, BoxProcessor(dataset_config)
+
+
+def build_3detr_multiclasshead(args, dataset_config, device=None):
+    """Closed-vocabulary baseline: five heads, no text-correlation head."""
+    model = CoDA3DETR(
+        **_model_kwargs_from_args(args, dataset_config, 1, False, device)
+    )
+    return model, BoxProcessor(dataset_config)

@@ -1,0 +1,81 @@
+"""PointNet++ set abstraction (PyTorch, channels-last).
+
+Counterpart of coda_neurips2023_tpu/models/pointnet.py: FPS (kernel A) ->
+gather the centres (kernel C) -> ball query (kernel B) and group the
+re-centred, radius-normalized xyz (kernel C) -> shared MLP of 1x1 convs
+without bias, each followed by BatchNorm and ReLU -> max over the
+neighbourhood.  Parameter names are the reference's
+(`mlp_module.layer{i}.conv.weight` (O, I, 1, 1), `mlp_module.layer{i}.bn.bn.*`).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from coda_neurips2023_tpu_torch.models.helpers import BatchNorm, Dense
+from coda_neurips2023_tpu_torch.ops.grouping import query_and_group
+from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+
+
+class _BNWrapper(nn.Module):  # the reference's BatchNorm2d wrapper: `bn.bn`
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.bn = BatchNorm(dim, device=device)
+
+    def forward(self, x):
+        return self.bn(x)
+
+
+class _ConvBNReLU(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, device=None):
+        super().__init__()
+        self.conv = Dense(in_dim, out_dim, bias=False, kernel_dims=2, device=device)
+        self.bn = _BNWrapper(out_dim, device=device)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.conv(x)))
+
+
+class SharedMLP(nn.Module):
+    def __init__(self, dims: Sequence[int], device=None):
+        """dims: [in, h1, ..., out] channel counts."""
+        super().__init__()
+        for i in range(len(dims) - 1):
+            self.add_module(f"layer{i}", _ConvBNReLU(dims[i], dims[i + 1], device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+
+class PointnetSAModuleVotes(nn.Module):
+    """Single-scale set abstraction with max pooling, xyz input only.
+
+    forward(xyz (B, N, 3)) -> (new_xyz (B, npoint, 3),
+    new_features (B, npoint, mlp_dims[-1]), inds (B, npoint) int32).
+    """
+
+    def __init__(self, npoint: int, radius: float, nsample: int, mlp_dims: Sequence[int],
+                 normalize_xyz: bool = False, device=None):
+        super().__init__()
+        if mlp_dims[0] != 0:
+            raise NotImplementedError("point features (mlp_dims[0] > 0) are not ported yet")
+        self.npoint = npoint
+        self.radius = radius
+        self.nsample = nsample
+        self.normalize_xyz = normalize_xyz
+        # the grouped xyz adds 3 input channels (use_xyz)
+        self.mlp_module = SharedMLP([mlp_dims[0] + 3, *mlp_dims[1:]], device=device)
+
+    def forward(self, xyz: torch.Tensor):
+        inds = furthest_point_sample(xyz, self.npoint)
+        new_xyz = gather_points(xyz, inds)
+        grouped, _ = query_and_group(
+            self.radius, self.nsample, xyz, new_xyz, normalize_xyz=self.normalize_xyz
+        )
+        out = self.mlp_module(grouped)  # (B, npoint, nsample, C)
+        return new_xyz, torch.amax(out, dim=2), inds
