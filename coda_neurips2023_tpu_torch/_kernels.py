@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0}
+LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "coda_attention": (
         "attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
     ),
+    "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()

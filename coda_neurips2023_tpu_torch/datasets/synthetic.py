@@ -1,11 +1,15 @@
-"""Synthetic SUN RGB-D-shaped scenes: point clouds and scene extents.
+"""Synthetic SUN RGB-D-shaped scenes: point clouds, scene extents, images.
 
-Counterpart of the point-cloud and scene-dims part of
+Counterpart of the point-cloud, scene-dims and image part of
 coda_neurips2023_tpu/datasets/synthetic.py (SyntheticDetectionDataset,
-:65-155).  It makes the same numpy draws in the same order (box count,
-centres, sizes, angles, clutter, in-box samples, padding, shuffle), so a
-scene here is bit-equal to the JAX generator's.  The ground-truth box fields
-of the JAX sample dict come with the criterion.
+:65-195).  It makes the same numpy draws in the same order (box count,
+centres, sizes, angles, clutter, in-box samples, padding, shuffle, image), so
+a scene here is bit-equal to the JAX generator's.  With `with_images` a scene
+also carries a random uint8 RGB image of `image_hw` (height, width) and the
+calibration and augmentation fields the CLIP crop path reads (a pinhole K,
+identity Rtilt, no augmentation).  The ground-truth box fields of the JAX
+sample dict come with the criterion; the string fields (`im_name`,
+`pseudo_box_path`) with the discovery writer.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ class SyntheticDetectionDataset:
         max_boxes_per_scene: int = 12,
         seed: int = 0,
         use_angles: bool = True,
+        with_images: bool = False,
+        image_hw: tuple = (64, 96),
     ):
         self.dataset_config = dataset_config
         self.num_scenes = num_scenes
@@ -29,6 +35,8 @@ class SyntheticDetectionDataset:
         self.max_boxes = max_boxes_per_scene
         self.seed = seed
         self.use_angles = use_angles and dataset_config.num_angle_bin > 1
+        self.with_images = with_images
+        self.image_hw = image_hw
 
     def __len__(self):
         return self.num_scenes
@@ -71,11 +79,31 @@ class SyntheticDetectionDataset:
             pc = np.concatenate([pc, pad], axis=0)
         rng.shuffle(pc, axis=0)
 
-        return {
+        sample = {
             "point_clouds": pc.astype(np.float32),
             "point_cloud_dims_min": pc.min(axis=0).astype(np.float32),
             "point_cloud_dims_max": pc.max(axis=0).astype(np.float32),
         }
+        if self.with_images:
+            h, w = self.image_hw
+            f = 0.8 * max(h, w)
+            sample.update({
+                "input_image": rng.integers(0, 255, (h, w, 3)).astype(np.uint8),
+                "K": np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32),
+                "Rtilt": np.eye(3, dtype=np.float32),
+                "ori_width": np.float32(w),
+                "ori_height": np.float32(h),
+                "x_offset": np.float32(0),
+                "y_offset": np.float32(0),
+                "flip_array": np.float32(1),
+                "scale_array": np.ones(3, np.float32),
+                "rot_array": np.eye(3, dtype=np.float32),
+                "rot_angle": np.float32(0),
+                "image_flip_array": np.float32(1),
+                "flip_length": np.float32(w),
+                "gt_ori_box_num": np.int64(nbox),
+            })
+        return sample
 
 
 def make_batch(dataset, start: int, batch_size: int) -> dict:

@@ -13,7 +13,16 @@ which are the port's own parameter names:
   GenericMLP layer{h}/out (I, O)     -> layers.{idx}.weight (O, I, 1)
   pos_embedding/gauss_B              -> pos_embedding.gauss_B
 
-`to_torch` wraps the result for `load_state_dict(strict=True)`.
+`clip_state_dict_from_flax` does the same for the JAX package's CLIP params:
+it is the exact inverse of `models/clip.py :: convert_openai_state_dict`
+there, so flax CLIP weights load into the port under OpenAI's names:
+
+  conv1/kernel (kh, kw, in, out)     -> visual.conv1.weight (out, in, kh, kw)
+  resblock{i}/attn query/key/value   -> ...resblocks.{i}.attn.in_proj_weight (3W, W), in_proj_bias
+  resblock{i}/c_fc, c_proj           -> ...resblocks.{i}.mlp.c_fc, mlp.c_proj
+  token_embedding/embedding          -> token_embedding.weight
+
+`to_torch` wraps either result for `load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
@@ -135,6 +144,38 @@ def state_dict_from_flax(params: dict, batch_stats: dict, constants: dict) -> Di
     gauss_b = constants.get("pos_embedding", {}).get("gauss_B")
     if gauss_b is not None:
         sd["pos_embedding.gauss_B"] = np.asarray(gauss_b)
+    return sd
+
+
+def _clip_blocks(tree, sd, prefix):
+    blocks = sorted((k for k in tree if k.startswith("resblock")), key=lambda k: int(k[8:]))
+    for name in blocks:
+        p = tree[name]
+        pre = f"{prefix}.resblocks.{name[8:]}."
+        _norm(p["ln_1"], sd, pre + "ln_1")
+        _mha(p["attn"], sd, pre + "attn.")
+        _norm(p["ln_2"], sd, pre + "ln_2")
+        _linear(p["c_fc"], sd, pre + "mlp.c_fc")
+        _linear(p["c_proj"], sd, pre + "mlp.c_proj")
+
+
+def clip_state_dict_from_flax(params: dict) -> Dict[str, np.ndarray]:
+    """JAX CLIP params ({visual, text, logit_scale}) -> OpenAI state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    vis, txt = params["visual"], params["text"]
+    sd["visual.conv1.weight"] = np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1)
+    sd["visual.class_embedding"] = np.asarray(vis["class_embedding"])
+    sd["visual.positional_embedding"] = np.asarray(vis["positional_embedding"])
+    _norm(vis["ln_pre"], sd, "visual.ln_pre")
+    _clip_blocks(vis["transformer"], sd, "visual.transformer")
+    _norm(vis["ln_post"], sd, "visual.ln_post")
+    sd["visual.proj"] = np.asarray(vis["proj"])
+    sd["token_embedding.weight"] = np.asarray(txt["token_embedding"]["embedding"])
+    sd["positional_embedding"] = np.asarray(txt["positional_embedding"])
+    _clip_blocks(txt["transformer"], sd, "transformer")
+    _norm(txt["ln_final"], sd, "ln_final")
+    sd["text_projection"] = np.asarray(txt["text_projection"])
+    sd["logit_scale"] = np.asarray(params["logit_scale"])
     return sd
 
 

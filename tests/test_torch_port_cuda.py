@@ -9,8 +9,8 @@ one (and nvcc), run them with
 not use).  The shapes here are the edge cases of each kernel (ragged tiles,
 no-hit rows, fully masked rows, every template instance); chip_smoke.py
 covers the eval forward's own shapes.  Indices and gathers must be bit-equal
-to the plain versions and the numpy golden models; attention agrees within
-ATTN_TOL (fp32, summed in another order than cuBLAS).
+to the plain versions and the numpy golden models; both attention kernels
+agree within ATTN_TOL (fp32, summed in another order than cuBLAS).
 """
 
 import numpy as np
@@ -26,6 +26,7 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
+from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 
 from golden import ball_query_golden, fps_golden
 
@@ -98,6 +99,50 @@ def test_attention_kernel(dev, d, sq, skv, radius):
     assert err <= ATTN_TOL
 
 
+def _qkv(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, device=dev, generator=g) for _ in range(3)]
+
+
+@pytest.mark.parametrize("h", [1, 12])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [1, 50, 197])
+def test_vit_attention_kernel(dev, s, d, h):
+    q, k, v = _qkv(dev, (3, h, s, d), s + d + h)
+    got = vit_attention(q, k, v)
+    assert got.shape == q.shape
+    err = (got - vit_attention_plain(q, k, v)).abs().max().item()
+    assert err <= ATTN_TOL
+    if s == 1:  # one key: the output is v
+        assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("d,s_max", [(32, 388), (64, 256)])
+def test_vit_attention_longest_sequence(dev, d, s_max):
+    """The whole K and V of a head sit in shared memory: the longest S that
+    fits runs, one more is refused before launch."""
+    q, k, v = _qkv(dev, (2, 2, s_max, d), d)
+    assert (vit_attention(q, k, v) - vit_attention_plain(q, k, v)).abs().max().item() <= ATTN_TOL
+    q, k, v = _qkv(dev, (1, 1, s_max + 1, d), d)
+    with pytest.raises(ValueError):
+        vit_attention(q, k, v)
+
+
+def test_vit_attention_refusals(dev):
+    q, k, v = _qkv(dev, (2, 3, 197, 64), 0)
+    with pytest.raises(ValueError):  # not contiguous
+        vit_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError):  # not fp32
+        vit_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):  # head width without a kernel instance
+        vit_attention(*_qkv(dev, (2, 3, 197, 16), 1))
+    flat = torch.randn(2 * 3 * 197 * 64 + 1, device=dev)
+    with pytest.raises(ValueError):  # contiguous but not 16-byte aligned
+        vit_attention(flat[1:].view(2, 3, 197, 64), k, v)
+    with pytest.raises(RuntimeError):  # the kernels are forward only
+        vit_attention(q.clone().requires_grad_(), k, v)
+
+
 def test_launch_counts_and_refusals(dev):
     _kernels.reset_launches()
     xyz = torch.from_numpy(_pc(0, 2, 500)).to(dev)
@@ -105,8 +150,10 @@ def test_launch_counts_and_refusals(dev):
     idx = ball_query(0.5, 8, xyz, group_points(xyz, inds[:, None, :])[:, 0])
     q = torch.randn((1, 2, 16, 32), device=dev)
     masked_attention(q, torch.randn((1, 2, 32, 16), device=dev), torch.randn((1, 2, 16, 32), device=dev))
+    vit_attention(q, torch.randn((1, 2, 16, 32), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     assert idx.dtype == torch.int32
-    assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1}
+    assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1,
+                                 "vit_attention": 1}
     with pytest.raises(RuntimeError):
         furthest_point_sample(xyz.clone().requires_grad_(), 4)
     with pytest.raises(ValueError):  # head width without a kernel instance

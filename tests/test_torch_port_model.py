@@ -294,13 +294,17 @@ def test_eval_step_matches_jax(tiny):
 
 
 def test_synthetic_scenes_bit_equal():
-    for seed, num_points, max_boxes in ((0, 1024, 12), (3, 2048, 4), (7, 999, 1)):
+    for seed, num_points, max_boxes, image_hw in ((0, 1024, 12, None), (3, 2048, 4, None),
+                                                  (7, 999, 1, None), (2, 1024, 12, (53, 73))):
+        images = dict(with_images=True, image_hw=image_hw) if image_hw else {}
         jds = JaxScenes(JaxConfig(), num_scenes=3, num_points=num_points, seed=seed,
-                        max_boxes_per_scene=max_boxes)
+                        max_boxes_per_scene=max_boxes, **images)
         tds = SyntheticDetectionDataset(SunrgbdAnonymousConfig(), num_scenes=3,
                                         num_points=num_points, seed=seed,
-                                        max_boxes_per_scene=max_boxes)
+                                        max_boxes_per_scene=max_boxes, **images)
         got = make_batch(tds, 0, 3)
+        if image_hw:
+            assert got["input_image"].shape == (3, *image_hw, 3)
         for i in range(3):
             want = jds[i]
             for key, g in got.items():

@@ -33,6 +33,7 @@ from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import ball_query, group_points, query_and_group
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
 
 from golden import ball_query_golden, fps_golden
 
@@ -177,7 +178,9 @@ def test_cpu_calls_launch_nothing():
     query_and_group(0.5, 8, xyz, centres)
     q = torch.randn(1, 2, 16, 8)
     masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8))
-    assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0}
+    vit_attention(q, torch.randn(1, 2, 16, 8), torch.randn(1, 2, 16, 8))
+    assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
+                                 "vit_attention": 0}
 
 
 @pytest.mark.parametrize(
@@ -193,9 +196,14 @@ def test_cpu_calls_launch_nothing():
         lambda: masked_attention(torch.zeros(1, 2, 16, 8), torch.zeros(1, 2, 8, 16),
                                  torch.zeros(1, 2, 16, 8), radius=0.5),
         lambda: masked_attention(*(torch.zeros(1, 2, 16, 8, dtype=torch.float64),) * 3),
+        lambda: vit_attention(*(torch.zeros(1, 2, 16, 8, dtype=torch.float64),) * 3),
+        lambda: vit_attention(torch.zeros(1, 2, 16, 8), torch.zeros(1, 2, 8, 16),
+                              torch.zeros(1, 2, 16, 8)),
+        lambda: vit_attention(*(torch.zeros(2, 16, 8),) * 3),
     ],
     ids=["fps_dtype", "fps_shape", "bq_shape", "bq_dtype", "group_idx_dtype", "gather_idx_rank",
-         "attn_k_layout", "attn_radius_without_xyz", "attn_dtype"],
+         "attn_k_layout", "attn_radius_without_xyz", "attn_dtype", "vit_attn_dtype",
+         "vit_attn_k_transposed", "vit_attn_rank"],
 )
 def test_wrappers_reject_unsupported_inputs(call):
     with pytest.raises(ValueError):
@@ -212,7 +220,10 @@ def test_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'coda_neurips2023_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "new = {'models.clip', 'models.tokenizer', 'models.text_bank', 'models.distillation',\n"
+        "       'ops.vit_attention', 'ops.projection', 'stages'}\n"
+        "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
+        "assert len(names) >= 26, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
