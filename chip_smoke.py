@@ -27,11 +27,28 @@ result):
      peak memory.
   7. The CLIP-crop part of that step for one scene on the CPU (plain paths)
      from the GPU detector's boxes: rects equal, sem_cls_prob within CLIP_TOL.
+  8. The baseline detector's training step (scripts/coda_baseline_sunrgbd.sh:
+     3detrmulticlasshead at the flagship's width, dropout as shipped,
+     matcher costs cls 1 / giou 3 / center 5 / objectness 5, the skip-none-gt
+     softmax loss, AdamW with weight decay 0.1 and clip 0.1) on batches of
+     TRAIN_BATCH synthetic 20000-point scenes with ground truth, with
+     CODA_BQ_FUSED_GATHER=1 (kernel F) for this phase and the next: one
+     warm-up and TRAIN_STEPS timed steps: a finite loss, step times,
+     scenes/s, peak memory, the matcher's host ms, the launch counts of A, B,
+     F and D (F, A and D must launch).
+  9. The same step, dropout 0, from the same weights on 2 scenes on the GPU
+     and on the CPU (plain paths): assignments equal, loss within STEP_TOL,
+     gradients within GRAD_TOL of their global norm.
+Phase 3 also holds kernel F against its plain version and against kernel B
+followed by kernel C, bit for bit, and D in training (with and without its
+attention-weight dropout: the output, and q, k, v gradients through its
+autograd Function) against its plain version and autograd of it.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -67,6 +84,14 @@ VIT_ATTN_TOL = 1e-4
 CLIP_TOL = 2e-3
 IMAGE_HW = (531, 730)  # the padded SUN RGB-D image, datasets/config.py image_size
 CLIP_LAYERS = 12
+TRAIN_BATCH = 8  # batchsize_per_gpu of scripts/coda_baseline_sunrgbd.sh
+TRAIN_STEPS = 5
+# GPU vs CPU, one training step: as MODEL_TOL for the forward, and the loss
+# sums 8 layers of losses (center weight 5) over 2 scenes
+STEP_TOL = 1e-3
+# GPU vs CPU gradients, as a share of their global norm: the backward sums
+# every GEMM and reduction in another order on each device
+GRAD_TOL = 1e-3
 
 KERNELS = {
     "fps": ("coda_neurips2023_tpu_torch/csrc/fps.cu",
@@ -79,6 +104,8 @@ KERNELS = {
                   "coda_neurips2023_tpu/ops/pallas_masked_attention.py:121"),
     "vit_attention": ("coda_neurips2023_tpu_torch/csrc/vit_attention.cu",
                       "coda_neurips2023_tpu/ops/pallas_vit_attention.py:109"),
+    "ball_query_group": ("coda_neurips2023_tpu_torch/csrc/ball_query_group.cu",
+                         "coda_neurips2023_tpu/ops/pallas_ball_query_sorted.py:461"),
 }
 # the flagship detector's flags (the JAX package's defaults, main.py)
 FLAGSHIP_ARGS = dict(
@@ -91,6 +118,18 @@ CLIP_ARGS = dict(
     model_name="3detrmulticlasshead", dataset_name="sunrgbd", train_range_max=10,
     test_range_max=46, if_clip_more_prompts=True, if_clip_superset=False,
     clip_model_path=None, clip_bpe_path=None,
+)
+# the baseline's training flags (scripts/coda_baseline_sunrgbd.sh, main.py's
+# defaults for the rest, bench_train.py's optimizer)
+TRAIN_ARGS = dict(
+    model_name="3detrmulticlasshead", enc_dropout=0.1, dec_dropout=0.1,
+    base_lr=1.97e-4, warm_lr=1e-6, warm_lr_epochs=18, final_lr=1e-6, lr_scheduler="cosine",
+    weight_decay=0.1, filter_biases_wd=False, clip_gradient=0.1, max_epoch=1080,
+    matcher_cls_cost=1, matcher_giou_cost=3, matcher_center_cost=5, matcher_objectness_cost=5,
+    loss_giou_weight=0.0, loss_sem_cls_weight=0.0, loss_sem_cls_softmax_weight=0.0,
+    loss_sem_cls_softmax_skip_none_gt_sample_weight=1.0, loss_no_object_weight=0.05,
+    loss_angle_cls_weight=0.1, loss_angle_reg_weight=0.5, loss_center_weight=5.0,
+    loss_size_weight=1.0,
 )
 
 
@@ -129,7 +168,7 @@ def compare_kernels(torch, xyz, results):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main_shape:
             entry["ms"], entry["plain_ms"] = ms, plain_ms
-        print(f"  {name:10s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+        print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
 
     def exact(name, label, kern, plain, main_shape=True):
         a, b = kern(), plain()
@@ -162,6 +201,23 @@ def compare_kernels(torch, xyz, results):
     exact("gather", f"group_points B={b} N={NUM_POINTS} M=2048 K=64",
           lambda: grouping.group_points(xyz, idx),
           lambda: grouping.group_points_plain(xyz, idx))
+    two_op = lambda: grouping.group_points(xyz, grouping.ball_query(0.2, 64, xyz, centres))
+    for n_scenes in (b, TRAIN_BATCH):
+        x, c = xyz[:n_scenes].contiguous(), centres[:n_scenes].contiguous()
+        label = f"B={n_scenes} N={NUM_POINTS} M=2048 r=0.2 k=64"
+        kern = lambda: grouping.ball_query_group(0.2, 64, x, c)
+        plain = lambda: grouping.ball_query_group_plain(0.2, 64, x, c)
+        bc = lambda: (lambda i: (i, grouping.group_points(x, i)))(grouping.ball_query(0.2, 64, x, c))
+        got, want, via_bc = kern(), plain(), bc()
+        torch.cuda.synchronize()
+        for what, ref in (("plain version", want), ("kernel B then kernel C", via_bc)):
+            if not all(torch.equal(g, w) for g, w in zip(got, ref)):
+                fail(f"ball_query_group {label}: differs from the {what}")
+        if n_scenes == b and not torch.equal(got[1], two_op()):
+            fail("ball_query_group: differs from group_points(ball_query) of phase 3")
+        ms, bc_ms = time_ms(torch, kern), time_ms(torch, bc)
+        record("ball_query_group", label, 0.0, ms, time_ms(torch, plain), n_scenes == TRAIN_BATCH)
+        print(f"  {'':16s} {'':44s} kernels B then C ms={bc_ms!r}")
     half = sampling.gather_points(centres, sampling.furthest_point_sample(centres, 1024))
     exact("ball_query", f"B={b} N=2048 M=1024 r=0.4 k=32",
           lambda: grouping.ball_query(0.4, 32, centres, half),
@@ -199,6 +255,43 @@ def compare_kernels(torch, xyz, results):
         fail(f"vit_attention: max_abs_err {err!r} > {VIT_ATTN_TOL}")
     record("vit_attention", "B=128 crops H=12 S=197 D=64", err, time_ms(torch, kern),
            time_ms(torch, plain), True)
+
+
+def compare_attention_backward(torch):
+    """Phase 3, D in training at the training shapes, with and without the
+    attention-weight dropout: the output and the q, k and v gradients
+    through its autograd Function (kernel forward, plain recompute backward)
+    against the plain version and its autograd."""
+    from coda_neurips2023_tpu_torch.ops.masked_attention import (
+        MaskedAttention,
+        masked_attention_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    for label, sq, skv, d, dropout in (
+        ("encoder S=2048 H=4 D=64", 2048, 2048, 64, 0.0),
+        ("decoder cross Sq=128 Skv=2048 H=4 D=128", 128, 2048, 128, 0.0),
+        ("encoder, dropout 0.1", 2048, 2048, 64, 0.1),
+        ("decoder cross, dropout 0.1", 128, 2048, 128, 0.1),
+    ):
+        leaves = [randn(TRAIN_BATCH, 4, sq, d) / d ** 0.5, randn(TRAIN_BATCH, 4, d, skv),
+                  randn(TRAIN_BATCH, 4, skv, d)]
+        grad_out = randn(TRAIN_BATCH, 4, sq, d)
+        seed = torch.randint(0, 2 ** 62, (), device="cuda", generator=gen)
+        kq, kk, kv = (t.clone().requires_grad_() for t in leaves)
+        pq, pk, pv = (t.clone().requires_grad_() for t in leaves)
+        out_k = MaskedAttention.apply(kq, kk, kv, None, None, 0.0, dropout, seed)
+        out_p = masked_attention_plain(pq, pk, pv, None, None, 0.0, dropout, seed)
+        got = torch.autograd.grad(out_k, (kq, kk, kv), grad_out)
+        want = torch.autograd.grad(out_p, (pq, pk, pv), grad_out)
+        err = max((g - w).abs().max().item() for g, w in zip((out_k, *got), (out_p, *want)))
+        if not err <= ATTN_TOL:
+            fail(f"attention training {label}: max_abs_err {err!r} > {ATTN_TOL}")
+        print(f"  {'attention':16s} {'train B=8 ' + label:44s} max_abs_err={err!r} (out, dq, dk, dv)")
 
 
 def check_eval_outputs(torch, outs, nq, what, zero_rows):
@@ -264,8 +357,8 @@ def clip_eval_phase(torch, ctx, cfg, batches):
     if n_valid == 0:
         fail("CLIP eval: no valid box in any step")
     print(f"  launches in the {STEPS} timed steps: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("fps", "ball_query", "gather", "attention", "vit_attention"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the CLIP eval path")
     if launches["vit_attention"] != STEPS * BATCH * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
@@ -319,6 +412,102 @@ def clip_cpu_phase(torch, ctx, detector, batch):
           f"(valid rows {int((cpu[0].sum(-1) > 0).sum())})")
     if not err <= CLIP_TOL:
         fail(f"GPU vs CPU CLIP crop scores differ by {err!r} > {CLIP_TOL}")
+
+
+def train_objects(torch, cfg, dropout: bool, device, seed):
+    """The baseline detector, its criterion and optimizer on `device`, built
+    as a training run builds them.  The random weights are drawn on the card
+    from `seed`, so every device gets the same ones."""
+    from coda_neurips2023_tpu_torch.criterion import build_criterion
+    from coda_neurips2023_tpu_torch.models import build_model
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.optimizer import build_optimizer
+
+    args = types.SimpleNamespace(**dict(FLAGSHIP_ARGS, **TRAIN_ARGS))
+    if not dropout:
+        args.mlp_dropout = args.enc_dropout = args.dec_dropout = 0.0
+    model, _ = build_model(args, cfg, device="cuda")
+    reset_parameters(model, torch.Generator(device="cuda").manual_seed(seed))
+    model.to(device)
+    optimizer, schedule = build_optimizer(args, model, num_iters_per_epoch=600)
+    return model, build_criterion(args, cfg), optimizer, schedule
+
+
+def train_phase(torch, cfg, batches):
+    """Phase 8: the baseline training step at full width, kernel F on."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.engine import make_train_step
+
+    print(f"phase 8: baseline training step (3detrmulticlasshead), {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {NUM_POINTS} points, CODA_BQ_FUSED_GATHER=1")
+    model, criterion, optimizer, schedule = train_objects(torch, cfg, True, "cuda", SEED + 4)
+    step = make_train_step(model, criterion, optimizer, lr_schedule=schedule)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    step(batches[0], gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t0) * 1e3!r} ms")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    times, losses, matcher_ms = [], [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        matcher_ms.append(criterion.matcher.last_host_ms)
+    launches = dict(_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {losses!r}; lr {float(metrics['lr'])!r}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"training loss not finite: {losses}")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail("parameters not finite after the training steps")
+    print(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
+    print("  (kernel B is not on this path: F takes its place)")
+    for name in ("fps", "ball_query_group", "attention", "gather"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    med = statistics.median(times)
+    print(f"  train step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
+    print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}")
+    print(f"  matcher host ms a step: median {statistics.median(matcher_ms)!r} "
+          f"(the host's time from the cost's arrival to the assignments' copy back)")
+    print(f"  peak memory allocated: {peak_gb!r} GB")
+    return launches
+
+
+def train_cpu_phase(torch, cfg, batch):
+    """Phase 9: one training step, dropout 0, from the same weights on the GPU
+    and on the CPU."""
+    from coda_neurips2023_tpu_torch.engine import make_train_step
+
+    print("phase 9: the training step on 2 scenes, GPU vs CPU (plain PyTorch), dropout 0")
+    small = {k: v[:2] for k, v in batch.items()}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, criterion, optimizer, schedule = train_objects(torch, cfg, False, device, SEED + 6)
+        step = make_train_step(model, criterion, optimizer, lr_schedule=schedule)
+        t0 = time.perf_counter()
+        metrics = step({k: v.to(device) for k, v in small.items()})
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        asg = {k: v.cpu() for k, v in criterion.last_assignments.items()}
+        runs[device] = (float(metrics["loss"]), grads, asg)
+        print(f"  {device}: loss {runs[device][0]!r} in {(time.perf_counter() - t0):.2f} s")
+    (gl, gg, ga), (cl, cg, ca) = runs["cuda"], runs["cpu"]
+    for key in ga:
+        if not torch.equal(ga[key], ca[key]):
+            fail(f"matcher {key} differs between GPU and CPU")
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())).item()
+    worst = max(((gg[n] - cg[n]).abs().max().item() / norm, n) for n in cg)
+    print(f"  assignments equal ({int(ga['proposal_matched_mask'].sum())} matches over all "
+          f"layers); loss |diff| {abs(gl - cl)!r}; gradient max |diff| / global norm "
+          f"{worst[0]!r} ({worst[1]}), norm {norm!r}")
+    if not abs(gl - cl) <= STEP_TOL:
+        fail(f"GPU vs CPU training loss differs by {abs(gl - cl)!r} > {STEP_TOL}")
+    if not worst[0] <= GRAD_TOL:
+        fail(f"GPU vs CPU gradient of {worst[1]} differs by {worst[0]!r} of the norm > {GRAD_TOL}")
 
 
 def main():
@@ -378,6 +567,7 @@ def main():
     results = {}
     with torch.inference_mode():
         compare_kernels(torch, batches[0]["point_clouds"][..., :3].contiguous(), results)
+    compare_attention_backward(torch)
 
     # phase 4
     print(f"phase 4: flagship eval step, {STEPS} batches of {BATCH} x {NUM_POINTS} points")
@@ -440,10 +630,30 @@ def main():
 
     launches6, detector = clip_eval_phase(torch, ctx, cfg, batches)
     clip_cpu_phase(torch, ctx, detector, batches[0])
+    del detector, ctx, batches, outs, model, cpu_model
+
+    train_ds = SyntheticDetectionDataset(cfg, num_scenes=(TRAIN_STEPS + 1) * TRAIN_BATCH,
+                                         num_points=NUM_POINTS, seed=SEED)
+    train_batches = [
+        {k: torch.from_numpy(v).cuda()
+         for k, v in make_batch(train_ds, i * TRAIN_BATCH, TRAIN_BATCH).items()}
+        for i in range(TRAIN_STEPS + 1)
+    ]
+    fused = os.environ.get("CODA_BQ_FUSED_GATHER")
+    os.environ["CODA_BQ_FUSED_GATHER"] = "1"
+    try:
+        launches8 = train_phase(torch, cfg, train_batches)
+        train_cpu_phase(torch, cfg, train_batches[0])
+    finally:
+        if fused is None:
+            del os.environ["CODA_BQ_FUSED_GATHER"]
+        else:
+            os.environ["CODA_BQ_FUSED_GATHER"] = fused
 
     # each kernel's count from the path it serves: A-D the detector eval
-    # (phase 4), E the CLIP-crop eval (phase 6)
-    launches = dict(launches4, vit_attention=launches6["vit_attention"])
+    # (phase 4), E the CLIP-crop eval (phase 6), F the training step (phase 8)
+    launches = dict(launches4, vit_attention=launches6["vit_attention"],
+                    ball_query_group=launches8["ball_query_group"])
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -37,10 +37,12 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0}
+LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0,
+            "ball_query_group": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # C entry point -> (kernel name, argument types after the pointers' values)
 _SIGNATURES = {
@@ -48,9 +50,10 @@ _SIGNATURES = {
     "coda_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "coda_gather": ("gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_attention": (
-        "attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
+        "attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _P]
     ),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "coda_ball_query_group": ("ball_query_group", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -139,9 +142,9 @@ def launch(fn: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def check_cuda_inference(*tensors: torch.Tensor) -> None:
-    """Kernels are forward only: refuse inputs that would need a gradient."""
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse inputs that would need a gradient, for kernels without a
+    backward (A, B, E, F: point coordinates and the frozen CLIP tower take
+    none).  Kernels C and D have one, through their autograd Functions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the CUDA kernels are inference only; run under torch.inference_mode()"
-        )
+        raise RuntimeError(f"{name}: the kernel has no backward; its inputs must not require grad")

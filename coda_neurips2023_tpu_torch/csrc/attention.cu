@@ -21,6 +21,18 @@
 // threads; each owns a 4 x 4 patch of the score tile and a 4 x D/16 patch of
 // the output accumulator in registers.  Tensor cores (wgmma) and bf16
 // operands are later work.
+//
+// Training: with dropout > 0 the attention weights are dropped as flax's
+// MultiHeadDotProductAttention drops them (broadcast_dropout): one keep mask
+// over (query, key), shared by every batch row and head, kept weights scaled
+// by 1 / (1 - dropout).  The mask is a counter-based hash of the query and
+// key index and a seed read from device memory (so drawing it costs the
+// host no sync): keep where mix32(mix32(seed) ^ (i * S_kv + j)) >=
+// drop_threshold (dropout * 2^32, from the wrapper), and scale by keep_scale
+// (1 / (1 - dropout) in f32, 0 for no dropout).  The plain version forms
+// the same hash.  The softmax's running sum takes the
+// weights before the drop, as the weights are normalized before flax drops
+// them.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -32,6 +44,16 @@ namespace {
 constexpr int kTQ = 64;  // query rows per block
 constexpr int kTK = 64;  // keys per tile
 constexpr int kThreads = 256;
+
+// lowbias32 (C. Wellons): a bijective 32-bit mixer
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
 
 // (a0*b0 + a1*b1) + a2*b2, rounded step by step (no FMA contraction), the
 // order of the plain PyTorch version: the mask is decided on identical bits.
@@ -56,7 +78,8 @@ __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ qxyz,
                  const float* __restrict__ kxyz_t, float* __restrict__ out, int h,
-                 int sq, int skv, float radius) {
+                 int sq, int skv, float radius, const int64_t* __restrict__ seed_ptr,
+                 uint32_t drop_threshold, float keep_scale) {
   constexpr int DJ = D / 16;  // output columns a thread owns
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -76,6 +99,8 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long b = bh / h;
   const int q0 = blockIdx.y * kTQ;
   const bool masked = radius > 0.0f;
+  const bool drop = keep_scale > 0.0f;
+  const uint32_t seed = drop ? mix32((uint32_t)(*seed_ptr)) : 0u;
 
   const float* qb = q + bh * sq * D;
   const float* kb = k + bh * D * skv;
@@ -185,9 +210,13 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float sum = 0.0f;
 #pragma unroll
       for (int c = 0; c < kTK / 32; ++c) {
-        const float p = expf(x[c] - m_new);
-        Ss[r * (kTK + 1) + lane + 32 * c] = p;
+        float p = expf(x[c] - m_new);
         sum += p;
+        if (drop) {
+          const uint32_t ij = (uint32_t)(q0 + r) * (uint32_t)skv + (uint32_t)(k0 + lane + 32 * c);
+          p = mix32(seed ^ ij) >= drop_threshold ? p * keep_scale : 0.0f;
+        }
+        Ss[r * (kTK + 1) + lane + 32 * c] = p;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -236,29 +265,33 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* qxyz,
            const float* kxyz_t, float* out, int b, int h, int sq, int skv,
-           float radius, cudaStream_t stream) {
+           float radius, const int64_t* seed, uint32_t drop_threshold, float keep_scale,
+           cudaStream_t stream) {
   const size_t bytes = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(b * h), (unsigned)((sq + kTQ - 1) / kTQ));
   attention_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, qxyz, kxyz_t, out,
-                                                          h, sq, skv, radius);
+                                                          h, sq, skv, radius, seed,
+                                                          drop_threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// seed: one int64 on the device, read only when keep_scale > 0
 extern "C" int coda_attention(const float* q, const float* k, const float* v,
                               const float* qxyz, const float* kxyz_t, float* out,
                               int b, int h, int sq, int skv, int d, float radius,
+                              const int64_t* seed, unsigned drop_threshold, float keep_scale,
                               cudaStream_t stream) {
   if ((sq + kTQ - 1) / kTQ > 65535) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 16: return launch<16>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, stream);
-    case 32: return launch<32>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, stream);
-    case 64: return launch<64>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, stream);
-    case 128: return launch<128>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, stream);
+    case 16: return launch<16>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, seed, drop_threshold, keep_scale, stream);
+    case 32: return launch<32>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, seed, drop_threshold, keep_scale, stream);
+    case 64: return launch<64>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, seed, drop_threshold, keep_scale, stream);
+    case 128: return launch<128>(q, k, v, qxyz, kxyz_t, out, b, h, sq, skv, radius, seed, drop_threshold, keep_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

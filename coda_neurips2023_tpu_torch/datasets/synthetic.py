@@ -1,20 +1,25 @@
-"""Synthetic SUN RGB-D-shaped scenes: point clouds, scene extents, images.
+"""Synthetic SUN RGB-D-shaped scenes: point clouds, ground truth, images.
 
-Counterpart of the point-cloud, scene-dims and image part of
-coda_neurips2023_tpu/datasets/synthetic.py (SyntheticDetectionDataset,
-:65-195).  It makes the same numpy draws in the same order (box count,
-centres, sizes, angles, clutter, in-box samples, padding, shuffle, image), so
-a scene here is bit-equal to the JAX generator's.  With `with_images` a scene
-also carries a random uint8 RGB image of `image_hw` (height, width) and the
+Counterpart of coda_neurips2023_tpu/datasets/synthetic.py
+(SyntheticDetectionDataset, :65-195).  It makes the same numpy draws in the
+same order (box count, centres, sizes, angles, clutter, in-box samples,
+padding, shuffle, image), so a scene here is bit-equal to the JAX
+generator's: the point cloud, the scene extent and the ground-truth box
+fields the criterion reads (corners in the camera and upright frames,
+centres and sizes raw and normalized by the scene extent, angles with their
+class and residual, sem-cls labels, `gt_box_present`, the seen-class
+fields), padded to `max_num_obj` boxes.  With `with_images` a scene also
+carries a random uint8 RGB image of `image_hw` (height, width) and the
 calibration and augmentation fields the CLIP crop path reads (a pinhole K,
-identity Rtilt, no augmentation).  The ground-truth box fields of the JAX
-sample dict come with the criterion; the string fields (`im_name`,
-`pseudo_box_path`) with the discovery writer.
+identity Rtilt, no augmentation).  The string fields (`im_name`,
+`pseudo_box_path`) come with the discovery writer.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from coda_neurips2023_tpu_torch.ops import box_ops
 
 
 class SyntheticDetectionDataset:
@@ -49,11 +54,13 @@ class SyntheticDetectionDataset:
         centers = np.zeros((max_obj, 3), np.float32)
         sizes = np.zeros((max_obj, 3), np.float32)
         angles = np.zeros((max_obj,), np.float32)
+        present = np.zeros((max_obj,), np.float32)
         centers[:nbox] = rng.uniform(-3, 3, (nbox, 3)).astype(np.float32)
         centers[:nbox, 2] = rng.uniform(0.2, 2.0, nbox)  # z-up rooms
         sizes[:nbox] = rng.uniform(0.3, 1.8, (nbox, 3)).astype(np.float32)
         if self.use_angles:
             angles[:nbox] = rng.uniform(-np.pi, np.pi, nbox).astype(np.float32)
+        present[:nbox] = 1.0
 
         # points: room clutter, then samples inside each box
         n_clutter = self.num_points // 2
@@ -79,10 +86,38 @@ class SyntheticDetectionDataset:
             pc = np.concatenate([pc, pad], axis=0)
         rng.shuffle(pc, axis=0)
 
+        pc_min = pc.min(axis=0)
+        pc_max = pc.max(axis=0)
+        scene_scale = np.clip(pc_max - pc_min, 1e-1, None)
+        angle_cls = np.zeros((max_obj,), np.int64)
+        angle_res = np.zeros((max_obj,), np.float32)
+        if self.use_angles:
+            ac, ar = box_ops.angle2class_np(angles, self.dataset_config.num_angle_bin)
+            angle_cls = ac.astype(np.int64)
+            angle_res = ar.astype(np.float32)
+        cam = box_ops.flip_axis_to_camera_np(centers[None])
+        corners_cam = box_ops.get_3d_box_batch_np(sizes[None], angles[None], cam)[0]
+        corners_xyz = box_ops.get_3d_box_batch_xyz_np(sizes[None], angles[None], centers[None])[0]
+        box = present[:, None]
+
         sample = {
             "point_clouds": pc.astype(np.float32),
-            "point_cloud_dims_min": pc.min(axis=0).astype(np.float32),
-            "point_cloud_dims_max": pc.max(axis=0).astype(np.float32),
+            "point_cloud_dims_min": pc_min.astype(np.float32),
+            "point_cloud_dims_max": pc_max.astype(np.float32),
+            "gt_box_corners": (corners_cam * box[..., None]).astype(np.float32),
+            "gt_box_corners_xyz": (corners_xyz * box[..., None]).astype(np.float32),
+            "gt_box_centers": centers * box,
+            "gt_box_centers_normalized": (centers - pc_min) / scene_scale * box,
+            "gt_box_sizes": sizes * box,
+            "gt_box_sizes_normalized": sizes / scene_scale * box,
+            "gt_box_angles": angles * present,
+            "gt_angle_class_label": (angle_cls * present).astype(np.int64),
+            "gt_angle_residual_label": angle_res * present,
+            "gt_box_sem_cls_label": np.zeros((max_obj,), np.int64),
+            "gt_box_present": present,
+            "gt_box_seen_sem_cls_label": np.zeros((max_obj,), np.int64),
+            "gt_box_seen_sem_cls_confi": present.astype(np.float32),
+            "scan_idx": np.int64(idx),
         }
         if self.with_images:
             h, w = self.image_hw

@@ -1,19 +1,37 @@
-"""Eval step (PyTorch).
+"""Train and eval steps (PyTorch).
 
-Counterpart of coda_neurips2023_tpu/engine.py :: make_eval_step (:176-225):
-the detector's eval forward, the chosen decoder layer's outputs, and class
-scores either from the distillation head against a text bank or, with
-`clip_crop_fn`, from CLIP crops of the predicted boxes.  Training and the
-AP loop come later.
+Counterpart of coda_neurips2023_tpu/engine.py:
+  * `make_train_step` (:90-173): forward in training mode, the criterion,
+    backward, the optimizer update with a runtime learning rate, and the
+    BatchNorm statistics (updated by the forward itself);
+  * `train_one_epoch` (:247-347): the epoch loop, with the losses kept on the
+    device and checked for finiteness every `log_every` steps, aborting as
+    the reference does;
+  * `make_eval_step` (:176-225): the detector's eval forward, the chosen
+    decoder layer's outputs, and class scores either from the distillation
+    head against a text bank or, with `clip_crop_fn`, from CLIP crops of the
+    predicted boxes.
+The AP loop and checkpoints come later.
 """
 
 from __future__ import annotations
 
+import math
+import sys
+import time
 from typing import Callable, Optional
 
 import torch
 
 from coda_neurips2023_tpu_torch.models.model_3detr import get_class_scores
+
+# keys of the batch the criterion reads as targets
+TARGET_KEYS = (
+    "gt_box_corners", "gt_box_centers_normalized", "gt_box_sizes_normalized",
+    "gt_box_angles", "gt_angle_class_label", "gt_angle_residual_label",
+    "gt_box_sem_cls_label", "gt_box_present", "gt_box_seen_sem_cls_label",
+    "gt_box_seen_sem_cls_confi",
+)
 
 EVAL_KEYS = (
     "box_corners", "sem_cls_prob", "objectness_prob", "center_unnormalized",
@@ -60,3 +78,82 @@ def make_eval_step(
         return {k: last[k] for k in EVAL_KEYS}
 
     return eval_step
+
+
+def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable] = None):
+    """Returns train_step(batch, generator) -> metrics.
+
+    `batch` holds the forward's inputs and the TARGET_KEYS on the model's
+    device; `generator` feeds dropout.  The learning rate is a runtime
+    input: `batch["lr"]` when present (a float or 0-d tensor), else
+    lr_schedule(steps taken so far).  The step leaves each parameter's
+    gradient in `.grad`; `metrics` holds the total loss, the lr and every
+    loss term, as 0-d tensors on the device (nothing syncs but the
+    matcher's one host round trip).  The phases run inside
+    `torch.profiler.record_function` ranges ("train:forward",
+    "train:criterion", "train:backward", "train:optimizer").
+    """
+    record = torch.profiler.record_function
+
+    def train_step(batch: dict, generator: Optional[torch.Generator] = None) -> dict:
+        model.train()
+        lr = batch.get("lr")
+        if lr is None:
+            if lr_schedule is None:
+                raise ValueError("no learning rate: pass batch['lr'] or lr_schedule=")
+            lr = lr_schedule(optimizer.count)
+        optimizer.zero_grad()
+        with record("train:forward"):
+            outputs = model(batch, generator=generator)
+        with record("train:criterion"):
+            targets = {k: batch[k] for k in TARGET_KEYS if k in batch}
+            loss, loss_dict = criterion(outputs, targets)
+        with record("train:backward"):
+            loss.backward()
+        with record("train:optimizer"):
+            optimizer.step(lr)
+        lr = torch.as_tensor(lr, dtype=torch.float32)
+        return {"loss": loss.detach(), "lr": lr,
+                **{k: v.detach() for k, v in loss_dict.items()}}
+
+    return train_step
+
+
+def train_one_epoch(train_step, batches, generator=None, curr_epoch: int = 0,
+                    log_every: int = 10, lr_fn: Optional[Callable] = None, log=print):
+    """Run `train_step` over `batches` (dicts on the device).
+
+    `lr_fn(it)` gives each iteration's learning rate (else the step's own
+    schedule).  Losses stay on the device; every `log_every` iterations, and
+    at the end, they are read back, and a non-finite one stops the run with
+    exit code 1 (the reference's per-step abort, at most log_every - 1 steps
+    late).  Returns the last step's metrics.
+    """
+    pending = []
+    total, seen = 0.0, 0
+    metrics = {}
+
+    def drain():
+        nonlocal total, seen
+        values = [float(x) for x in pending]
+        pending.clear()
+        for v in values:
+            if not math.isfinite(v):
+                log("Loss in not finite. Training will be stopped.")
+                sys.exit(1)
+            total += v
+            seen += 1
+
+    t0 = time.perf_counter()
+    for it, batch in enumerate(batches):
+        if lr_fn is not None:
+            batch = dict(batch, lr=lr_fn(it))
+        metrics = train_step(batch, generator)
+        pending.append(metrics["loss"])
+        if it % log_every == 0:
+            drain()
+            ms = (time.perf_counter() - t0) * 1e3 / (it + 1)
+            log(f"Epoch [{curr_epoch}] iter [{it}] loss {total / max(seen, 1):.4f} "
+                f"iter_time {ms:.0f}ms")
+    drain()
+    return metrics

@@ -16,4 +16,7 @@ MODEL_FUNCS = {
 
 
 def build_model(args, dataset_config, device=None):
+    """(model, box processor) for `args.model_name`, in training mode (a new
+    module's default), with dropout from args.mlp_dropout, args.enc_dropout
+    and args.dec_dropout; call `.eval()` for the eval forward."""
     return MODEL_FUNCS[args.model_name](args, dataset_config, device=device)

@@ -6,8 +6,16 @@ Conv2d weight (O, I, 1, 1), a Linear weight (O, I)), so `load_state_dict`
 takes reference-format weights as they are; the layers apply them
 channels-last, over the last axis of (..., C), with `F.linear`.
 
-BatchNorm runs at eval only, from its running statistics: the port is
-inference only so far, and a module left in training mode raises.
+BatchNorm and dropout follow flax in training mode (`train()`):
+  * BatchNorm normalizes with the biased batch variance over every axis but
+    the channel, computed as flax 0.12 does (use_fast_variance):
+    max(E[x^2] - E[x]^2, 0), eps 1e-5; the running statistics move to
+    0.9 * old + 0.1 * batch with that same variance (torch.nn.BatchNorm
+    would store the unbiased one), under no_grad.  In eval mode it
+    normalizes with the running statistics.
+  * Dropout keeps an element with probability 1 - rate and scales it by
+    1 / (1 - rate), drawing its mask from the explicit `torch.Generator`
+    the forward is given (the default generator when None).
 """
 
 from __future__ import annotations
@@ -39,8 +47,32 @@ class Dense(nn.Module):
         return F.linear(x, w, self.bias)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax nn.Dropout: where(keep, x / keep_prob, 0); identity at eval or rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """`dropout` as a module; forward(x, generator) draws from `generator`."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator)
+
+
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm at eval: (x - mean) * (scale / sqrt(var + eps)) + bias."""
+    """Channels-last BatchNorm: (x - mean) * (scale / sqrt(var + eps)) + bias,
+    with batch statistics in training mode and running ones at eval."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -53,10 +85,19 @@ class BatchNorm(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training is not ported yet; call .eval()")
-        mul = torch.rsqrt(self.running_var + EPS) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + EPS) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class LayerNorm(nn.Module):
@@ -100,8 +141,8 @@ class GenericMLP(nn.Module):
             if norm:
                 layers.append(BatchNorm(h, device=device))
             layers.append(act())
-            if dropout:
-                layers.append(nn.Dropout(dropout))
+            if dropout is not None:  # a rate of 0 keeps the slot: state-dict indices
+                layers.append(Dropout(dropout))
             prev = h
         layers.append(Dense(prev, output_dim, bias=output_use_bias, kernel_dims=1, device=device))
         if output_use_norm and norm:
@@ -110,9 +151,11 @@ class GenericMLP(nn.Module):
             layers.append(act())
         self.layers = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (..., input_dim) -> (..., output_dim)."""
-        return self.layers(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (..., input_dim) -> (..., output_dim); `generator` feeds dropout."""
+        for layer in self.layers:
+            x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+        return x
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""3DETR trunk with CoDA's heads (PyTorch): the eval forward.
+"""3DETR trunk with CoDA's heads (PyTorch): the eval and training forward.
 
 Counterpart of coda_neurips2023_tpu/models/model_3detr.py.  Parameter names
 are the reference state dict's (as `utils.torch_convert.
@@ -7,8 +7,13 @@ export_reference_state_dict` in the JAX package writes them), so
 
 Like the JAX module, the forward returns a dict of per-decoder-layer
 tensors with a leading layer axis (`query_xyz`, `enc_xyz` and `enc_inds`
-excepted).  Only eval is ported: call `.eval()` first (BatchNorm raises in
-training mode), and run under `torch.inference_mode()` for the kernels.
+excepted); the criterion reads every layer.  `.eval()` gives the eval
+forward; in training mode (`.train()`, the default of a new module)
+BatchNorm uses batch statistics and updates its running ones, and dropout
+(MLP heads `mlp_dropout`, encoder `enc_dropout`, decoder `dec_dropout`)
+draws from the `generator` given to the forward.  `sem_cls_prob` and
+`objectness_prob` carry no gradient, as in the JAX module (they only feed
+the matcher).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from coda_neurips2023_tpu_torch.models.position_embedding import PositionEmbeddi
 from coda_neurips2023_tpu_torch.models.transformer import TransformerDecoder, TransformerEncoder
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 
+
 class CoDA3DETR(nn.Module):
     """Class-agnostic 3DETR trunk with CoDA's six MLP heads."""
 
@@ -38,10 +44,12 @@ class CoDA3DETR(nn.Module):
         enc_nlayers: int = 3,
         enc_nhead: int = 4,
         enc_ffn_dim: int = 128,
+        enc_dropout: float = 0.1,
         enc_activation: str = "relu",
         dec_nlayers: int = 8,
         dec_nhead: int = 4,
         dec_ffn_dim: int = 256,
+        dec_dropout: float = 0.1,
         preenc_npoints: int = 2048,
         nqueries: int = 128,
         mlp_dropout: float = 0.3,
@@ -61,7 +69,8 @@ class CoDA3DETR(nn.Module):
             device=device,
         )
         self.encoder = TransformerEncoder(
-            enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, device=device
+            enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, enc_dropout,
+            device=device,
         )
         self.encoder_to_decoder_projection = GenericMLP(
             enc_dim, (512, 512), dec_dim, norm="bn1d", output_use_activation=True,
@@ -75,7 +84,7 @@ class CoDA3DETR(nn.Module):
             output_use_activation=True, device=device,
         )
         self.decoder = TransformerDecoder(
-            dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, device=device
+            dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, dec_dropout, device=device
         )
         out_dims = {
             "sem_cls_head": num_cls_predict + 1,
@@ -96,10 +105,10 @@ class CoDA3DETR(nn.Module):
         })
         self.box_processor = BoxProcessor(dataset_config)
 
-    def run_encoder(self, point_clouds):
+    def run_encoder(self, point_clouds, generator=None):
         xyz = point_clouds[..., 0:3].contiguous()
         pre_xyz, pre_feat, pre_inds = self.pre_encoder(xyz)
-        enc_xyz, enc_feat, _ = self.encoder(pre_feat, xyz=pre_xyz)
+        enc_xyz, enc_feat, _ = self.encoder(pre_feat, xyz=pre_xyz, generator=generator)
         return enc_xyz, enc_feat, pre_inds
 
     def get_query_embeddings(self, enc_xyz, point_cloud_dims):
@@ -108,15 +117,16 @@ class CoDA3DETR(nn.Module):
         pos_embed = self.pos_embedding(query_xyz, input_range=point_cloud_dims)
         return query_xyz, self.query_projection(pos_embed)
 
-    def get_box_predictions(self, query_xyz, point_cloud_dims, box_features):
+    def get_box_predictions(self, query_xyz, point_cloud_dims, box_features, generator=None):
         """box_features: (L, B, nq, dec_dim) -> dict of stacked per-layer outputs."""
         bp = self.box_processor
         heads = self.mlp_heads
-        cls_logits = heads["sem_cls_head"](box_features)
-        center_offset = torch.sigmoid(heads["center_head"](box_features)) - 0.5
-        size_normalized = torch.sigmoid(heads["size_head"](box_features))
-        angle_logits = heads["angle_cls_head"](box_features)
-        angle_residual_normalized = heads["angle_residual_head"](box_features)
+        x, g = box_features, generator
+        cls_logits = heads["sem_cls_head"](x, g)
+        center_offset = torch.sigmoid(heads["center_head"](x, g)) - 0.5
+        size_normalized = torch.sigmoid(heads["size_head"](x, g))
+        angle_logits = heads["angle_cls_head"](x, g)
+        angle_residual_normalized = heads["angle_residual_head"](x, g)
         angle_residual = angle_residual_normalized * (
             math.pi / angle_residual_normalized.shape[-1]
         )
@@ -126,7 +136,7 @@ class CoDA3DETR(nn.Module):
         )
         angle = bp.compute_predicted_angle(angle_logits, angle_residual)
         size_unnorm = bp.compute_predicted_size(size_normalized, point_cloud_dims)
-        semcls_prob, objectness_prob = bp.compute_objectness_and_cls_prob(cls_logits)
+        semcls_prob, objectness_prob = bp.compute_objectness_and_cls_prob(cls_logits.detach())
         out = {
             "sem_cls_logits": cls_logits,
             "center_offset": center_offset,
@@ -146,19 +156,22 @@ class CoDA3DETR(nn.Module):
             "objectness_prob": objectness_prob,
         }
         if "text_correlation_head" in heads:
-            out["text_correlation_embedding"] = heads["text_correlation_head"](box_features)
+            out["text_correlation_embedding"] = heads["text_correlation_head"](x, g)
         return out
 
-    def forward(self, inputs: dict):
-        enc_xyz, enc_features, enc_inds = self.run_encoder(inputs["point_clouds"])
+    def forward(self, inputs: dict, generator=None):
+        """`generator` feeds dropout in training mode (the default generator
+        when None); the eval forward draws nothing."""
+        enc_xyz, enc_features, enc_inds = self.run_encoder(inputs["point_clouds"], generator)
         enc_features = self.encoder_to_decoder_projection(enc_features)
         point_cloud_dims = (inputs["point_cloud_dims_min"], inputs["point_cloud_dims_max"])
         query_xyz, query_embed = self.get_query_embeddings(enc_xyz, point_cloud_dims)
         enc_pos = self.pos_embedding(enc_xyz, input_range=point_cloud_dims)
         box_features = self.decoder(
-            torch.zeros_like(query_embed), enc_features, query_pos=query_embed, pos=enc_pos
+            torch.zeros_like(query_embed), enc_features, query_pos=query_embed, pos=enc_pos,
+            generator=generator,
         )
-        preds = self.get_box_predictions(query_xyz, point_cloud_dims, box_features)
+        preds = self.get_box_predictions(query_xyz, point_cloud_dims, box_features, generator)
         preds["query_xyz"] = query_xyz
         preds["enc_xyz"] = enc_xyz
         preds["enc_inds"] = enc_inds
@@ -188,10 +201,12 @@ def _model_kwargs_from_args(args, dataset_config, num_cls_predict, with_text_hea
         enc_nlayers=args.enc_nlayers,
         enc_nhead=args.enc_nhead,
         enc_ffn_dim=args.enc_ffn_dim,
+        enc_dropout=getattr(args, "enc_dropout", 0.1),
         enc_activation=args.enc_activation,
         dec_nlayers=args.dec_nlayers,
         dec_nhead=args.dec_nhead,
         dec_ffn_dim=args.dec_ffn_dim,
+        dec_dropout=getattr(args, "dec_dropout", 0.1),
         preenc_npoints=args.preenc_npoints,
         nqueries=args.nqueries,
         mlp_dropout=args.mlp_dropout,

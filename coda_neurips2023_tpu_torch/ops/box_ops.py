@@ -4,10 +4,15 @@ Counterparts of coda_neurips2023_tpu/ops/box_ops.py:20-147, the part the
 detector's forward uses: corner parametrizations (camera frame and upright
 xyz frame), the depth-to-camera axis flip, and the scene-extent point
 normalization.  All functions broadcast over leading dimensions.
+
+The `*_np` functions are the numpy twins the ground truth is built with
+(box_ops.py:157-243 there), written in the same operations and order so the
+synthetic scenes' box fields are bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -72,3 +77,72 @@ def shift_scale_points(pred_xyz, src_range, dst_range=None) -> torch.Tensor:
 def scale_points(pred_xyz, mult_factor) -> torch.Tensor:
     """(B, N, 3) * (B, 3) broadcast scale."""
     return pred_xyz * mult_factor[:, None, :]
+
+
+# ---------------------------------------------------------------- numpy twins
+
+
+def _roty_batch_np(t):
+    c, s = np.cos(t), np.sin(t)
+    out = np.zeros(t.shape + (3, 3), np.float32)
+    out[..., 0, 0] = c
+    out[..., 0, 2] = s
+    out[..., 1, 1] = 1
+    out[..., 2, 0] = -s
+    out[..., 2, 2] = c
+    return out
+
+
+def _rotz_batch_np(t):
+    c, s = np.cos(t), np.sin(t)
+    out = np.zeros(t.shape + (3, 3), np.float32)
+    out[..., 0, 0] = c
+    out[..., 0, 1] = -s
+    out[..., 1, 0] = s
+    out[..., 1, 1] = c
+    out[..., 2, 2] = 1
+    return out
+
+
+def flip_axis_to_camera_np(pc: np.ndarray) -> np.ndarray:
+    return np.stack([pc[..., 0], -pc[..., 2], pc[..., 1]], axis=-1)
+
+
+def _half_extents_np(box_size):
+    box_size = np.asarray(box_size, np.float32)
+    return box_size[..., 0:1] / 2, box_size[..., 1:2] / 2, box_size[..., 2:3] / 2
+
+
+def _corners_np(x, y, z, rot, center):
+    corners = np.einsum("...ij,...kj->...ik", np.stack([x, y, z], axis=-1), rot)
+    return corners + np.asarray(center, np.float32)[..., None, :]
+
+
+def get_3d_box_batch_np(box_size, angle, center) -> np.ndarray:
+    """numpy `get_3d_box_batch`: camera-frame corners (..., 8, 3)."""
+    l, w, h = _half_extents_np(box_size)
+    x = np.concatenate([l, l, -l, -l, l, l, -l, -l], axis=-1)
+    y = np.concatenate([h, h, h, h, -h, -h, -h, -h], axis=-1)
+    z = np.concatenate([w, -w, -w, w, w, -w, -w, w], axis=-1)
+    return _corners_np(x, y, z, _roty_batch_np(np.asarray(angle, np.float32)), center)
+
+
+def get_3d_box_batch_xyz_np(box_size, angle, center) -> np.ndarray:
+    """numpy `get_3d_box_batch_xyz`: upright-frame corners (..., 8, 3)."""
+    l, w, h = _half_extents_np(box_size)
+    x = np.concatenate([-l, l, l, -l, -l, l, l, -l], axis=-1)
+    y = np.concatenate([w, w, -w, -w, w, w, -w, -w], axis=-1)
+    z = np.concatenate([h, h, h, h, -h, -h, -h, -h], axis=-1)
+    return _corners_np(x, y, z, _rotz_batch_np(-np.asarray(angle, np.float32)), center)
+
+
+def angle2class_np(angle, num_angle_bin: int):
+    """Heading angle -> (bin in [0, num_angle_bin), residual from the bin centre)."""
+    angle = np.asarray(angle, np.float32)
+    two_pi = 2 * np.pi
+    angle = angle % two_pi
+    angle_per_class = two_pi / float(num_angle_bin)
+    shifted = (angle + angle_per_class / 2) % two_pi
+    class_id = np.floor(shifted / angle_per_class).astype(np.int32)
+    residual = shifted - (class_id.astype(angle.dtype) * angle_per_class + angle_per_class / 2)
+    return class_id, residual

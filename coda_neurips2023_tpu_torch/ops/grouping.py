@@ -1,4 +1,4 @@
-"""Ball query and grouping (PyTorch + kernels B and C).
+"""Ball query and grouping (PyTorch + kernels B, C and F).
 
 Counterparts of coda_neurips2023_tpu/ops/grouping.py:
   * `ball_query`: for each centre, the first `nsample` point indices, in
@@ -7,20 +7,28 @@ Counterparts of coda_neurips2023_tpu/ops/grouping.py:
     it launches kernel B (csrc/ball_query.cu); on a CPU tensor it takes the
     plain version below.
   * `group_points`: the batched gather out[b, m, k] = features[b, idx[b, m, k]].
-    Kernel C (csrc/gather.cu) on CUDA, `torch.gather` on the CPU.
-  * `query_and_group`: the two above, re-centred and radius-normalized.
+    Kernel C (csrc/gather.cu) on CUDA, `torch.gather` on the CPU.  It is an
+    autograd Function: the backward is the scatter-add of the JAX package's
+    custom VJP (grouping.py:169-178), in plain PyTorch (`index_add_`).
+  * `ball_query_group`: both in one pass, `ball_query` then `group_points` of
+    the coordinates.  Kernel F (csrc/ball_query_group.cu) on CUDA.
+  * `query_and_group`: the above, re-centred and radius-normalized; with
+    CODA_BQ_FUSED_GATHER=1 (read at call time, as in the JAX package) it
+    takes `ball_query_group`, otherwise `ball_query` then `group_points`.
 
 Distances are written out as ((dx*dx + dy*dy) + dz*dz), elementwise, in the
-kernel's order, so the plain version and kernel B agree bit for bit.  (The
-JAX package's CPU path uses |a|^2 + |b|^2 - 2ab instead, which can flip a hit
-lying exactly on the radius; see its grouping.py:22-27.)
+kernel's order, so the plain version and kernels B and F agree bit for bit.
+(The JAX package's CPU path uses |a|^2 + |b|^2 - 2ab instead, which can flip
+a hit lying exactly on the radius; see its grouping.py:22-27.)
 
-Indices are int32 in and out, as in the JAX package.  The kernels are
-inference only.  No TPU size gate is carried over: every CUDA call launches
-its kernel.
+Indices are int32 in and out, as in the JAX package.  Point coordinates take
+no gradient: B and F refuse inputs that require one.  No TPU size gate is
+carried over: every CUDA call launches its kernel.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -30,6 +38,19 @@ from coda_neurips2023_tpu_torch import _kernels
 def _check_points(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
         raise ValueError(f"{name}: expected float32 (B, N, 3), got {t.dtype} {tuple(t.shape)}")
+
+
+def _check_query(nsample: int, xyz, new_xyz) -> None:
+    _check_points("xyz", xyz)
+    _check_points("new_xyz", new_xyz)
+    if new_xyz.shape[0] != xyz.shape[0] or xyz.device != new_xyz.device:
+        raise ValueError("xyz and new_xyz must share batch size and device")
+    if nsample < 1:
+        raise ValueError(f"nsample must be >= 1, got {nsample}")
+    if xyz.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ball query: unsupported device {xyz.device}")
+    if xyz.device.type == "cuda" and not (xyz.is_contiguous() and new_xyz.is_contiguous()):
+        raise ValueError("ball query: inputs must be contiguous")
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,21 +90,12 @@ def ball_query_plain(radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """xyz: (B, N, 3) points, new_xyz: (B, M, 3) centres -> (B, M, nsample) int32."""
-    _check_points("xyz", xyz)
-    _check_points("new_xyz", new_xyz)
-    if new_xyz.shape[0] != xyz.shape[0] or xyz.device != new_xyz.device:
-        raise ValueError("xyz and new_xyz must share batch size and device")
-    if nsample < 1:
-        raise ValueError(f"nsample must be >= 1, got {nsample}")
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
+    _check_query(nsample, xyz, new_xyz)
     if xyz.device.type == "cpu":
         return ball_query_plain(radius, nsample, xyz, new_xyz)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"ball_query: unsupported device {xyz.device}")
-    if not (xyz.is_contiguous() and new_xyz.is_contiguous()):
-        raise ValueError("ball_query: inputs must be contiguous")
-    _kernels.check_cuda_inference(xyz, new_xyz)
+    _kernels.check_no_grad("ball_query", xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
     out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
     _kernels.launch(
         "coda_ball_query", xyz, new_xyz, out, b, n, m, nsample, float(_r2(radius))
@@ -99,6 +111,42 @@ def group_points_plain(features: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     return torch.gather(features, 1, flat).reshape(b, m, k, c)
 
 
+def _gather_kernel(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    b, n, c = features.shape
+    _, m, k = idx.shape
+    out = torch.empty((b, m, k, c), dtype=torch.float32, device=features.device)
+    _kernels.launch("coda_gather", features, idx, out, b, n, m * k, c)
+    return out
+
+
+def scatter_add_grouped(grad: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Backward of `group_points`: grad (B, M, K, C) summed into (B, N, C) at
+    the gathered rows (the JAX package's `.at[...].add`, grouping.py:169-178)."""
+    b, m, k, c = grad.shape
+    rows = (idx.long() + n * torch.arange(b, device=idx.device)[:, None, None]).reshape(-1)
+    out = torch.zeros((b * n, c), dtype=grad.dtype, device=grad.device)
+    out.index_add_(0, rows, grad.reshape(b * m * k, c))
+    return out.reshape(b, n, c)
+
+
+class GroupPoints(torch.autograd.Function):
+    """Forward: kernel C on a CUDA tensor, the plain gather on a CPU one.
+    Backward: the scatter-add, on either.  idx takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, features, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = features.shape[1]
+        if features.device.type == "cpu":
+            return group_points_plain(features, idx)
+        return _gather_kernel(features, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return scatter_add_grouped(grad, idx, ctx.n), None
+
+
 def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """features: (B, N, C) float32, idx: (B, M, K) int32 -> (B, M, K, C)."""
     if features.dtype != torch.float32 or features.dim() != 3:
@@ -107,18 +155,38 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"idx: expected int32 (B, M, K), got {idx.dtype} {tuple(idx.shape)}")
     if idx.device != features.device:
         raise ValueError("features and idx must share a device")
-    b, n, c = features.shape
-    _, m, k = idx.shape
-    if features.device.type == "cpu":
-        return group_points_plain(features, idx)
-    if features.device.type != "cuda":
+    if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"group_points: unsupported device {features.device}")
-    if not (features.is_contiguous() and idx.is_contiguous()):
+    if features.device.type == "cuda" and not (features.is_contiguous() and idx.is_contiguous()):
         raise ValueError("group_points: inputs must be contiguous")
-    _kernels.check_cuda_inference(features)
-    out = torch.empty((b, m, k, c), dtype=torch.float32, device=features.device)
-    _kernels.launch("coda_gather", features, idx, out, b, n, m * k, c)
-    return out
+    return GroupPoints.apply(features, idx)
+
+
+def ball_query_group_plain(radius: float, nsample: int, xyz, new_xyz):
+    """Plain PyTorch version of `ball_query_group`: `ball_query_plain`, then
+    `group_points_plain` of the coordinates."""
+    idx = ball_query_plain(radius, nsample, xyz, new_xyz)
+    return idx, group_points_plain(xyz, idx)
+
+
+def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """xyz (B, N, 3), new_xyz (B, M, 3) -> (idx (B, M, nsample) int32,
+    grouped (B, M, nsample, 3) = xyz gathered at idx)."""
+    _check_query(nsample, xyz, new_xyz)
+    b, n, _ = xyz.shape
+    if n < 1:
+        raise ValueError("ball_query_group: needs N >= 1 (a row with no hit takes point 0)")
+    if xyz.device.type == "cpu":
+        return ball_query_group_plain(radius, nsample, xyz, new_xyz)
+    _kernels.check_no_grad("ball_query_group", xyz, new_xyz)
+    m = new_xyz.shape[1]
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    grouped = torch.empty((b, m, nsample, 3), dtype=torch.float32, device=xyz.device)
+    _kernels.launch(
+        "coda_ball_query_group", xyz, new_xyz, idx, grouped, b, n, m, nsample,
+        float(_r2(radius)),
+    )
+    return idx, grouped
 
 
 def query_and_group(radius: float, nsample: int, xyz, new_xyz, normalize_xyz: bool = False):
@@ -128,8 +196,11 @@ def query_and_group(radius: float, nsample: int, xyz, new_xyz, normalize_xyz: bo
     Returns (new_features, grouped_xyz), both (B, M, nsample, 3): without
     point features the two are the same tensor, as in the JAX package.
     """
-    idx = ball_query(radius, nsample, xyz, new_xyz)
-    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if os.environ.get("CODA_BQ_FUSED_GATHER", "0") == "1":
+        _, grouped = ball_query_group(radius, nsample, xyz, new_xyz)
+    else:
+        grouped = group_points(xyz, ball_query(radius, nsample, xyz, new_xyz))
+    grouped_xyz = grouped - new_xyz[:, :, None, :]
     if normalize_xyz:
         grouped_xyz = grouped_xyz / radius
     return grouped_xyz, grouped_xyz

@@ -60,7 +60,7 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     max_n = _kernels.library().coda_fps_max_points()
     if n > max_n:
         raise ValueError(f"furthest_point_sample: N={n} exceeds the kernel's {max_n}")
-    _kernels.check_cuda_inference(xyz)
+    _kernels.check_no_grad("furthest_point_sample", xyz)
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     _kernels.launch("coda_fps", xyz, out, b, n, npoint)
     return out

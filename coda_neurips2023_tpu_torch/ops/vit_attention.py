@@ -60,7 +60,7 @@ def vit_attention(q, k, v) -> torch.Tensor:
         raise ValueError(f"vit_attention: S={s} at D={d} needs more shared memory than a block has")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("vit_attention: inputs must be contiguous and 16-byte aligned")
-    _kernels.check_cuda_inference(q, k, v)
+    _kernels.check_no_grad("vit_attention", q, k, v)
     out = torch.empty_like(q)
     _kernels.launch("coda_vit_attention", q, k, v, out, b * h, s, d, 1.0 / math.sqrt(d))
     return out

@@ -22,7 +22,10 @@ there, so flax CLIP weights load into the port under OpenAI's names:
   resblock{i}/c_fc, c_proj           -> ...resblocks.{i}.mlp.c_fc, mlp.c_proj
   token_embedding/embedding          -> token_embedding.weight
 
-`to_torch` wraps either result for `load_state_dict(strict=True)`.
+`grads_from_flax` maps a gradient tree of the CoDA3DETR params (same
+structure as `params`) onto the port's parameter names, so gradients of the
+two packages can be compared.  `to_torch` wraps either state dict for
+`load_state_dict(strict=True)`.
 """
 
 from __future__ import annotations
@@ -145,6 +148,21 @@ def state_dict_from_flax(params: dict, batch_stats: dict, constants: dict) -> Di
     if gauss_b is not None:
         sd["pos_embedding.gauss_B"] = np.asarray(gauss_b)
     return sd
+
+
+def _stats_like(tree):
+    """A stand-in batch_stats tree: zero statistics for every norm of `tree`."""
+    if "scale" in tree:
+        return {"mean": np.zeros_like(tree["scale"]), "var": np.zeros_like(tree["scale"])}
+    return {k: _stats_like(v) for k, v in tree.items() if isinstance(v, dict)}
+
+
+def grads_from_flax(grads: dict) -> Dict[str, np.ndarray]:
+    """Gradients w.r.t. CoDA3DETR flax params -> {port parameter name: array}
+    (buffers such as BatchNorm statistics have none and are left out)."""
+    sd = state_dict_from_flax(grads, _stats_like(grads), {})
+    buffers = ("running_mean", "running_var", "num_batches_tracked")
+    return {k: v for k, v in sd.items() if not k.endswith(buffers)}
 
 
 def _clip_blocks(tree, sd, prefix):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the port's eval step spends its time on the GPU.
+"""Where the port's eval or training step spends its time on the GPU.
 
-    python3 scripts/profile_torch_eval.py [--batch 32] [--points 20000] [--clip]
+    python3 scripts/profile_torch_eval.py [--batch B] [--points 20000] [--clip | --train]
 
 Builds the flagship CoDA model (random weights from a seed), warms the eval
 step up, then traces STEPS steps with torch.profiler and prints the device
@@ -9,11 +9,15 @@ time by kernel, the device time by phase of the forward (record_function
 ranges), and the device's busy share of the traced wall time.  With --clip
 it profiles the baseline detector's CLIP-crop eval step instead (ViT-B/16,
 531 x 730 images), with the detector, the crops and the image tower as
-phases.  Needs a GPU.
+phases.  With --train it profiles the baseline detector's training step
+(scripts/coda_baseline_sunrgbd.sh, B=8 by default, CODA_BQ_FUSED_GATHER=1),
+with the step's own ranges (forward; criterion with gIoU and matcher;
+backward; optimizer) as phases, and the matcher's host time.  Needs a GPU.
 """
 
 import argparse
 import os
+import statistics
 import sys
 import time
 import types
@@ -30,10 +34,17 @@ from coda_neurips2023_tpu_torch.datasets.synthetic import (  # noqa: E402
     SyntheticDetectionDataset,
     make_batch,
 )
-from coda_neurips2023_tpu_torch.engine import make_eval_step  # noqa: E402
+import chip_smoke  # noqa: E402
+from coda_neurips2023_tpu_torch.criterion import build_criterion  # noqa: E402
+from coda_neurips2023_tpu_torch.engine import (  # noqa: E402
+    TARGET_KEYS,
+    make_eval_step,
+    make_train_step,
+)
 from coda_neurips2023_tpu_torch.models.helpers import reset_parameters  # noqa: E402
 from coda_neurips2023_tpu_torch.models import distillation  # noqa: E402
 from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR  # noqa: E402
+from coda_neurips2023_tpu_torch.optimizer import build_optimizer  # noqa: E402
 from coda_neurips2023_tpu_torch.stages import StageContext  # noqa: E402
 
 STEPS = 3
@@ -41,11 +52,15 @@ STEPS = 3
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--batch", type=int, default=None, help="32 (eval) or 8 (--train)")
     ap.add_argument("--points", type=int, default=20000)
     ap.add_argument("--clip", action="store_true",
                     help="profile the CLIP-crop eval step of the baseline detector")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the baseline detector's training step")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 8 if args.train else 32
     if not torch.cuda.is_available():
         sys.exit("profile_torch_eval: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,9 +72,20 @@ def main():
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_batch(ds, 0, args.batch).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = reset_parameters(
-        CoDA3DETR(cfg, with_text_head=not args.clip, device="cuda"), gen
+        CoDA3DETR(cfg, with_text_head=not (args.clip or args.train), device="cuda"), gen
     ).eval()
-    if args.clip:
+    criterion = None
+    if args.train:
+        os.environ["CODA_BQ_FUSED_GATHER"] = "1"
+        train_args = types.SimpleNamespace(**chip_smoke.TRAIN_ARGS)
+        criterion = build_criterion(train_args, cfg)
+        optimizer, schedule = build_optimizer(train_args, model.train(), 600)
+        train_step = make_train_step(model, criterion, optimizer, lr_schedule=schedule)
+        phases = {}
+
+        def step(b):
+            return train_step(b, gen)
+    elif args.clip:
         stage_args = types.SimpleNamespace(
             train_range_max=10, test_range_max=46, if_clip_more_prompts=True,
             if_clip_superset=False, clip_model_path=None, dataset_name="sunrgbd",
@@ -84,7 +110,7 @@ def main():
             "enc_to_dec": model.encoder_to_decoder_projection, "decoder": model.decoder,
         }
         phases.update({f"heads.{n}": m for n, m in model.mlp_heads.items()})
-    for name, module in phases.items():
+    for name, module in phases.items():  # the training step has its own ranges
         def pre(_m, _a, name=name):
             _m._range = torch.profiler.record_function("phase:" + name)
             _m._range.__enter__()
@@ -106,9 +132,12 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
+    if criterion is not None:
+        print(f"matcher host ms (last step): {criterion.matcher.last_host_ms!r}")
     events = prof.key_averages()
     on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in on_device if not e.key.startswith("phase:")]
+    ranges = ("phase:", "train:")
+    kernels = [e for e in on_device if not e.key.startswith(ranges)]
     dev_total = sum(e.self_device_time_total for e in kernels)
     print(f"device {torch.cuda.get_device_name(0)}; {STEPS} steps of B={args.batch} "
           f"x {args.points} points")
@@ -120,8 +149,39 @@ def main():
         print(f"  {t / STEPS / 1e3:10.3f}  {t / dev_total:6.1%}  x{e.count // STEPS:<5d} {e.key[:90]}")
     print("device time by phase (ms/step, span on the device):")
     for e in on_device:
-        if e.key.startswith("phase:"):
+        if e.key.startswith(ranges):
             print(f"  {e.self_device_time_total / STEPS / 1e3:10.3f}  {e.key[6:]}")
+    print("host time by phase (ms/step, the range on the host's clock):")
+    for e in events:
+        if e.key.startswith(ranges) and e.device_type == torch.autograd.DeviceType.CPU:
+            print(f"  {e.cpu_time_total / STEPS / 1e3:10.3f}  {e.key[6:]}")
+    if args.train:
+        # the backward runs on autograd's device thread, outside the step's
+        # ranges: time the step's four parts again with a sync between them
+        print("training step by part (ms/step, host clock with a sync at each boundary, median):")
+        parts = {"forward": [], "criterion": [], "backward": [], "optimizer": []}
+        targets = [k for k in TARGET_KEYS if k in batch]
+        for _ in range(STEPS):
+            optimizer.zero_grad()
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            outputs = model(batch, generator=gen)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss, _ = criterion(outputs, {k: batch[k] for k in targets})
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss.backward()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            optimizer.step(schedule(optimizer.count))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for name, a, b in zip(parts, t, t[1:]):
+                parts[name].append((b - a) * 1e3)
+        for name, ms in parts.items():
+            print(f"  {statistics.median(ms):10.3f}  {name}")
+        print(f"  {criterion.matcher.last_host_ms:10.3f}  of which the matcher on the host")
 
 
 if __name__ == "__main__":

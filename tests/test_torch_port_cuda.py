@@ -8,9 +8,12 @@ one (and nvcc), run them with
 (`--noconftest` because tests/conftest.py sets up JAX, which this file does
 not use).  The shapes here are the edge cases of each kernel (ragged tiles,
 no-hit rows, fully masked rows, every template instance); chip_smoke.py
-covers the eval forward's own shapes.  Indices and gathers must be bit-equal
-to the plain versions and the numpy golden models; both attention kernels
-agree within ATTN_TOL (fp32, summed in another order than cuBLAS).
+covers the eval and training paths' own shapes.  Indices and gathers must be
+bit-equal to the plain versions and the numpy golden models (kernel F also
+to kernel B followed by kernel C); both attention kernels agree within
+ATTN_TOL (fp32, summed in another order than cuBLAS), and so do D's
+gradients through its autograd Function and the gather's scatter-add
+backward with autograd of the plain versions.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ import torch
 from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import (
     ball_query,
+    ball_query_group,
+    ball_query_group_plain,
     ball_query_plain,
     group_points,
     group_points_plain,
@@ -74,6 +79,26 @@ def test_ball_query_kernel(dev, n, m, radius, k, scale):
         np.testing.assert_array_equal(got.cpu().numpy(), ball_query_golden(radius, k, xyz, new_xyz))
 
 
+# N < K, rows with no hit, K = 1, M not a multiple of the 8 centres a block
+@pytest.mark.parametrize("n,m,radius,k,scale", [(5, 16, 2.0, 64, 1.0), (300, 17, 0.15, 8, 1.0),
+                                                (300, 33, 0.5, 1, 0.25), (2048, 509, 0.4, 32, 1.0),
+                                                (20000, 203, 0.2, 64, 1.0)])
+def test_ball_query_group_kernel(dev, n, m, radius, k, scale):
+    xyz = _pc(m + 1, 2, n, scale)
+    new_xyz = np.concatenate([_pc(m + 2, 2, m - 2, scale), np.full((2, 2, 3), 50.0, np.float32)],
+                             axis=1)
+    a, b = torch.from_numpy(xyz).to(dev), torch.from_numpy(new_xyz).to(dev)
+    idx, grouped = ball_query_group(radius, k, a, b)
+    want_idx, want_grouped = ball_query_group_plain(radius, k, a, b)
+    assert torch.equal(idx, want_idx) and torch.equal(grouped, want_grouped)
+    via_b = ball_query(radius, k, a, b)
+    assert torch.equal(idx, via_b) and torch.equal(grouped, group_points(a, via_b))
+    assert torch.equal(idx[:, -2:], torch.zeros_like(idx[:, -2:]))  # no hit: point 0
+    assert torch.equal(grouped[:, -2:], a[:, None, None, 0].expand(2, 2, k, 3))
+    if n * m <= 20000:
+        np.testing.assert_array_equal(idx.cpu().numpy(), ball_query_golden(radius, k, xyz, new_xyz))
+
+
 @pytest.mark.parametrize("c", [1, 3, 5])
 def test_gather_kernel(dev, c):
     rng = np.random.default_rng(c)
@@ -97,6 +122,40 @@ def test_attention_kernel(dev, d, sq, skv, radius):
     args = (q, k, v, qxyz, kxyz_t, radius)
     err = (masked_attention(*args) - masked_attention_plain(*args)).abs().max().item()
     assert err <= ATTN_TOL
+
+
+@pytest.mark.parametrize("d,sq,skv,radius,dropout", [(64, 70, 130, 0.0, 0.0), (128, 5, 200, 0.0, 0.1),
+                                                     (32, 64, 64, 0.5, 0.0), (16, 33, 65, 0.0, 0.3),
+                                                     (64, 130, 200, 0.5, 0.1)])
+def test_attention_backward(dev, d, sq, skv, radius, dropout):
+    """dq, dk, dv through the Function (kernel forward, plain recompute) vs
+    autograd of the plain version, with and without attention-weight
+    dropout (the same mask from the same seed); the gather's scatter-add vs
+    autograd."""
+    g = torch.Generator(device=dev).manual_seed(d + sq)
+    leaves = [torch.randn(s, device=dev, generator=g) for s in
+              ((2, 3, sq, d), (2, 3, d, skv), (2, 3, skv, d))]
+    leaves[0] = leaves[0] / d ** 0.5
+    kxyz = torch.rand((2, skv, 3), device=dev, generator=g) * 2 - 1
+    qxyz = kxyz[:, :sq].contiguous()
+    kxyz_t = kxyz.transpose(1, 2).contiguous()
+    grad_out = torch.randn((2, 3, sq, d), device=dev, generator=g)
+    seed = torch.randint(0, 2 ** 62, (), device=dev, generator=g)
+    a = [t.clone().requires_grad_() for t in leaves]
+    b = [t.clone().requires_grad_() for t in leaves]
+    out_a = masked_attention(*a, qxyz, kxyz_t, radius, dropout, seed)
+    out_b = masked_attention_plain(*b, qxyz, kxyz_t, radius, dropout, seed)
+    assert (out_a - out_b).abs().max().item() <= ATTN_TOL
+    got = torch.autograd.grad(out_a, a, grad_out)
+    want = torch.autograd.grad(out_b, b, grad_out)
+    for x, y in zip(got, want):
+        assert (x - y).abs().max().item() <= ATTN_TOL
+    feats = torch.randn((2, 300, 4), device=dev, generator=g, requires_grad=True)
+    idx = torch.randint(0, 300, (2, 40, 8), device=dev, generator=g, dtype=torch.int32)
+    gout = torch.randn((2, 40, 8, 4), device=dev, generator=g)
+    (got,) = torch.autograd.grad(group_points(feats, idx), feats, gout)
+    (want,) = torch.autograd.grad(group_points_plain(feats, idx), feats, gout)
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 def _qkv(dev, shape, seed):
@@ -147,15 +206,19 @@ def test_launch_counts_and_refusals(dev):
     _kernels.reset_launches()
     xyz = torch.from_numpy(_pc(0, 2, 500)).to(dev)
     inds = furthest_point_sample(xyz, 32)
-    idx = ball_query(0.5, 8, xyz, group_points(xyz, inds[:, None, :])[:, 0])
+    centres = group_points(xyz, inds[:, None, :])[:, 0]
+    idx = ball_query(0.5, 8, xyz, centres)
+    ball_query_group(0.5, 8, xyz, centres)
     q = torch.randn((1, 2, 16, 32), device=dev)
     masked_attention(q, torch.randn((1, 2, 32, 16), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     vit_attention(q, torch.randn((1, 2, 16, 32), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     assert idx.dtype == torch.int32
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1,
-                                 "vit_attention": 1}
+                                 "vit_attention": 1, "ball_query_group": 1}
     with pytest.raises(RuntimeError):
         furthest_point_sample(xyz.clone().requires_grad_(), 4)
+    with pytest.raises(RuntimeError):  # coordinates take no gradient
+        ball_query_group(0.5, 8, xyz.clone().requires_grad_(), centres)
     with pytest.raises(ValueError):  # head width without a kernel instance
         masked_attention(*(torch.zeros((1, 1, 8, 8), device=dev),) * 3)
     with pytest.raises(ValueError):

@@ -30,7 +30,12 @@ from coda_neurips2023_tpu.ops.sampling import furthest_point_sample as jax_fps
 from coda_neurips2023_tpu.ops.sampling import gather_points as jax_gather_points
 
 from coda_neurips2023_tpu_torch import _kernels
-from coda_neurips2023_tpu_torch.ops.grouping import ball_query, group_points, query_and_group
+from coda_neurips2023_tpu_torch.ops.grouping import (
+    ball_query,
+    ball_query_group,
+    group_points,
+    query_and_group,
+)
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
@@ -176,11 +181,12 @@ def test_cpu_calls_launch_nothing():
     inds = furthest_point_sample(xyz, 10)
     centres = gather_points(xyz, inds)
     query_and_group(0.5, 8, xyz, centres)
+    ball_query_group(0.5, 8, xyz, centres)
     q = torch.randn(1, 2, 16, 8)
     masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8))
     vit_attention(q, torch.randn(1, 2, 16, 8), torch.randn(1, 2, 16, 8))
     assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
-                                 "vit_attention": 0}
+                                 "vit_attention": 0, "ball_query_group": 0}
 
 
 @pytest.mark.parametrize(
@@ -221,9 +227,10 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'coda_neurips2023_tpu'))\n"
         "assert not bad, bad\n"
         "new = {'models.clip', 'models.tokenizer', 'models.text_bank', 'models.distillation',\n"
-        "       'ops.vit_attention', 'ops.projection', 'stages'}\n"
+        "       'ops.vit_attention', 'ops.projection', 'stages', 'criterion', 'optimizer',\n"
+        "       'ops.giou', 'ops.hungarian'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
-        "assert len(names) >= 26, names\n"
+        "assert len(names) >= 30, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
