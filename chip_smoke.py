@@ -39,14 +39,43 @@ result):
   9. The same step, dropout 0, from the same weights on 2 scenes on the GPU
      and on the CPU (plain paths): assignments equal, loss within STEP_TOL,
      gradients within GRAD_TOL of their global norm.
+ 10. CoDA's stage-1 distillation training step (scripts/coda_sunrgbd_stage1.sh:
+     3detr_predictedbox_distillation at the flagship's width with its 512-d
+     text head, dropout as shipped, the baseline's matcher and detection
+     losses plus loss_predicted_region_embed_l1 1, no-object-contrast 0.05,
+     32 distillation crops a scene, CLIP ViT-B/16 with random weights from a
+     seed) on batches of TRAIN_BATCH 20000-point scenes with 531 x 730
+     images, with CODA_BQ_ALGO=adaptive (kernel G carries the set
+     abstraction; F stays off, as the JAX package's gate says): one warm-up
+     and TRAIN_STEPS timed steps: a finite loss, the distillation loss above
+     0, the count of valid crops, the launch counts of A, G, C, D and E (all
+     must launch, B and F must not), step times, scenes/s, crops/s, the
+     matcher's host ms, peak memory.
+ 11. The same step at dropout 0 on 2 scenes, GPU vs CPU (plain paths), from
+     the same weights and the same crop selection (boxes whose rect
+     coordinates lie at least RECT_MARGIN px from an integer, so both
+     devices cut the same crops): the mask equal, the targets within
+     CLIP_TOL, assignments equal, loss within STEP_TOL, gradients within
+     GRAD_TOL of their global norm.
+ 12. One batch of phase 4's eval step with CODA_BQ_MXU=1: kernel G launches
+     (the MXU kernel's row), kernel B does not, and the outputs equal phase
+     4's on that batch within MXU_TOL.
 Phase 3 also holds kernel F against its plain version and against kernel B
-followed by kernel C, bit for bit, and D in training (with and without its
-attention-weight dropout: the output, and q, k, v gradients through its
-autograd Function) against its plain version and autograd of it.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+followed by kernel C, bit for bit, kernel G against its plain version and
+kernel B, bit for bit, at three shapes (the SA at 20000 and at ScanNet's
+40000 points, the masked encoder's interim SA), and D in training (with and
+without its attention-weight dropout: the output, and q, k, v gradients
+through its autograd Function) against its plain version and autograd of it.
+The CODA_BQ_* variables are cleared at the start; each phase sets its own.
+The line before the last is {"kernels": [...]}, each kernel with its time,
+its plain version's, its bound (the larger of its operations over the
+card's fp32 peak and its bytes over the memory rate, counted from this run's
+inputs), and the time of one PyTorch call computing the same function where
+there is one; the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -56,6 +85,7 @@ import sys
 import time
 import types
 
+DEVICE = "cuda"  # the card; only a rehearsal of the phases on the CPU sets "cpu"
 BATCH = 32
 NUM_POINTS = 20000
 EVAL_CLASSES = 46
@@ -106,7 +136,28 @@ KERNELS = {
                       "coda_neurips2023_tpu/ops/pallas_vit_attention.py:109"),
     "ball_query_group": ("coda_neurips2023_tpu_torch/csrc/ball_query_group.cu",
                          "coda_neurips2023_tpu/ops/pallas_ball_query_sorted.py:461"),
+    "ball_query_tile": ("coda_neurips2023_tpu_torch/csrc/ball_query_tile.cu",
+                        "coda_neurips2023_tpu/ops/pallas_ball_query.py:346"),
 }
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet, 700 W): fp32
+# outside the tensor cores, and device memory
+FP32_PEAK = 67e12  # FLOP/s
+HBM_RATE = 3.35e12  # bytes/s
+# a distance test of the ball query: 3 sub, 3 mul, 2 add, 1 compare
+BQ_OPS = 9
+# an FPS step for one point: the distance (8), its running min, the argmax compare
+FPS_OPS = 10
+BQ_VARS = ("CODA_BQ_ALGO", "CODA_BQ_MXU", "CODA_BQ_FUSED_GATHER")
+SCANNET_POINTS = 40000  # datasets/scannet.py's point count
+N_SEL = 32  # --distillation_box_num, main.py's default
+# phase 11: a crop rect is an integer truncation of projected corners; the
+# two devices' boxes differ by about 1e-5 m, a few thousandths of a pixel,
+# so boxes whose rect coordinates lie this far from an integer cut the same
+# crop on both
+RECT_MARGIN = 0.05
+# phase 12: kernel G is bit-equal to kernel B, so the eval outputs may only
+# differ where a kernel sums in a run-dependent order
+MXU_TOL = 1e-5
 # the flagship detector's flags (the JAX package's defaults, main.py)
 FLAGSHIP_ARGS = dict(
     enc_dim=256, dec_dim=512, enc_type="vanilla", enc_nlayers=3, enc_nhead=4, enc_ffn_dim=128,
@@ -131,6 +182,13 @@ TRAIN_ARGS = dict(
     loss_angle_cls_weight=0.1, loss_angle_reg_weight=0.5, loss_center_weight=5.0,
     loss_size_weight=1.0,
 )
+# stage 1 on top of the baseline (scripts/coda_sunrgbd_stage1.sh; main.py's
+# defaults for the rest), with StageContext's flags
+STAGE1_ARGS = dict(
+    CLIP_ARGS, model_name="3detr_predictedbox_distillation", dataset_name="sunrgbd_anonymous_aligned_image",
+    loss_predicted_region_embed_l1_weight=1.0, loss_no_object_contrast_weight=0.05,
+    distillation_box_num=N_SEL, if_clip_weak_labels=False,
+)
 
 
 def fail(msg):
@@ -154,8 +212,42 @@ def time_ms(torch, fn, reps=REPS, warmup=2):
     return statistics.median(times)
 
 
-def compare_kernels(torch, xyz, results):
-    """Phase 3: each kernel vs its plain version at the eval forward's shapes."""
+def bound(flops, nbytes):
+    """(the least ms the card could take, what bounds it): the larger of the
+    operations over the fp32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def ball_query_tests(torch, radius, k, xyz, centres):
+    """The distance tests these inputs need: each centre scans its points in
+    index order up to its k-th hit, or all N when it has fewer."""
+    from coda_neurips2023_tpu_torch.ops.grouping import _r2, _sq_dist
+
+    r2 = _r2(radius).to(xyz.device)
+    n = xyz.shape[1]
+    total = 0
+    for bi in range(xyz.shape[0]):
+        hit = _sq_dist(centres[bi, :, None, :], xyz[bi, None, :, :]) < r2
+        reached = hit.cumsum(1, dtype=torch.int32) >= k
+        total += int(torch.where(reached.any(1), reached.int().argmax(1) + 1, n).sum())
+    return total
+
+
+def ball_query_bound(torch, radius, k, xyz, centres, grouped=False):
+    b, n, _ = xyz.shape
+    m = centres.shape[1]
+    nbytes = 12 * (b * n + b * m) + 4 * b * m * k + (12 * b * m * k if grouped else 0)
+    return bound(BQ_OPS * ball_query_tests(torch, radius, k, xyz, centres), nbytes)
+
+
+def attention_bound(b, h, sq, skv, d):
+    # QK and PV (2 x 2D a pair) and the softmax's max, subtract, exp, sum, scale
+    return bound(b * h * sq * skv * (4 * d + 5), 4 * b * h * (2 * sq * d + 2 * skv * d))
+
+
+def compare_kernels(torch, xyz, xyz40, results):
+    """Phase 3: each kernel vs its plain version at the paths' shapes."""
     from coda_neurips2023_tpu_torch.ops import grouping, sampling
     from coda_neurips2023_tpu_torch.ops.masked_attention import (
         masked_attention,
@@ -163,26 +255,35 @@ def compare_kernels(torch, xyz, results):
     )
     from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 
-    def record(name, label, err, ms, plain_ms, main_shape):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def record(name, label, err, ms, plain_ms, main_shape, bnd=None, library_ms=None):
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if main_shape:
-            entry["ms"], entry["plain_ms"] = ms, plain_ms
-        print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r}")
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                         library_ms=library_ms)
+        extra = f" bound_ms={bnd[0]!r} ({bnd[1]})" if bnd else ""
+        extra += f" library_ms={library_ms!r}" if library_ms is not None else ""
+        print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r}{extra}")
 
-    def exact(name, label, kern, plain, main_shape=True):
+    def exact(name, label, kern, plain, main_shape=True, bnd=None, library=None):
         a, b = kern(), plain()
         torch.cuda.synchronize()
         if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
             bad = (a != b).sum().item() if a.shape == b.shape else "shape"
             fail(f"{name} {label}: kernel differs from plain version ({bad} entries)")
-        record(name, label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main_shape)
+        library_ms = time_ms(torch, library) if library is not None else None
+        record(name, label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main_shape, bnd,
+               library_ms)
         return a
 
-    b = xyz.shape[0]
+    b, n = xyz.shape[:2]
     inds = exact("fps", f"B={b} N={NUM_POINTS} -> 2048",
                  lambda: sampling.furthest_point_sample(xyz, 2048),
-                 lambda: sampling.furthest_point_sample_plain(xyz, 2048))
+                 lambda: sampling.furthest_point_sample_plain(xyz, 2048),
+                 bnd=bound(FPS_OPS * b * 2047 * n, 12 * b * n + 4 * b * 2048))
     centres = exact("gather", f"gather_points B={b} N={NUM_POINTS} M=2048",
                     lambda: sampling.gather_points(xyz, inds),
                     lambda: grouping.group_points_plain(xyz, inds[:, None, :]).reshape(b, 2048, 3),
@@ -197,10 +298,14 @@ def compare_kernels(torch, xyz, results):
           main_shape=False)
     idx = exact("ball_query", f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64",
                 lambda: grouping.ball_query(0.2, 64, xyz, centres),
-                lambda: grouping.ball_query_plain(0.2, 64, xyz, centres))
+                lambda: grouping.ball_query_plain(0.2, 64, xyz, centres),
+                bnd=ball_query_bound(torch, 0.2, 64, xyz, centres))
+    flat = idx.reshape(b, -1, 1).long().expand(-1, -1, 3)
     exact("gather", f"group_points B={b} N={NUM_POINTS} M=2048 K=64",
           lambda: grouping.group_points(xyz, idx),
-          lambda: grouping.group_points_plain(xyz, idx))
+          lambda: grouping.group_points_plain(xyz, idx),
+          bnd=bound(0, 4 * (3 * b * n + idx.numel() * 4)),
+          library=lambda: torch.gather(xyz, 1, flat))
     two_op = lambda: grouping.group_points(xyz, grouping.ball_query(0.2, 64, xyz, centres))
     for n_scenes in (b, TRAIN_BATCH):
         x, c = xyz[:n_scenes].contiguous(), centres[:n_scenes].contiguous()
@@ -216,7 +321,9 @@ def compare_kernels(torch, xyz, results):
         if n_scenes == b and not torch.equal(got[1], two_op()):
             fail("ball_query_group: differs from group_points(ball_query) of phase 3")
         ms, bc_ms = time_ms(torch, kern), time_ms(torch, bc)
-        record("ball_query_group", label, 0.0, ms, time_ms(torch, plain), n_scenes == TRAIN_BATCH)
+        main = n_scenes == TRAIN_BATCH
+        bnd = ball_query_bound(torch, 0.2, 64, x, c, grouped=True) if main else None
+        record("ball_query_group", label, 0.0, ms, time_ms(torch, plain), main, bnd)
         print(f"  {'':16s} {'':44s} kernels B then C ms={bc_ms!r}")
     half = sampling.gather_points(centres, sampling.furthest_point_sample(centres, 1024))
     exact("ball_query", f"B={b} N=2048 M=1024 r=0.4 k=32",
@@ -224,10 +331,30 @@ def compare_kernels(torch, xyz, results):
           lambda: grouping.ball_query_plain(0.4, 32, centres, half),
           main_shape=False)
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # kernel G against its plain version and kernel B, bit for bit: the SA,
+    # the masked encoder's interim SA, the SA at ScanNet's point count
+    centres40 = sampling.gather_points(xyz40, sampling.furthest_point_sample(xyz40, 2048))
+    for label, x, c, r, k, main in (
+        (f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", xyz, centres, 0.2, 64, True),
+        (f"B={b} N=2048 M=1024 r=0.4 k=32", centres, half, 0.4, 32, False),
+        (f"B={xyz40.shape[0]} N={SCANNET_POINTS} M=2048 r=0.2 k=64", xyz40, centres40, 0.2, 64,
+         False),
+    ):
+        kern = lambda: grouping.ball_query_tile(r, k, x, c)
+        via_b = lambda: grouping.ball_query(r, k, x, c)
+        plain = lambda: grouping.ball_query_plain(r, k, x, c)
+        got, want, want_b = kern(), plain(), via_b()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, want_b)):
+            fail(f"ball_query_tile {label}: differs from the plain version or kernel B")
+        bnd = ball_query_bound(torch, r, k, x, c)
+        record("ball_query_tile", label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main, bnd)
+        print(f"  {'':16s} {'':44s} kernel B ms={time_ms(torch, via_b)!r}")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
     def randn(*shape):
-        return torch.randn(shape, device="cuda", generator=gen)
+        return torch.randn(shape, device=DEVICE, generator=gen)
 
     cases = [
         ("encoder self-attention S=2048 H=4 D=64", 2048, 2048, 64, 0.0, True),
@@ -244,17 +371,29 @@ def compare_kernels(torch, xyz, results):
         err = (kern() - plain()).abs().max().item()
         if not err <= ATTN_TOL:
             fail(f"attention {label}: max_abs_err {err!r} > {ATTN_TOL}")
-        record("attention", label, err, time_ms(torch, kern), time_ms(torch, plain), main_shape)
+        library_ms = None
+        if main_shape:  # the same function: q arrives scaled, so scale 1
+            kt = k.transpose(2, 3).contiguous()
+            library = lambda: sdpa(q, kt, v, scale=1.0)
+            if not (library() - plain()).abs().max().item() <= ATTN_TOL:
+                fail("scaled_dot_product_attention differs from the plain attention")
+            library_ms = time_ms(torch, library)
+        record("attention", label, err, time_ms(torch, kern), time_ms(torch, plain), main_shape,
+               attention_bound(b, 4, sq, skv, d), library_ms)
 
     # kernel E at one scene's crops through a ViT-B/16 layer: 128 x 12 x 197 x 64
     q, k, v = (randn(128, 12, 197, 64) for _ in range(3))
     kern = lambda: vit_attention(q, k, v)
     plain = lambda: vit_attention_plain(q, k, v)
+    library = lambda: sdpa(q, k, v)
     err = (kern() - plain()).abs().max().item()
     if not err <= VIT_ATTN_TOL:
         fail(f"vit_attention: max_abs_err {err!r} > {VIT_ATTN_TOL}")
+    if not (library() - plain()).abs().max().item() <= VIT_ATTN_TOL:
+        fail("scaled_dot_product_attention differs from the plain ViT attention")
     record("vit_attention", "B=128 crops H=12 S=197 D=64", err, time_ms(torch, kern),
-           time_ms(torch, plain), True)
+           time_ms(torch, plain), True, attention_bound(128, 12, 197, 197, 64),
+           time_ms(torch, library))
 
 
 def compare_attention_backward(torch):
@@ -414,20 +553,21 @@ def clip_cpu_phase(torch, ctx, detector, batch):
         fail(f"GPU vs CPU CLIP crop scores differ by {err!r} > {CLIP_TOL}")
 
 
-def train_objects(torch, cfg, dropout: bool, device, seed):
-    """The baseline detector, its criterion and optimizer on `device`, built
-    as a training run builds them.  The random weights are drawn on the card
-    from `seed`, so every device gets the same ones."""
+def train_objects(torch, cfg, dropout: bool, device, seed, flags=None):
+    """The baseline detector (or, with STAGE1_ARGS as `flags`, the CoDA
+    detector), its criterion and optimizer on `device`, built as a training
+    run builds them.  The random weights are drawn on the card from `seed`,
+    so every device gets the same ones."""
     from coda_neurips2023_tpu_torch.criterion import build_criterion
     from coda_neurips2023_tpu_torch.models import build_model
     from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
     from coda_neurips2023_tpu_torch.optimizer import build_optimizer
 
-    args = types.SimpleNamespace(**dict(FLAGSHIP_ARGS, **TRAIN_ARGS))
+    args = types.SimpleNamespace(**{**FLAGSHIP_ARGS, **TRAIN_ARGS, **(flags or {})})
     if not dropout:
         args.mlp_dropout = args.enc_dropout = args.dec_dropout = 0.0
-    model, _ = build_model(args, cfg, device="cuda")
-    reset_parameters(model, torch.Generator(device="cuda").manual_seed(seed))
+    model, _ = build_model(args, cfg, device=DEVICE)
+    reset_parameters(model, torch.Generator(device=DEVICE).manual_seed(seed))
     model.to(device)
     optimizer, schedule = build_optimizer(args, model, num_iters_per_epoch=600)
     return model, build_criterion(args, cfg), optimizer, schedule
@@ -510,6 +650,203 @@ def train_cpu_phase(torch, cfg, batch):
         fail(f"GPU vs CPU gradient of {worst[1]} differs by {worst[0]!r} of the norm > {GRAD_TOL}")
 
 
+@contextlib.contextmanager
+def bq_env(**values):
+    """CODA_BQ_* variables set for one phase (they are cleared at the start)."""
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for var in values:
+            os.environ.pop(var, None)
+
+
+def fused_step_keeping_targets(ctx, store, *args, **kw):
+    """ctx.make_fused_train_step(*args, **kw), whose steps also leave their
+    distillation targets in `store` (the step returns only its metrics)."""
+    fn = ctx.extra_targets_fn()
+
+    def keep(outputs, batch, generator):
+        store.clear()
+        store.update(fn(outputs, batch, generator))
+        return store
+
+    ctx.extra_targets_fn = lambda: keep
+    try:
+        return ctx.make_fused_train_step(*args, **kw)
+    finally:
+        del ctx.extra_targets_fn
+
+
+def stage1_phase(torch, cfg, batches):
+    """Phase 10: the stage-1 distillation training step at full width, G on."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.stages import StageContext
+
+    print(f"phase 10: stage-1 training step (3detr_predictedbox_distillation), {TRAIN_STEPS} steps "
+          f"of {TRAIN_BATCH} x {NUM_POINTS} points with {IMAGE_HW[0]} x {IMAGE_HW[1]} images, "
+          f"{N_SEL} crops a scene, CODA_BQ_ALGO=adaptive")
+    t0 = time.perf_counter()
+    ctx = StageContext(types.SimpleNamespace(**STAGE1_ARGS), cfg, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+    print(f"  CLIP and the text bank {tuple(ctx.train_text_features.shape)} in "
+          f"{time.perf_counter() - t0:.2f} s (once, outside the timed steps)")
+    model, criterion, optimizer, schedule = train_objects(torch, cfg, True, DEVICE, SEED + 8,
+                                                          STAGE1_ARGS)
+    targets = {}
+    step = fused_step_keeping_targets(ctx, targets, model, criterion, optimizer,
+                                      lr_schedule=schedule)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    t0 = time.perf_counter()
+    step(batches[0], gen)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t0) * 1e3!r} ms")
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    times, losses, l1, crops, matcher_ms = [], [], [], [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        l1.append(float(metrics["loss_predicted_region_embed_l1"]))
+        crops.append(int(targets["gt_text_correlation_embedding_mask"].sum()))
+        matcher_ms.append(criterion.matcher.last_host_ms)
+    launches = dict(_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {losses!r}")
+    print(f"  loss_predicted_region_embed_l1 {l1!r}")
+    print(f"  valid crops a step (of {TRAIN_BATCH * N_SEL}): {crops!r}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"stage-1 loss not finite: {losses}")
+    if not all(x > 0 for x in l1):
+        fail(f"the distillation loss is not above 0: {l1}")
+    if not all(p.isfinite().all() for p in model.parameters()):
+        fail("parameters not finite after the stage-1 steps")
+    print(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
+    for name in ("fps", "ball_query_tile", "gather", "attention", "vit_attention"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the stage-1 path")
+    for name in ("ball_query", "ball_query_group"):
+        if launches[name] != 0:
+            fail(f"kernel {name} was launched on the stage-1 path under CODA_BQ_ALGO=adaptive")
+    if launches["vit_attention"] != TRAIN_STEPS * CLIP_LAYERS:
+        fail(f"vit_attention launched {launches['vit_attention']} times, expected "
+             f"{TRAIN_STEPS * CLIP_LAYERS} (one tower call of every step's crops)")
+    med = statistics.median(times)
+    print(f"  stage-1 step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
+    print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}; crops/s: "
+          f"{TRAIN_BATCH * N_SEL / med * 1e3!r}")
+    print(f"  matcher host ms a step: median {statistics.median(matcher_ms)!r}")
+    print(f"  peak memory allocated: {peak_gb!r} GB")
+    return launches, ctx
+
+
+def safe_selection(torch, last, batch, gen):
+    """(B, N_SEL) boxes to crop, those whose rect coordinates all lie at least
+    RECT_MARGIN px from an integer first (in random order from `gen`), and
+    how many such boxes each scene has."""
+    from coda_neurips2023_tpu_torch.ops.projection import (
+        project_upright_depth_to_image,
+        unaugment_corners,
+    )
+
+    un = unaugment_corners(last["box_corners_xyz"], batch["scale_array"], batch["rot_array"],
+                           batch["flip_array"])
+    b, q = un.shape[:2]
+    uv, _ = project_upright_depth_to_image(un.reshape(b, q * 8, 3), batch["K"], batch["Rtilt"])
+    hi = torch.stack([batch["ori_width"], batch["ori_height"]], -1).double()[:, None, None, :] - 1
+    uv = torch.minimum(uv.reshape(b, q, 8, 2).double().clamp(min=0), hi)
+    ext = torch.cat([uv.amin(2), uv.amax(2)], -1)  # the rect before truncation
+    hi4 = hi[:, :, 0, [0, 1, 0, 1]]
+    near = ((ext - ext.round()).abs() < RECT_MARGIN) & (ext > 0) & (ext < hi4)
+    risky = near.any(-1).cpu()
+    key = torch.rand((b, q), generator=gen) + risky.double()
+    return torch.argsort(key, dim=1)[:, :N_SEL], (~risky).sum(1).tolist()
+
+
+def stage1_cpu_phase(torch, cfg, ctx, batch):
+    """Phase 11: the stage-1 step, dropout 0, GPU vs CPU, same weights and crops."""
+    from coda_neurips2023_tpu_torch.engine import last_layer
+    from coda_neurips2023_tpu_torch.models.distillation import crop_rects
+
+    print("phase 11: the stage-1 step on 2 scenes, GPU vs CPU (plain PyTorch), dropout 0")
+    small = {k: v[:2] for k, v in batch.items()}
+    model, criterion, optimizer, schedule = train_objects(torch, cfg, False, DEVICE, SEED + 10,
+                                                          STAGE1_ARGS)
+    with torch.no_grad():  # the boxes the step will crop, from a copy's training forward
+        last = last_layer(copy.deepcopy(model)(small))
+    sel, n_safe = safe_selection(torch, last, small, torch.Generator().manual_seed(SEED + 11))
+    print(f"  boxes a scene whose rects lie {RECT_MARGIN} px from integer boundaries: {n_safe}")
+    runs = {}
+    for name, device, c in (("gpu", DEVICE, ctx), ("cpu", "cpu", ctx.to("cpu"))):
+        if name == "cpu":
+            model, criterion, optimizer, schedule = train_objects(torch, cfg, False, "cpu",
+                                                                  SEED + 10, STAGE1_ARGS)
+        targets = {}
+        step = fused_step_keeping_targets(c, targets, model, criterion, optimizer,
+                                          return_last_outputs=True, lr_schedule=schedule)
+        t0 = time.perf_counter()
+        on_device = {k: v.to(device) for k, v in small.items()}
+        on_device["distillation_sel"] = sel.to(device)
+        metrics, last = step(on_device)
+        rects, _ = crop_rects(last, on_device)
+        runs[name] = dict(
+            loss=float(metrics["loss"]), grads={n: p.grad.detach().cpu()
+                                                for n, p in model.named_parameters()},
+            asg={k: v.cpu() for k, v in criterion.last_assignments.items()},
+            targets={k: v.cpu() for k, v in targets.items()},
+            rects=torch.gather(rects.cpu(), 1, sel[..., None].expand(-1, -1, 4)))
+        print(f"  {name}: loss {runs[name]['loss']!r} in {(time.perf_counter() - t0):.2f} s")
+    g, c = runs["gpu"], runs["cpu"]
+    same = (g["rects"] == c["rects"]).all(-1)
+    if not same.all():
+        fail(f"{int((~same).sum())} selected crop rects differ between GPU and CPU")
+    mask_g = g["targets"]["gt_text_correlation_embedding_mask"]
+    if not torch.equal(mask_g, c["targets"]["gt_text_correlation_embedding_mask"]):
+        fail("the valid-crop mask differs between GPU and CPU")
+    err = (g["targets"]["gt_text_correlation_embedding"]
+           - c["targets"]["gt_text_correlation_embedding"]).abs().max().item()
+    print(f"  mask equal ({int(mask_g.sum())} valid crops of {sel.numel()}); targets max_abs_err={err!r}")
+    if not err <= CLIP_TOL:
+        fail(f"GPU vs CPU distillation targets differ by {err!r} > {CLIP_TOL}")
+    for key in g["asg"]:
+        if not torch.equal(g["asg"][key], c["asg"][key]):
+            fail(f"matcher {key} differs between GPU and CPU")
+    norm = torch.sqrt(sum((x.double() ** 2).sum() for x in c["grads"].values())).item()
+    worst = max(((g["grads"][n] - c["grads"][n]).abs().max().item() / norm, n) for n in c["grads"])
+    print(f"  assignments equal ({int(g['asg']['proposal_matched_mask'].sum())} matches over all "
+          f"layers); loss |diff| {abs(g['loss'] - c['loss'])!r}; gradient max |diff| / global norm "
+          f"{worst[0]!r} ({worst[1]}), norm {norm!r}")
+    if not abs(g["loss"] - c["loss"]) <= STEP_TOL:
+        fail(f"GPU vs CPU stage-1 loss differs by {abs(g['loss'] - c['loss'])!r} > {STEP_TOL}")
+    if not worst[0] <= GRAD_TOL:
+        fail(f"GPU vs CPU gradient of {worst[1]} differs by {worst[0]!r} of the norm > {GRAD_TOL}")
+
+
+def mxu_phase(torch, model, text, batch, want):
+    """Phase 12: phase 4's eval step on one batch with CODA_BQ_MXU=1."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+
+    print("phase 12: phase 4's eval step on one batch with CODA_BQ_MXU=1 (kernel G for the "
+          "MXU kernel's row)")
+    step = make_eval_step(model, eval_text_features=text, eval_logit_scale=100.0)
+    with bq_env(CODA_BQ_MXU="1"):
+        _kernels.reset_launches()
+        out = step(batch)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+    print(f"  launches: {launches}")
+    if launches["ball_query_tile"] <= 0 or launches["ball_query"] != 0:
+        fail("CODA_BQ_MXU=1: kernel G did not take kernel B's place")
+    err = max((out[k] - want[k]).abs().max().item() for k in want)
+    print(f"  outputs vs phase 4's on that batch: max_abs_err={err!r}")
+    if not err <= MXU_TOL:
+        fail(f"CODA_BQ_MXU=1 changed the eval outputs by {err!r} > {MXU_TOL}")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -519,6 +856,8 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    for var in BQ_VARS:  # the default kernels; each phase sets its own
+        os.environ.pop(var, None)
 
     # phase 1
     smi = subprocess.run(
@@ -565,8 +904,13 @@ def main():
     # phase 3
     print("phase 3: kernels vs plain PyTorch")
     results = {}
+    scannet = SyntheticDetectionDataset(cfg, num_scenes=TRAIN_BATCH, num_points=SCANNET_POINTS,
+                                        seed=SEED)
+    xyz40 = torch.from_numpy(make_batch(scannet, 0, TRAIN_BATCH)["point_clouds"]).cuda()
     with torch.inference_mode():
-        compare_kernels(torch, batches[0]["point_clouds"][..., :3].contiguous(), results)
+        compare_kernels(torch, batches[0]["point_clouds"][..., :3].contiguous(),
+                        xyz40[..., :3].contiguous(), results)
+    del xyz40
     compare_attention_backward(torch)
 
     # phase 4
@@ -630,7 +974,11 @@ def main():
 
     launches6, detector = clip_eval_phase(torch, ctx, cfg, batches)
     clip_cpu_phase(torch, ctx, detector, batches[0])
-    del detector, ctx, batches, outs, model, cpu_model
+    # phase 12 reruns phase 4's first batch
+    phase4_batch = {k: batches[0][k] for k in ("point_clouds", "point_cloud_dims_min",
+                                               "point_cloud_dims_max")}
+    phase4_out = outs[0]
+    del detector, ctx, batches, outs
 
     train_ds = SyntheticDetectionDataset(cfg, num_scenes=(TRAIN_STEPS + 1) * TRAIN_BATCH,
                                          num_points=NUM_POINTS, seed=SEED)
@@ -639,26 +987,38 @@ def main():
          for k, v in make_batch(train_ds, i * TRAIN_BATCH, TRAIN_BATCH).items()}
         for i in range(TRAIN_STEPS + 1)
     ]
-    fused = os.environ.get("CODA_BQ_FUSED_GATHER")
-    os.environ["CODA_BQ_FUSED_GATHER"] = "1"
-    try:
+    with bq_env(CODA_BQ_FUSED_GATHER="1"):
         launches8 = train_phase(torch, cfg, train_batches)
         train_cpu_phase(torch, cfg, train_batches[0])
-    finally:
-        if fused is None:
-            del os.environ["CODA_BQ_FUSED_GATHER"]
-        else:
-            os.environ["CODA_BQ_FUSED_GATHER"] = fused
+    del train_batches
+
+    stage1_ds = SyntheticDetectionDataset(cfg, num_scenes=(TRAIN_STEPS + 1) * TRAIN_BATCH,
+                                          num_points=NUM_POINTS, seed=SEED, with_images=True,
+                                          image_hw=IMAGE_HW)
+    stage1_batches = [
+        {k: torch.from_numpy(v).cuda()
+         for k, v in make_batch(stage1_ds, i * TRAIN_BATCH, TRAIN_BATCH).items()}
+        for i in range(TRAIN_STEPS + 1)
+    ]
+    with bq_env(CODA_BQ_ALGO="adaptive"):
+        launches10, stage1_ctx = stage1_phase(torch, cfg, stage1_batches)
+        stage1_cpu_phase(torch, cfg, stage1_ctx, stage1_batches[0])
+    del stage1_batches, stage1_ctx
+
+    mxu_phase(torch, model.to("cuda"), text, phase4_batch, phase4_out)
 
     # each kernel's count from the path it serves: A-D the detector eval
-    # (phase 4), E the CLIP-crop eval (phase 6), F the training step (phase 8)
+    # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
+    # (phase 8), G the stage-1 training step (phase 10)
     launches = dict(launches4, vit_attention=launches6["vit_attention"],
-                    ball_query_group=launches8["ball_query_group"])
+                    ball_query_group=launches8["ball_query_group"],
+                    ball_query_tile=launches10["ball_query_tile"])
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-            "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+            **{key: results[name][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         }
         for name, (src, rep) in KERNELS.items()
     ]

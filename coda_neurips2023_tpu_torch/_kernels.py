@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0,
-            "ball_query_group": 0}
+            "ball_query_group": 0, "ball_query_tile": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +54,7 @@ _SIGNATURES = {
     ),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "coda_ball_query_group": ("ball_query_group", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "coda_ball_query_tile": ("ball_query_tile", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -144,7 +145,7 @@ def launch(fn: str, *args) -> None:
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that would need a gradient, for kernels without a
-    backward (A, B, E, F: point coordinates and the frozen CLIP tower take
+    backward (A, B, E, F, G: point coordinates and the frozen CLIP tower take
     none).  Kernels C and D have one, through their autograd Functions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; its inputs must not require grad")

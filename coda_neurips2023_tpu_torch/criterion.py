@@ -2,15 +2,20 @@
 
 Counterpart of coda_neurips2023_tpu/criterion.py: the `Matcher` (:101-127),
 the `SetCriterion` assembly (:129-193, :685-784) and `build_criterion`
-(:786-863), with the losses detection training uses:
+(:786-863), with the losses detection training and stage 1 use:
 
   loss_sem_cls (focal), loss_sem_cls_softmax,
   loss_sem_cls_softmax_skip_none_gt_sample, loss_angle (cls + reg),
-  loss_center, loss_size, loss_giou, and the log-only loss_cardinality.
+  loss_center, loss_size, loss_giou, and the log-only loss_cardinality;
+  the distillation losses on the CLIP crop embeddings of the predicted boxes
+  (targets from models/distillation.py): loss_predicted_region_embed_l1, its
+  _only_last_layer twin, loss_predicted_region_embed_cos, loss_region_embed;
+  and loss_contrast_object_text against the text bank (targets
+  text_features_clip and logit_scale).
 
-Every other registered loss belongs to the CLIP stages and is not ported
-yet: a weight above 1e-32 for any of them raises NotImplementedError at
-construction, naming it, so none is silently dropped.
+Every other registered loss belongs to stage 2 or to unwired model variants
+and is not ported yet: a weight above 1e-32 for any of them raises
+NotImplementedError at construction, naming it, so none is silently dropped.
 
 The forward's outputs carry a leading decoder-layer axis L, and the
 criterion works on all L layers at once, as the JAX package vmaps over
@@ -18,7 +23,9 @@ them: the gIoU and the centre distances are formed for every layer, the
 matcher builds the cost of all layers on the device and solves it with one
 host round trip (`ops.hungarian`), and each loss comes out as an (L,)
 vector; the aux layers' keys get the `_k` suffix (k = 0 .. L-2), the last
-layer's none.  Losses are
+layer's none.  A loss the JAX package applies to the last layer only
+(_LAST_LAYER_ONLY) is masked to it over the layer axis and has no aux keys.
+Losses are
 normalized as the JAX package does with one replica: matched sums by the
 global ground-truth count, the skip-none-gt softmax by (scenes with objects
 x proposals).
@@ -43,6 +50,11 @@ PORTED_LOSSES = (
     "loss_center",
     "loss_size",
     "loss_giou",
+    "loss_region_embed",
+    "loss_predicted_region_embed_l1",
+    "loss_predicted_region_embed_l1_only_last_layer",
+    "loss_predicted_region_embed_cos",
+    "loss_contrast_object_text",
 )
 # the rest of the JAX package's registry (its criterion.py:161-191), in order
 UNPORTED_LOSSES = (
@@ -50,13 +62,8 @@ UNPORTED_LOSSES = (
     "loss_sem_cls_softmax_skip_none_gt_sample_keep_discovery_objectness",
     "loss_sem_cls_softmax_discovery_novel_objectness",
     "loss_sem_cls_softmax_2d_box_iou_supervised_skip_none_gt_sample",
-    "loss_region_embed",
-    "loss_predicted_region_embed_l1",
-    "loss_predicted_region_embed_l1_only_last_layer",
-    "loss_predicted_region_embed_cos",
     "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi",
     "loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi",
-    "loss_contrast_object_text",
     "loss_image_seen_class",
     "loss_contrastive",
     "loss_sem_focal_cls",
@@ -68,6 +75,16 @@ UNPORTED_LOSSES = (
     "loss_batchwise_contrastive",
     "loss_prompt_softmax",
     "loss_prompt_sigmoid",
+)
+
+# losses the JAX package applies to the last decoder layer only (its
+# criterion.py:50-56, the reference's single_output_forward)
+_LAST_LAYER_ONLY = (
+    "loss_contrastive",
+    "loss_image_seen_class",
+    "loss_batchwise_contrastive",
+    "loss_3d_2d_region_embed",
+    "loss_predicted_region_embed_l1_only_last_layer",
 )
 
 
@@ -112,6 +129,10 @@ def _layer_sum(t):
     return t.flatten(1).sum(1)
 
 
+def _unit(emb):
+    return emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)
+
+
 class Matcher:
     """Cost = cls * -p(gt class) + objectness * -p(object) + center * L1
     distance + giou * -gIoU, over every decoder layer at once."""
@@ -143,15 +164,19 @@ class Matcher:
 
 
 class SetCriterion:
-    def __init__(self, matcher: Matcher, dataset_config, loss_weight_dict: dict):
+    def __init__(self, matcher: Matcher, dataset_config, loss_weight_dict: dict,
+                 train_range_max: int = 10):
         self.matcher = matcher
         self.dataset_config = dataset_config
         self.loss_weight_dict = dict(loss_weight_dict)
         # per-class CE weights: the background (last) class gets loss_no_object_weight
         w = np.ones(dataset_config.num_semcls + 1, np.float32)
         w[-1] = self.loss_weight_dict.pop("loss_no_object_weight", 0.2)
-        self._percls = torch.from_numpy(w)
-        self.loss_weight_dict.pop("loss_no_object_contrast_weight", None)
+        # and over the seen classes (loss_contrast_object_text): the last gets
+        # loss_no_object_contrast_weight
+        w2 = np.ones(train_range_max + 1, np.float32)
+        w2[-1] = self.loss_weight_dict.pop("loss_no_object_contrast_weight", 0.2)
+        self._weights = {"semcls": torch.from_numpy(w), "seen": torch.from_numpy(w2)}
         unported = [n for n in UNPORTED_LOSSES if self._weight(n) > 1e-32]
         if unported:
             raise NotImplementedError(
@@ -165,13 +190,18 @@ class SetCriterion:
             "loss_center": self.loss_center,
             "loss_size": self.loss_size,
             "loss_giou": self.loss_giou,
+            "loss_region_embed": self.loss_region_embed,
+            "loss_predicted_region_embed_l1": self.loss_predicted_region_embed_l1,
+            "loss_predicted_region_embed_l1_only_last_layer": self.loss_predicted_region_embed_l1,
+            "loss_predicted_region_embed_cos": self.loss_predicted_region_embed_cos,
+            "loss_contrast_object_text": self.loss_contrast_object_text,
         }
         self.last_assignments = None
 
-    def _class_weights(self, device):
-        if self._percls.device != device:
-            self._percls = self._percls.to(device)
-        return self._percls
+    def _class_weights(self, device, which="semcls"):
+        if self._weights[which].device != device:
+            self._weights[which] = self._weights[which].to(device)
+        return self._weights[which]
 
     def _weight(self, name):
         return self.loss_weight_dict.get(name + "_weight", 0)
@@ -246,6 +276,54 @@ class SetCriterion:
         l1 = torch.sum(torch.abs(outputs["size_normalized"] - gt_sizes), dim=-1)
         return _layer_sum(l1 * assignments["proposal_matched_mask"]) / targets["num_boxes"]
 
+    def loss_predicted_region_embed_l1(self, outputs, targets, assignments):
+        """Stage-1 distillation: masked L1 between the predicted 512-d
+        embedding and the CLIP embedding of the box's crop, over
+        (valid crops x 512)."""
+        gt_emb = targets["gt_text_correlation_embedding"]  # (B, nq, 512)
+        mask = targets["gt_text_correlation_embedding_mask"]  # (B, nq, 1)
+        pred = outputs["text_correlation_embedding"]  # (L, B, nq, 512)
+        ave_weight = torch.sum(mask) * pred.shape[-1]
+        return _layer_sum(torch.abs(pred * mask - gt_emb * mask)) / torch.clamp(ave_weight, min=1e-32)
+
+    def loss_predicted_region_embed_cos(self, outputs, targets, assignments):
+        """Cosine variant of the distillation loss, over the valid crops."""
+        gt_emb = targets["gt_text_correlation_embedding"]
+        mask = targets["gt_text_correlation_embedding_mask"][..., 0]
+        pred = outputs["text_correlation_embedding"]
+        num = torch.sum(gt_emb * pred, dim=-1)
+        den = torch.clamp(torch.linalg.vector_norm(gt_emb, dim=-1)
+                          * torch.linalg.vector_norm(pred, dim=-1), min=1e-16)
+        return _layer_sum((1.0 - num / den) * mask) / torch.clamp(torch.sum(mask), min=1e-32)
+
+    def loss_region_embed(self, outputs, targets, assignments):
+        """Matched-pair embedding L1 over (B x 512), as the JAX package
+        gathers the target embedding at the matched ground-truth index."""
+        gt_emb = _gather_per_prop(targets["gt_text_correlation_embedding"],
+                                  assignments["per_prop_gt_inds"])
+        pred = outputs["text_correlation_embedding"]
+        w = assignments["proposal_matched_mask"][..., None]
+        ave = pred.shape[1] * pred.shape[3]
+        return _layer_sum(torch.abs(pred * w / ave - gt_emb * w / ave))
+
+    def loss_contrast_object_text(self, outputs, targets, assignments):
+        """Object-text contrastive CE over the seen classes: matched proposals
+        take their seen class, the others the bank's last class; the weighted
+        mean with the seen weights (background loss_no_object_contrast_weight)."""
+        text = targets["text_features_clip"].to(torch.float32)
+        logits = torch.matmul(_unit(outputs["text_correlation_embedding"]), text.t())
+        logits = logits * targets["logit_scale"]
+        bg = logits.shape[-1] - 1
+        gt_label = _gather_per_prop(targets["gt_box_seen_sem_cls_label"].long(),
+                                    assignments["per_prop_gt_inds"])
+        gt_label = torch.where(assignments["proposal_matched_mask"] > 0, gt_label,
+                               torch.full_like(gt_label, bg))
+        gt_label = torch.clamp(gt_label, 0, bg)
+        w = self._class_weights(gt_label.device, "seen")
+        wsel = w[torch.clamp(gt_label, 0, w.shape[0] - 1)]
+        nll = _cross_entropy(logits, gt_label) * wsel
+        return _layer_sum(nll) / torch.clamp(_layer_sum(wsel), min=1e-32)
+
     # ---------------- assembly ----------------
 
     def __call__(self, outputs_stacked: dict, targets: dict):
@@ -289,14 +367,17 @@ class SetCriterion:
                 per_layer.update(val if isinstance(val, dict) else {name: val})
         per_layer["loss_cardinality"] = self.loss_cardinality(outputs, targets, assignments)
         total = torch.zeros(num_layers, device=corners.device)
+        last_only = torch.zeros(num_layers, device=corners.device)
+        last_only[-1] = 1.0
         for k, v in per_layer.items():
             if self._weight(k) > 1e-32:
                 per_layer[k] = v * self._weight(k)
-                total = total + per_layer[k]
+                total = total + (per_layer[k] * last_only if k in _LAST_LAYER_ONLY else per_layer[k])
         # the last layer's keys bare, the aux layers' with their index
         losses = {k: v[-1] for k, v in per_layer.items()}
         for layer in range(num_layers - 1):
-            losses.update({f"{k}_{layer}": v[layer] for k, v in per_layer.items()})
+            losses.update({f"{k}_{layer}": v[layer] for k, v in per_layer.items()
+                           if k not in _LAST_LAYER_ONLY})
         return total.sum(), losses
 
 
@@ -318,4 +399,5 @@ def build_criterion(args, dataset_config):
     }
     for name in PORTED_LOSSES + UNPORTED_LOSSES:
         loss_weight_dict.setdefault(name + "_weight", getattr(args, name + "_weight", 0.0))
-    return SetCriterion(matcher, dataset_config, loss_weight_dict)
+    return SetCriterion(matcher, dataset_config, loss_weight_dict,
+                        train_range_max=getattr(args, "train_range_max", 10))

@@ -1,9 +1,10 @@
 """Train and eval steps (PyTorch).
 
 Counterpart of coda_neurips2023_tpu/engine.py:
-  * `make_train_step` (:90-173): forward in training mode, the criterion,
-    backward, the optimizer update with a runtime learning rate, and the
-    BatchNorm statistics (updated by the forward itself);
+  * `make_train_step` (:90-173): forward in training mode, targets computed
+    from that forward (stage 1's distillation targets, `extra_targets_fn`),
+    the criterion, backward, the optimizer update with a runtime learning
+    rate, and the BatchNorm statistics (updated by the forward itself);
   * `train_one_epoch` (:247-347): the epoch loop, with the losses kept on the
     device and checked for finiteness every `log_every` steps, aborting as
     the reference does;
@@ -31,6 +32,12 @@ TARGET_KEYS = (
     "gt_box_angles", "gt_angle_class_label", "gt_angle_residual_label",
     "gt_box_sem_cls_label", "gt_box_present", "gt_box_seen_sem_cls_label",
     "gt_box_seen_sem_cls_confi",
+)
+
+# the last layer's box quantities the stage-2 discovery pass reads
+DISCOVERY_OUTPUT_KEYS = (
+    "box_corners", "box_corners_xyz", "center_unnormalized", "size_unnormalized",
+    "angle_continuous", "objectness_prob",
 )
 
 EVAL_KEYS = (
@@ -80,22 +87,32 @@ def make_eval_step(
     return eval_step
 
 
-def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable] = None):
-    """Returns train_step(batch, generator) -> metrics.
+def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable] = None,
+                    extra_targets_fn: Optional[Callable] = None,
+                    criterion_consts: Optional[dict] = None,
+                    return_last_outputs: bool = False):
+    """Returns train_step(batch, generator) -> metrics, or (metrics,
+    last_outputs) with `return_last_outputs`.
 
     `batch` holds the forward's inputs and the TARGET_KEYS on the model's
     device; `generator` feeds dropout.  The learning rate is a runtime
     input: `batch["lr"]` when present (a float or 0-d tensor), else
-    lr_schedule(steps taken so far).  The step leaves each parameter's
-    gradient in `.grad`; `metrics` holds the total loss, the lr and every
-    loss term, as 0-d tensors on the device (nothing syncs but the
-    matcher's one host round trip).  The phases run inside
-    `torch.profiler.record_function` ranges ("train:forward",
-    "train:criterion", "train:backward", "train:optimizer").
+    lr_schedule(steps taken so far).  `criterion_consts` (a dict of
+    tensors, e.g. the text bank and logit scale) join the targets, and
+    `extra_targets_fn(outputs, batch, generator)` adds targets computed from
+    this step's training forward (stage 1's CLIP distillation targets), under
+    no_grad, before the criterion.  With `return_last_outputs` the step also
+    returns the last decoder layer's DISCOVERY_OUTPUT_KEYS, detached.
+
+    The step leaves each parameter's gradient in `.grad`; `metrics` holds
+    the total loss, the lr and every loss term, as 0-d tensors on the device
+    (nothing syncs but the matcher's one host round trip).  The phases run
+    inside `torch.profiler.record_function` ranges ("train:forward",
+    "train:targets", "train:criterion", "train:backward", "train:optimizer").
     """
     record = torch.profiler.record_function
 
-    def train_step(batch: dict, generator: Optional[torch.Generator] = None) -> dict:
+    def train_step(batch: dict, generator: Optional[torch.Generator] = None):
         model.train()
         lr = batch.get("lr")
         if lr is None:
@@ -105,16 +122,23 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
         optimizer.zero_grad()
         with record("train:forward"):
             outputs = model(batch, generator=generator)
+        targets = {k: batch[k] for k in TARGET_KEYS if k in batch}
+        targets.update(criterion_consts or {})
+        if extra_targets_fn is not None:
+            with record("train:targets"), torch.no_grad():
+                targets.update(extra_targets_fn(outputs, batch, generator))
         with record("train:criterion"):
-            targets = {k: batch[k] for k in TARGET_KEYS if k in batch}
             loss, loss_dict = criterion(outputs, targets)
         with record("train:backward"):
             loss.backward()
         with record("train:optimizer"):
             optimizer.step(lr)
         lr = torch.as_tensor(lr, dtype=torch.float32)
-        return {"loss": loss.detach(), "lr": lr,
-                **{k: v.detach() for k, v in loss_dict.items()}}
+        metrics = {"loss": loss.detach(), "lr": lr,
+                   **{k: v.detach() for k, v in loss_dict.items()}}
+        if return_last_outputs:
+            return metrics, {k: outputs[k][-1].detach() for k in DISCOVERY_OUTPUT_KEYS}
+        return metrics
 
     return train_step
 

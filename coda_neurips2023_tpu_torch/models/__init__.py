@@ -15,8 +15,10 @@ MODEL_FUNCS = {
 }
 
 
-def build_model(args, dataset_config, device=None):
+def build_model(args, dataset_config, device="cuda"):
     """(model, box processor) for `args.model_name`, in training mode (a new
     module's default), with dropout from args.mlp_dropout, args.enc_dropout
-    and args.dec_dropout; call `.eval()` for the eval forward."""
+    and args.dec_dropout; call `.eval()` for the eval forward.  Built on the
+    card unless `device` says otherwise (device="cpu"); without a card the
+    default raises."""
     return MODEL_FUNCS[args.model_name](args, dataset_config, device=device)

@@ -1,7 +1,7 @@
-"""CLIP zero-shot classification of predicted boxes by image crops (PyTorch).
+"""CLIP crops of predicted boxes: zero-shot scores and distillation targets (PyTorch).
 
-Counterpart of coda_neurips2023_tpu/models/distillation.py:51-254, the eval
-path of the baseline detector with --if_with_clip (`clip_crop_scores`):
+Counterpart of coda_neurips2023_tpu/models/distillation.py.  The eval path of
+the baseline detector with --if_with_clip (`clip_crop_scores`, :51-254):
 
   1. un-augment the predicted corners, project them through K and Rtilt to
      integer crop rects in padded-image coordinates (ops/projection.py), and
@@ -18,8 +18,25 @@ path of the baseline detector with --if_with_clip (`clip_crop_scores`):
 
 Crops go through the tower one scene at a time (the JAX package maps over
 scenes the same way), so at ViT-B/16 and 128 queries a tower call is 128
-crops.  The bilinear crop variant and the training-time target builders are
-not ported yet.
+crops.
+
+The training half (:257-461), stage 1's distillation targets:
+`select_distillation_boxes` draws, per scene, the `distillation_box_num`
+proposals to crop (a random permutation's prefix; with
+--if_select_box_by_objectness, once enabled, foreground boxes first in query
+order, then the rest in random order), from an explicit torch.Generator.
+The JAX package draws the same selection with jax.random inside
+build_clip_distillation_targets (:386-407); the port cannot reproduce those
+bits, so the selection is a separate step and the port's
+`build_clip_distillation_targets` takes it as `sel`.
+That function crops the selected boxes of every scene, sends all B * n_sel
+crops through the frozen tower in one call (as the JAX package vmaps them),
+and scatters the embeddings and their validity mask back to the proposals;
+`keep_novel_boxes_as_gt` (--if_keep_box) appends confident novel boxes to
+the ground truth, and --if_clip_weak_labels adds CLIP's weak labels.
+
+The bilinear crop variant (:139-163, used only by
+scripts/measure_discovery_deviations.py) is not ported yet.
 """
 
 from __future__ import annotations
@@ -173,13 +190,148 @@ def clip_crop_scores(outputs_last: dict, batch: dict, clip_image_fn, text_featur
     layer, by CLIP zero-shot classification of its image crop;
     `clip_image_fn` maps (N, S, S, 3) normalised crops to (N, 512)."""
     rects, valid = crop_rects(outputs_last, batch, expand_box)
-    text = text_features.to(torch.float32)
     probs = []
     for i in range(rects.shape[0]):
         image = batch["input_image"][i].to(torch.float32)
         crops = crop_square_resize_white(image, rects[i], crop_size)
         emb = clip_image_fn(preprocess_crops(crops)).to(torch.float32)
-        emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)
-        logits = torch.matmul(emb, text.t()) * logit_scale
-        probs.append(torch.softmax(logits, dim=-1) * valid[i][:, None])
+        probs.append(_clip_softmax(emb, text_features, logit_scale) * valid[i][:, None])
     return torch.stack(probs)
+
+
+def _clip_softmax(emb, text_features, logit_scale):
+    """Softmax over the text bank of the unit-normalized embeddings' cosines
+    times the logit scale."""
+    norm = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)
+    logits = torch.matmul(norm, text_features.to(torch.float32).t())
+    return torch.softmax(logits * logit_scale, dim=-1)
+
+
+def select_distillation_boxes(generator, b: int, nq: int, n_sel: int, objectness=None,
+                              select_by_objectness=False, device=None):
+    """(B, n_sel) int64 proposal indices to crop, drawn from `generator`.
+
+    A uniform random permutation's first n_sel entries per scene (the
+    reference's np.random.choice, model_3detr.py:997).  With
+    `select_by_objectness` (a bool or a 0-d bool tensor: the epoch gate,
+    reference model_3detr.py:990-1005) and `objectness` (B, nq): the boxes
+    with objectness > 0.05 first, in query order, then the others in random
+    order, as the JAX package ranks them (distillation.py:389-407).
+    """
+    device = device if device is not None else generator.device
+    noise = torch.rand((b, nq), generator=generator, device=device)
+    sel = torch.argsort(noise, dim=1)[:, :n_sel]
+    if objectness is None or select_by_objectness is False:
+        return sel
+    idx = torch.arange(nq, device=device, dtype=torch.float32)
+    rank = torch.where(objectness > 0.05, idx, nq + noise * nq)
+    sel_obj = torch.argsort(rank, dim=1, stable=True)[:, :n_sel]
+    return torch.where(torch.as_tensor(select_by_objectness, device=device), sel_obj, sel)
+
+
+def _take(x, sel):
+    """x (B, nq, ...) gathered at sel (B, n_sel) along the proposals."""
+    idx = sel.reshape(*sel.shape, *(1,) * (x.dim() - 2)).expand(*sel.shape, *x.shape[2:])
+    return torch.gather(x, 1, idx)
+
+
+def keep_novel_boxes_as_gt(outputs: dict, batch: dict, sel, emb, valid, text_features,
+                           logit_scale, keep_objectness: float, train_range_max: int, enabled):
+    """--if_keep_box (reference model_3detr.py:1108-1155): among the
+    distillation crops, the boxes with objectness > keep_objectness whose crop
+    CLIP classifies as a novel class (max probability > 0.5, argmax >=
+    train_range_max) are appended to the scene's ground truth (present mask,
+    box geometry, angle labels from the predictions), up to max_num_obj.
+    `enabled` (a bool or a 0-d bool tensor) is the epoch gate.  Returns the
+    updated gt_* targets."""
+    b, n_sel = sel.shape
+    max_obj = batch["gt_box_present"].shape[1]
+    dev = sel.device
+    probs = _clip_softmax(emb, text_features, logit_scale)
+    max_score, max_idx = torch.max(probs, dim=-1)
+    obj_sel = torch.gather(outputs["objectness_prob"], 1, sel)
+    keep = (valid & (obj_sel > keep_objectness) & (max_score > 0.5)
+            & (max_idx >= train_range_max) & torch.as_tensor(enabled, device=dev))
+    nactual = batch["gt_box_present"].sum(dim=1).long()
+    pos = nactual[:, None] + torch.cumsum(keep.long(), dim=1) - 1
+    pos = torch.where(keep & (pos < max_obj), pos, torch.full_like(pos, max_obj))
+
+    def scatter(target, values):
+        # writes at max_obj land in a spare row that is cut off: dropped
+        values = values.to(target.dtype)
+        spare = torch.cat([target, target[:, :1]], dim=1)
+        idx = pos.reshape(b, n_sel, *(1,) * (values.dim() - 2)).expand_as(values)
+        return spare.scatter(1, idx, values)[:, :max_obj]
+
+    angle_cls = torch.argmax(_take(outputs["angle_logits"], sel), dim=-1)
+    angle_res = torch.gather(_take(outputs["angle_residual"], sel), -1, angle_cls[..., None])[..., 0]
+    updates = {
+        "gt_box_present": scatter(batch["gt_box_present"], torch.ones_like(obj_sel)),
+        "gt_angle_class_label": scatter(batch["gt_angle_class_label"], angle_cls),
+        "gt_angle_residual_label": scatter(batch["gt_angle_residual_label"], angle_res),
+        "gt_box_sizes_normalized": scatter(batch["gt_box_sizes_normalized"],
+                                           _take(outputs["size_normalized"], sel)),
+        "gt_box_corners": scatter(batch["gt_box_corners"], _take(outputs["box_corners"], sel)),
+        "gt_box_angles": scatter(batch["gt_box_angles"], _take(outputs["angle_continuous"], sel)),
+        "gt_box_centers_normalized": scatter(batch["gt_box_centers_normalized"],
+                                             _take(outputs["center_normalized"], sel)),
+    }
+    if "gt_box_sizes" in batch:
+        updates["gt_box_sizes"] = scatter(batch["gt_box_sizes"],
+                                          _take(outputs["size_unnormalized"], sel))
+    if "gt_box_corners_xyz" in batch:
+        updates["gt_box_corners_xyz"] = scatter(batch["gt_box_corners_xyz"],
+                                                _take(outputs["box_corners_xyz"], sel))
+    return updates
+
+
+def build_clip_distillation_targets(outputs: dict, batch: dict, clip_image_fn, sel,
+                                    text_features=None, logit_scale=None,
+                                    if_clip_weak_labels: bool = False, crop_size: int = 224,
+                                    if_keep_box: bool = False, keep_objectness: float = 0.5,
+                                    train_range_max: int = 10, keep_enabled=False) -> dict:
+    """The criterion targets of the stage-1 forward (reference
+    get_predicted_box_clip_embedding, model_3detr.py:902-1210):
+    gt_text_correlation_embedding (B, nq, 512), its mask (B, nq, 1), and
+    weak_box_cate_label (B, nq) int64 with weak_confidence_weight (B, nq),
+    zeros without --if_clip_weak_labels; with --if_keep_box also the updated
+    gt_* targets.
+
+    `outputs` holds the last decoder layer's quantities (detached), `sel`
+    the (B, n_sel) proposals to crop (`select_distillation_boxes`), and
+    `clip_image_fn` maps (N, S, S, 3) normalised crops to (N, 512).
+    """
+    outputs = {k: v.detach() for k, v in outputs.items()}
+    b, nq = outputs["box_corners_xyz"].shape[:2]
+    n_sel = sel.shape[1]
+    rects, valid_all = crop_rects(outputs, batch)
+    sel_rects = _take(rects, sel)
+    valid = torch.gather(valid_all, 1, sel)
+    crops = torch.cat([
+        crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i], crop_size)
+        for i in range(b)
+    ])
+    emb = clip_image_fn(preprocess_crops(crops)).to(torch.float32).reshape(b, n_sel, -1)
+    emb = emb * valid[..., None]
+    width = emb.shape[-1]
+    gt_emb = torch.zeros((b, nq, width), dtype=torch.float32, device=emb.device)
+    gt_emb = gt_emb.scatter(1, sel[..., None].expand(b, n_sel, width), emb)
+    mask = torch.zeros((b, nq, 1), dtype=torch.float32, device=emb.device)
+    mask = mask.scatter(1, sel[..., None], valid[..., None].to(torch.float32))
+    targets = {
+        "gt_text_correlation_embedding": gt_emb,
+        "gt_text_correlation_embedding_mask": mask,
+    }
+    if if_keep_box and text_features is not None:
+        targets.update(keep_novel_boxes_as_gt(
+            outputs, batch, sel, emb, valid, text_features, logit_scale, keep_objectness,
+            train_range_max, keep_enabled,
+        ))
+    if if_clip_weak_labels and text_features is not None:
+        conf, label = torch.max(_clip_softmax(gt_emb, text_features, logit_scale), dim=-1)
+        targets["weak_box_cate_label"] = label
+        targets["weak_confidence_weight"] = torch.where(mask[..., 0] < 1, 0.0, conf)
+    else:
+        targets["weak_box_cate_label"] = torch.zeros((b, nq), dtype=torch.int64, device=emb.device)
+        targets["weak_confidence_weight"] = torch.zeros((b, nq), device=emb.device)
+    return targets

@@ -29,6 +29,7 @@ from coda_neurips2023_tpu_torch.models.pointnet import PointnetSAModuleVotes
 from coda_neurips2023_tpu_torch.models.position_embedding import PositionEmbeddingCoordsSine
 from coda_neurips2023_tpu_torch.models.transformer import TransformerDecoder, TransformerEncoder
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
 
 class CoDA3DETR(nn.Module):
@@ -217,18 +218,20 @@ def _model_kwargs_from_args(args, dataset_config, num_cls_predict, with_text_hea
     )
 
 
-def build_3detr_predictedbox_distillation_head(args, dataset_config, device=None):
+def build_3detr_predictedbox_distillation_head(args, dataset_config, device="cuda"):
     """The CoDA model: a (1 object + 1 background)-way sem head; open-vocabulary
-    classes come from the 512-d text-correlation head against a text bank."""
+    classes come from the 512-d text-correlation head against a text bank.
+    Built on the card unless `device` says otherwise."""
     model = CoDA3DETR(
-        **_model_kwargs_from_args(args, dataset_config, 1, True, device)
+        **_model_kwargs_from_args(args, dataset_config, 1, True, resolve_device(device))
     )
     return model, BoxProcessor(dataset_config)
 
 
-def build_3detr_multiclasshead(args, dataset_config, device=None):
-    """Closed-vocabulary baseline: five heads, no text-correlation head."""
+def build_3detr_multiclasshead(args, dataset_config, device="cuda"):
+    """Closed-vocabulary baseline: five heads, no text-correlation head.
+    Built on the card unless `device` says otherwise."""
     model = CoDA3DETR(
-        **_model_kwargs_from_args(args, dataset_config, 1, False, device)
+        **_model_kwargs_from_args(args, dataset_config, 1, False, resolve_device(device))
     )
     return model, BoxProcessor(dataset_config)

@@ -1,29 +1,41 @@
-"""Ball query and grouping (PyTorch + kernels B, C and F).
+"""Ball query and grouping (PyTorch + kernels B, C, F and G).
 
 Counterparts of coda_neurips2023_tpu/ops/grouping.py:
   * `ball_query`: for each centre, the first `nsample` point indices, in
     index order, with squared distance < radius^2; trailing slots are filled
     with the first hit, and a row with no hit is all zeros.  On a CUDA tensor
-    it launches kernel B (csrc/ball_query.cu); on a CPU tensor it takes the
-    plain version below.
+    it launches kernel B (csrc/ball_query.cu) or kernel G
+    (csrc/ball_query_tile.cu), picked as the JAX package picks its Pallas
+    kernel (`ball_query_kernel`); on a CPU tensor it takes the plain version
+    below, whatever the environment says, as the JAX package's CPU path does.
   * `group_points`: the batched gather out[b, m, k] = features[b, idx[b, m, k]].
     Kernel C (csrc/gather.cu) on CUDA, `torch.gather` on the CPU.  It is an
     autograd Function: the backward is the scatter-add of the JAX package's
     custom VJP (grouping.py:169-178), in plain PyTorch (`index_add_`).
   * `ball_query_group`: both in one pass, `ball_query` then `group_points` of
     the coordinates.  Kernel F (csrc/ball_query_group.cu) on CUDA.
-  * `query_and_group`: the above, re-centred and radius-normalized; with
-    CODA_BQ_FUSED_GATHER=1 (read at call time, as in the JAX package) it
-    takes `ball_query_group`, otherwise `ball_query` then `group_points`.
+  * `query_and_group`: the above, re-centred and radius-normalized; it takes
+    `ball_query_group` under the JAX package's gate (`fused_gather`),
+    otherwise `ball_query` then `group_points`.
+
+The environment is read at call time, as in the JAX package
+(grouping.py:73-124, 223-230):
+  * CODA_BQ_MXU=1 with nsample == 64: kernel G (the MXU kernel's row);
+  * else CODA_BQ_ALGO: "sorted" (the default) or "window" -> kernel B (the
+    sorted kernel for N >= 4096, v3 below it: one function, one kernel);
+    "adaptive" -> kernel G; any other value raises ValueError;
+  * CODA_BQ_FUSED_GATHER=1 -> kernel F, only with CODA_BQ_MXU != 1,
+    CODA_BQ_ALGO == "sorted", N >= 4096 and nsample % 128 != 0.
 
 Distances are written out as ((dx*dx + dy*dy) + dz*dz), elementwise, in the
-kernel's order, so the plain version and kernels B and F agree bit for bit.
-(The JAX package's CPU path uses |a|^2 + |b|^2 - 2ab instead, which can flip
-a hit lying exactly on the radius; see its grouping.py:22-27.)
+kernel's order, so the plain version and kernels B, F and G agree bit for
+bit.  (The JAX package's CPU path uses |a|^2 + |b|^2 - 2ab instead, which can
+flip a hit lying exactly on the radius; see its grouping.py:22-27.)
 
 Indices are int32 in and out, as in the JAX package.  Point coordinates take
-no gradient: B and F refuse inputs that require one.  No TPU size gate is
-carried over: every CUDA call launches its kernel.
+no gradient: B, F and G refuse inputs that require one.  A CUDA call launches
+the kernel it is routed to or raises: no size gate of the TPU kernels is
+carried over, and nothing falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -88,19 +100,63 @@ def ball_query_plain(radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
     return out
 
 
+_BQ_ALGOS = ("window", "adaptive", "sorted")
+
+
+def ball_query_kernel(nsample: int) -> str:
+    """The C entry point a CUDA `ball_query` launches, from the environment
+    as it stands (the JAX package's choice of Pallas kernel, grouping.py:78-124):
+    "coda_ball_query_tile" (G) for CODA_BQ_MXU=1 with nsample 64 and for
+    CODA_BQ_ALGO=adaptive, "coda_ball_query" (B) for "sorted" at any N (its
+    sorted kernel above 4096 points, v3 below) and for "window"."""
+    if os.environ.get("CODA_BQ_MXU") == "1" and nsample == 64:
+        return "coda_ball_query_tile"
+    algo = os.environ.get("CODA_BQ_ALGO", "sorted")
+    if algo not in _BQ_ALGOS:
+        # a mistyped variable must not quietly pick another kernel
+        raise ValueError(
+            f"CODA_BQ_ALGO={algo!r}: expected 'window', 'adaptive' or"
+            " 'sorted' (MXU variant is selected via CODA_BQ_MXU=1)"
+        )
+    return "coda_ball_query_tile" if algo == "adaptive" else "coda_ball_query"
+
+
+def fused_gather(nsample: int, n: int) -> bool:
+    """Whether `query_and_group` takes `ball_query_group` (kernel F): the JAX
+    package's four-part gate (grouping.py:223-230) on CODA_BQ_FUSED_GATHER=1."""
+    return (
+        os.environ.get("CODA_BQ_FUSED_GATHER", "0") == "1"
+        and os.environ.get("CODA_BQ_MXU") != "1"
+        and os.environ.get("CODA_BQ_ALGO", "sorted") == "sorted"
+        and n >= 4096
+        and nsample % 128 != 0
+    )
+
+
+def _launch_ball_query(fn: str, radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
+    _kernels.check_no_grad("ball_query", xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    _kernels.launch(fn, xyz, new_xyz, out, b, n, m, nsample, float(_r2(radius)))
+    return out
+
+
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """xyz: (B, N, 3) points, new_xyz: (B, M, 3) centres -> (B, M, nsample) int32."""
     _check_query(nsample, xyz, new_xyz)
     if xyz.device.type == "cpu":
         return ball_query_plain(radius, nsample, xyz, new_xyz)
-    _kernels.check_no_grad("ball_query", xyz, new_xyz)
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
-    out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
-    _kernels.launch(
-        "coda_ball_query", xyz, new_xyz, out, b, n, m, nsample, float(_r2(radius))
-    )
-    return out
+    return _launch_ball_query(ball_query_kernel(nsample), radius, nsample, xyz, new_xyz)
+
+
+def ball_query_tile(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
+    """`ball_query` through kernel G whatever the environment says (the plain
+    version on a CPU tensor): for holding G against B and the plain version."""
+    _check_query(nsample, xyz, new_xyz)
+    if xyz.device.type == "cpu":
+        return ball_query_plain(radius, nsample, xyz, new_xyz)
+    return _launch_ball_query("coda_ball_query_tile", radius, nsample, xyz, new_xyz)
 
 
 def group_points_plain(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -196,7 +252,7 @@ def query_and_group(radius: float, nsample: int, xyz, new_xyz, normalize_xyz: bo
     Returns (new_features, grouped_xyz), both (B, M, nsample, 3): without
     point features the two are the same tensor, as in the JAX package.
     """
-    if os.environ.get("CODA_BQ_FUSED_GATHER", "0") == "1":
+    if fused_gather(nsample, xyz.shape[1]):
         _, grouped = ball_query_group(radius, nsample, xyz, new_xyz)
     else:
         grouped = group_points(xyz, ball_query(radius, nsample, xyz, new_xyz))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's eval or training step spends its time on the GPU.
 
-    python3 scripts/profile_torch_eval.py [--batch B] [--points 20000] [--clip | --train]
+    python3 scripts/profile_torch_eval.py [--batch B] [--points 20000] [--clip | --train | --stage1]
 
 Builds the flagship CoDA model (random weights from a seed), warms the eval
 step up, then traces STEPS steps with torch.profiler and prints the device
@@ -12,7 +12,13 @@ it profiles the baseline detector's CLIP-crop eval step instead (ViT-B/16,
 phases.  With --train it profiles the baseline detector's training step
 (scripts/coda_baseline_sunrgbd.sh, B=8 by default, CODA_BQ_FUSED_GATHER=1),
 with the step's own ranges (forward; criterion with gIoU and matcher;
-backward; optimizer) as phases, and the matcher's host time.  Needs a GPU.
+backward; optimizer) as phases, and the matcher's host time.  With --stage1
+it profiles CoDA's stage-1 distillation training step
+(scripts/coda_sunrgbd_stage1.sh, B=8 by default, 531 x 730 images, 32 crops
+a scene through CLIP ViT-B/16, CODA_BQ_ALGO=adaptive so kernel G runs the
+ball query), with the step's ranges and the crops and the image tower as
+phases.  --train and --stage1 then time the step again by part with a sync
+at each boundary.  Needs a GPU.
 """
 
 import argparse
@@ -38,6 +44,7 @@ import chip_smoke  # noqa: E402
 from coda_neurips2023_tpu_torch.criterion import build_criterion  # noqa: E402
 from coda_neurips2023_tpu_torch.engine import (  # noqa: E402
     TARGET_KEYS,
+    last_layer,
     make_eval_step,
     make_train_step,
 )
@@ -58,9 +65,12 @@ def main():
                     help="profile the CLIP-crop eval step of the baseline detector")
     ap.add_argument("--train", action="store_true",
                     help="profile the baseline detector's training step")
+    ap.add_argument("--stage1", action="store_true",
+                    help="profile CoDA's stage-1 distillation training step")
     args = ap.parse_args()
+    training = args.train or args.stage1
     if args.batch is None:
-        args.batch = 8 if args.train else 32
+        args.batch = 8 if training else 32
     if not torch.cuda.is_available():
         sys.exit("profile_torch_eval: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -68,14 +78,33 @@ def main():
 
     cfg = SunrgbdAnonymousConfig()
     ds = SyntheticDetectionDataset(cfg, num_scenes=args.batch, num_points=args.points,
-                                   with_images=args.clip, image_hw=(531, 730))
+                                   with_images=args.clip or args.stage1, image_hw=(531, 730))
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_batch(ds, 0, args.batch).items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = reset_parameters(
         CoDA3DETR(cfg, with_text_head=not (args.clip or args.train), device="cuda"), gen
     ).eval()
-    criterion = None
-    if args.train:
+    criterion = ctx = None
+    if args.stage1:
+        os.environ["CODA_BQ_ALGO"] = "adaptive"
+        train_args = types.SimpleNamespace(**{**chip_smoke.FLAGSHIP_ARGS, **chip_smoke.TRAIN_ARGS,
+                                              **chip_smoke.STAGE1_ARGS})
+        ctx = StageContext(train_args, cfg, device="cuda", generator=gen)
+        criterion = build_criterion(train_args, cfg)
+        optimizer, schedule = build_optimizer(train_args, model.train(), 600)
+        train_step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+        phases = {"image_tower": ctx.clip_model.visual}
+        crop = distillation.crop_square_resize_white
+
+        def timed_crop(*a, **kw):
+            with torch.profiler.record_function("phase:crops"):
+                return crop(*a, **kw)
+
+        distillation.crop_square_resize_white = timed_crop
+
+        def step(b):
+            return train_step(b, gen)
+    elif args.train:
         os.environ["CODA_BQ_FUSED_GATHER"] = "1"
         train_args = types.SimpleNamespace(**chip_smoke.TRAIN_ARGS)
         criterion = build_criterion(train_args, cfg)
@@ -155,12 +184,26 @@ def main():
     for e in events:
         if e.key.startswith(ranges) and e.device_type == torch.autograd.DeviceType.CPU:
             print(f"  {e.cpu_time_total / STEPS / 1e3:10.3f}  {e.key[6:]}")
-    if args.train:
+    if training:
         # the backward runs on autograd's device thread, outside the step's
-        # ranges: time the step's four parts again with a sync between them
+        # ranges: time the step's parts again with a sync between them
         print("training step by part (ms/step, host clock with a sync at each boundary, median):")
-        parts = {"forward": [], "criterion": [], "backward": [], "optimizer": []}
-        targets = [k for k in TARGET_KEYS if k in batch]
+        parts = {"forward": [], "targets": [], "criterion": [], "backward": [], "optimizer": []}
+        tower_ms = []
+        if ctx is not None:  # the image tower alone, synced around each call
+            tower = ctx.clip_image_fn
+
+            def synced_tower(images):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = tower(images)
+                torch.cuda.synchronize()
+                tower_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            ctx.clip_image_fn = synced_tower
+            extra = ctx.extra_targets_fn()
+        keys = [k for k in TARGET_KEYS if k in batch]
         for _ in range(STEPS):
             optimizer.zero_grad()
             torch.cuda.synchronize()
@@ -168,7 +211,13 @@ def main():
             outputs = model(batch, generator=gen)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            loss, _ = criterion(outputs, {k: batch[k] for k in targets})
+            targets = {k: batch[k] for k in keys}
+            if ctx is not None:
+                with torch.no_grad():
+                    targets.update(extra(outputs, batch, gen))
+                torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss, _ = criterion(outputs, targets)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
             loss.backward()
@@ -180,7 +229,14 @@ def main():
             for name, a, b in zip(parts, t, t[1:]):
                 parts[name].append((b - a) * 1e3)
         for name, ms in parts.items():
-            print(f"  {statistics.median(ms):10.3f}  {name}")
+            if name != "targets" or ctx is not None:
+                print(f"  {statistics.median(ms):10.3f}  {name}")
+        if ctx is not None:
+            tower = statistics.median(tower_ms)
+            print(f"  {tower:10.3f}  of the targets, the image tower "
+                  f"({args.batch * chip_smoke.N_SEL} crops)")
+            print(f"  {statistics.median(parts['targets']) - tower:10.3f}  of the targets, the rest "
+                  "(selection, rects, crops, scatter)")
         print(f"  {criterion.matcher.last_host_ms:10.3f}  of which the matcher on the host")
 
 

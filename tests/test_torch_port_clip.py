@@ -388,7 +388,7 @@ def _contexts(clip_eval, **over):
     args = _stage_args(**over)
     jctx = JaxStageContext(args, JaxImageConfig(), clip_model=clip_eval["jclip"], crop_size=16)
     tclip = _port_clip(TINY_CLIP, jax.tree.map(np.asarray, jctx.clip_variables["params"]))
-    tctx = StageContext(args, SunrgbdImageConfig(), clip_model=tclip, crop_size=16)
+    tctx = StageContext(args, SunrgbdImageConfig(), clip_model=tclip, crop_size=16, device="cpu")
     return jctx, tctx
 
 
@@ -462,7 +462,7 @@ def test_stage_context_loads_openai_checkpoint(tmp_path, scale, want):
     torch.save(sd, path)
     tm = CLIP(**TINY_CLIP)
     ctx = StageContext(_stage_args(clip_model_path=str(path)), SunrgbdImageConfig(),
-                       clip_model=tm, crop_size=16)
+                       clip_model=tm, crop_size=16, device="cpu")
     assert ctx.clip_model is tm
     assert ctx.logit_scale == pytest.approx(want, rel=1e-6)
     for k, v in tm.state_dict().items():
@@ -484,7 +484,7 @@ def test_clip_eval_vit_b16_width_one_scene(clip_eval):
     tclip = CLIP()
     tclip.load_state_dict(to_torch(clip_state_dict_from_flax(
         jax.tree.map(np.asarray, jctx.clip_variables["params"]))), strict=True)
-    tctx = StageContext(args, SunrgbdImageConfig(), clip_model=tclip)
+    tctx = StageContext(args, SunrgbdImageConfig(), clip_model=tclip, device="cpu")
     _close(tctx.text_banks["test"], jctx.text_banks["test"], what="bank")
     pts = {k: batch[k] for k in ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")}
     jm, variables, _, tm = _build(dict(TINY, with_text_head=False), pts)

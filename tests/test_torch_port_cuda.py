@@ -10,7 +10,7 @@ not use).  The shapes here are the edge cases of each kernel (ragged tiles,
 no-hit rows, fully masked rows, every template instance); chip_smoke.py
 covers the eval and training paths' own shapes.  Indices and gathers must be
 bit-equal to the plain versions and the numpy golden models (kernel F also
-to kernel B followed by kernel C); both attention kernels agree within
+to kernel B followed by kernel C, kernel G also to kernel B); both attention kernels agree within
 ATTN_TOL (fp32, summed in another order than cuBLAS), and so do D's
 gradients through its autograd Function and the gather's scatter-add
 backward with autograd of the plain versions.
@@ -26,8 +26,10 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
     ball_query_group,
     ball_query_group_plain,
     ball_query_plain,
+    ball_query_tile,
     group_points,
     group_points_plain,
+    query_and_group,
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
@@ -97,6 +99,88 @@ def test_ball_query_group_kernel(dev, n, m, radius, k, scale):
     assert torch.equal(grouped[:, -2:], a[:, None, None, 0].expand(2, 2, k, 3))
     if n * m <= 20000:
         np.testing.assert_array_equal(idx.cpu().numpy(), ball_query_golden(radius, k, xyz, new_xyz))
+
+
+def _check_tile(a, b, radius, k):
+    got = ball_query_tile(radius, k, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ball_query_plain(radius, k, a, b))
+    assert torch.equal(got, _kernel_b(radius, k, a, b))
+    return got
+
+
+def _kernel_b(radius, k, a, b):
+    from coda_neurips2023_tpu_torch.ops.grouping import _launch_ball_query
+
+    return _launch_ball_query("coda_ball_query", radius, k, a, b)
+
+
+# k below, at and above a warp, and the SA's 64; N = 1; N one past a chunk
+# of 2048; M not a multiple of the 64 centres of a tile
+@pytest.mark.parametrize("n,m,radius,k,scale", [(300, 70, 0.5, 1, 0.25), (300, 70, 0.5, 31, 0.25),
+                                                (300, 70, 0.5, 32, 0.25), (300, 70, 0.5, 33, 0.25),
+                                                (2049, 129, 0.4, 64, 0.3), (1, 5, 1.0, 64, 1.0),
+                                                (2049, 64, 0.2, 32, 1.0), (20000, 200, 0.2, 64, 1.0)])
+def test_ball_query_tile_kernel(dev, n, m, radius, k, scale):
+    xyz = _pc(n + 7, 2, n, scale)
+    new_xyz = np.concatenate([xyz[:, : min(m, n)], _pc(m, 2, max(m - n, 0), scale)], axis=1)
+    new_xyz[:, -1] = 50.0  # no hit
+    a, b = torch.from_numpy(xyz).to(dev), torch.from_numpy(np.ascontiguousarray(new_xyz)).to(dev)
+    got = _check_tile(a, b, radius, k)
+    assert torch.equal(got[:, -1], torch.zeros_like(got[:, -1]))
+    if n * m <= 40000:
+        np.testing.assert_array_equal(got.cpu().numpy(), ball_query_golden(radius, k, xyz, new_xyz))
+
+
+def test_ball_query_tile_all_miss_and_unfilled_centre(dev):
+    """A scene where no centre has a hit (every row zeros), and a tile whose
+    centres all fill in the first chunk but one, whose only hit is the last
+    point of the scene: the tile's early stop must wait for it."""
+    n, m, k = 5000, 64, 16
+    xyz = _pc(3, 1, n, 0.01)  # a dense clump at the origin
+    far = np.full((1, m, 3), 50.0, np.float32)
+    a = torch.from_numpy(xyz).to(dev)
+    got = _check_tile(a, torch.from_numpy(far).to(dev), 0.1, k)
+    assert not got.any()
+    xyz[0, -1] = (9.0, 9.0, 9.0)
+    ctr = np.zeros((1, m, 3), np.float32)
+    ctr[0, 37] = (9.0, 9.0, 9.05)  # hits only the last point
+    a = torch.from_numpy(xyz).to(dev)
+    got = _check_tile(a, torch.from_numpy(ctr).to(dev), 0.1, k)
+    assert torch.equal(got[0, 37], torch.full((k,), n - 1, dtype=torch.int32, device=dev))
+    assert (got[0, :37] < 2048).all()
+
+
+def test_ball_query_dispatch_launches(dev, monkeypatch):
+    """Each setting of the environment launches the kernel the JAX package's
+    choice maps to, and nothing else; a mistyped algorithm raises."""
+    xyz = torch.from_numpy(_pc(1, 2, 5000, 1.0)).to(dev)
+    centres = xyz[:, :100].contiguous()
+    for var in ("CODA_BQ_ALGO", "CODA_BQ_MXU", "CODA_BQ_FUSED_GATHER"):
+        monkeypatch.delenv(var, raising=False)
+    cases = [({}, 64, "ball_query"), ({"CODA_BQ_ALGO": "window"}, 64, "ball_query"),
+             ({"CODA_BQ_ALGO": "adaptive"}, 64, "ball_query_tile"),
+             ({"CODA_BQ_MXU": "1"}, 64, "ball_query_tile"), ({"CODA_BQ_MXU": "1"}, 32, "ball_query")]
+    for env, k, name in cases:
+        with monkeypatch.context() as mp:
+            for var, value in env.items():
+                mp.setenv(var, value)
+            _kernels.reset_launches()
+            got = ball_query(0.2, k, xyz, centres)
+            assert {n for n, c in _kernels.LAUNCHES.items() if c} == {name}, env
+            assert torch.equal(got, ball_query_plain(0.2, k, xyz, centres))
+    with monkeypatch.context() as mp:
+        mp.setenv("CODA_BQ_FUSED_GATHER", "1")
+        _kernels.reset_launches()
+        query_and_group(0.2, 64, xyz, centres)
+        assert _kernels.LAUNCHES["ball_query_group"] == 1 and _kernels.LAUNCHES["ball_query"] == 0
+        mp.setenv("CODA_BQ_ALGO", "adaptive")
+        _kernels.reset_launches()
+        query_and_group(0.2, 64, xyz, centres)
+        assert _kernels.LAUNCHES["ball_query_group"] == 0 and _kernels.LAUNCHES["ball_query_tile"] == 1
+        mp.setenv("CODA_BQ_ALGO", "sortd")
+        with pytest.raises(ValueError):
+            ball_query(0.2, 64, xyz, centres)
 
 
 @pytest.mark.parametrize("c", [1, 3, 5])
@@ -209,16 +293,19 @@ def test_launch_counts_and_refusals(dev):
     centres = group_points(xyz, inds[:, None, :])[:, 0]
     idx = ball_query(0.5, 8, xyz, centres)
     ball_query_group(0.5, 8, xyz, centres)
+    ball_query_tile(0.5, 8, xyz, centres)
     q = torch.randn((1, 2, 16, 32), device=dev)
     masked_attention(q, torch.randn((1, 2, 32, 16), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     vit_attention(q, torch.randn((1, 2, 16, 32), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     assert idx.dtype == torch.int32
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1,
-                                 "vit_attention": 1, "ball_query_group": 1}
+                                 "vit_attention": 1, "ball_query_group": 1, "ball_query_tile": 1}
     with pytest.raises(RuntimeError):
         furthest_point_sample(xyz.clone().requires_grad_(), 4)
     with pytest.raises(RuntimeError):  # coordinates take no gradient
         ball_query_group(0.5, 8, xyz.clone().requires_grad_(), centres)
+    with pytest.raises(RuntimeError):
+        ball_query_tile(0.5, 8, xyz.clone().requires_grad_(), centres)
     with pytest.raises(ValueError):  # head width without a kernel instance
         masked_attention(*(torch.zeros((1, 1, 8, 8), device=dev),) * 3)
     with pytest.raises(ValueError):

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from coda_neurips2023_tpu.ops import pallas_ball_query as jbq
+from coda_neurips2023_tpu.ops import pallas_ball_query_mxu as jbqm
 from coda_neurips2023_tpu.ops import pallas_ball_query_sorted as jbqs
 from coda_neurips2023_tpu.ops import pallas_masked_attention as jattn
 from coda_neurips2023_tpu.ops.grouping import group_points as jax_group_points
@@ -33,6 +34,8 @@ from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import (
     ball_query,
     ball_query_group,
+    ball_query_plain,
+    ball_query_tile,
     group_points,
     query_and_group,
 )
@@ -115,6 +118,43 @@ def test_ball_query_matches_golden_and_pallas(monkeypatch, case):
         np.testing.assert_array_equal(np.asarray(jbqs.ball_query_pallas_sorted(*args)), want)
 
 
+# kernel G's function (the adaptive and MXU Pallas kernels, rows 4 and 5 of
+# PERF.md's table): (B, N, M, radius, nsample, scale, far centres).  With the
+# Pallas chunk shrunk to 128 points, N = 300 and 257 end in a partial chunk.
+G_CASES = {
+    "dense": (2, 300, 33, 0.5, 64, 0.25, 2),
+    "sparse": (1, 300, 17, 0.15, 8, 1.0, 2),
+    "zero_hit": (1, 200, 9, 0.1, 64, 1.0, 9),
+    "k64": (1, 260, 19, 0.4, 64, 0.3, 2),
+    "ragged_n": (1, 257, 20, 0.4, 33, 0.3, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(G_CASES))
+def test_ball_query_plain_matches_adaptive_and_mxu_pallas(monkeypatch, case):
+    """The plain version (kernel G's on the CPU) bit-equal to the adaptive
+    Pallas kernel and, at k = 64 (the only k it takes), the MXU kernel, both
+    in interpret mode, and to the golden model."""
+    b, n, m, radius, nsample, scale, far = G_CASES[case]
+    rng = np.random.default_rng(n + m)
+    xyz = rand_pc(rng, b, n, scale=scale)
+    new_xyz = np.concatenate([xyz[:, : m - far], np.full((b, far, 3), 50.0, np.float32)], axis=1)
+    got = ball_query_tile(radius, nsample, torch.from_numpy(xyz), torch.from_numpy(new_xyz))
+    want = ball_query_golden(radius, nsample, xyz, new_xyz)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ball_query_plain(radius, nsample, torch.from_numpy(xyz), torch.from_numpy(new_xyz)).numpy(),
+        want)
+    assert np.all(want[:, m - far:] == 0)
+    monkeypatch.setattr(jbq, "_NC", 128)
+    monkeypatch.setattr(jbqm, "_NC", 128)
+    args = (radius, nsample, jnp.asarray(xyz), jnp.asarray(new_xyz))
+    with pltpu.force_tpu_interpret_mode():
+        np.testing.assert_array_equal(np.asarray(jbq.ball_query_pallas(*args)), want)
+        if nsample == 64:
+            np.testing.assert_array_equal(np.asarray(jbqm.ball_query_pallas_mxu(*args)), want)
+
+
 def test_ball_query_exact_boundary():
     """Points exactly at the radius are misses (strict <), in every version."""
     g = np.arange(-4, 5, dtype=np.float32) * 0.25  # exact squares
@@ -182,11 +222,12 @@ def test_cpu_calls_launch_nothing():
     centres = gather_points(xyz, inds)
     query_and_group(0.5, 8, xyz, centres)
     ball_query_group(0.5, 8, xyz, centres)
+    ball_query_tile(0.5, 8, xyz, centres)
     q = torch.randn(1, 2, 16, 8)
     masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8))
     vit_attention(q, torch.randn(1, 2, 16, 8), torch.randn(1, 2, 16, 8))
     assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
-                                 "vit_attention": 0, "ball_query_group": 0}
+                                 "vit_attention": 0, "ball_query_group": 0, "ball_query_tile": 0}
 
 
 @pytest.mark.parametrize(
@@ -224,11 +265,12 @@ def test_port_never_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'coda_neurips2023_tpu'))\n"
         "assert not bad, bad\n"
         "new = {'models.clip', 'models.tokenizer', 'models.text_bank', 'models.distillation',\n"
         "       'ops.vit_attention', 'ops.projection', 'stages', 'criterion', 'optimizer',\n"
-        "       'ops.giou', 'ops.hungarian'}\n"
+        "       'ops.giou', 'ops.hungarian', 'utils.device'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "assert len(names) >= 30, names\n"
         "print(len(names))\n"
