@@ -10,7 +10,8 @@ result):
   3. Each kernel against its plain PyTorch version at the shapes of the two
      eval paths: FPS, ball query and gather exactly, attention (D) within
      ATTN_TOL, ViT attention (E) at one scene's crops within VIT_ATTN_TOL;
-     kernel and plain times (CUDA events, median of REPS after warm-up).
+     kernel and plain times (CUDA events around back-to-back calls spanning
+     SPAN_MS, median of REPS after warm-up).
   4. The flagship CoDA model (enc 256, dec 512, 3 + 8 layers, 2048 points,
      128 queries) with random weights from a seed, eval step on 3 batches of
      32 synthetic 20000-point scenes against the 46-class text bank, which
@@ -67,11 +68,20 @@ kernel B, bit for bit, at three shapes (the SA at 20000 and at ScanNet's
 without its attention-weight dropout: the output, and q, k, v gradients
 through its autograd Function) against its plain version and autograd of it.
 The CODA_BQ_* variables are cleared at the start; each phase sets its own.
+Where one PyTorch call computes a kernel's function (C: torch.gather, D and
+E: scaled_dot_product_attention), phase 3 times the kernel and that call in
+turns (kernel, library, kernel, library) and reports each one's mean of the
+two medians, so the two are compared on one card; D is so timed at the
+encoder's and at the decoder's shape.
 The line before the last is {"kernels": [...]}, each kernel with its time,
 its plain version's, its bound (the larger of its operations over the
-card's fp32 peak and its bytes over the memory rate, counted from this run's
-inputs), and the time of one PyTorch call computing the same function where
-there is one; the last line is {"ok": true, "device": {...}}.
+card's peak rate for them and its bytes over the memory rate, counted from
+this run's inputs; for the attention kernels D and E, whose products run in
+3xTF32 on the tensor cores, QK and PV at TF32_PEAK / 3 and the softmax at
+the fp32 peak), and the time of one PyTorch call computing the same
+function where there is one; the attention entry also carries the
+decoder shape's kernel, plain, library and bound times.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -91,12 +101,13 @@ NUM_POINTS = 20000
 EVAL_CLASSES = 46
 STEPS = 3
 REPS = 7
+SPAN_MS = 5.0  # a timed run of phase 3 spans at least this long
 SEED = 0
 # fp32 attention: the kernel sums the 64/128-term dot products and the
-# softmax-weighted values in another order than cuBLAS, and rescales its
-# running sum tile by tile; outputs are O(1), so 1e-4 absolute is ~1e-5
-# relative, far above fp32 rounding and far below any indexing or masking
-# error.
+# softmax-weighted values in another order than cuBLAS, in 3xTF32 (about 22
+# of fp32's 24 bits), and rescales its running sum tile by tile; outputs are
+# O(1), so 1e-4 absolute is ~1e-5 relative, far above that rounding and far
+# below any indexing or masking error (single-pass TF32 would exceed it).
 ATTN_TOL = 1e-4
 # GPU vs CPU, whole model: the same integer indices, but every matmul sums in
 # another order on each device (cuBLAS vs the CPU BLAS) through 3 encoder and
@@ -140,8 +151,9 @@ KERNELS = {
                         "coda_neurips2023_tpu/ops/pallas_ball_query.py:346"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet, 700 W): fp32
-# outside the tensor cores, and device memory
+# outside the tensor cores, TF32 on them (dense), and device memory
 FP32_PEAK = 67e12  # FLOP/s
+TF32_PEAK = 495e12  # FLOP/s; an fp32-accurate (3xTF32) product runs at a third
 HBM_RATE = 3.35e12  # bytes/s
 # a distance test of the ball query: 3 sub, 3 mul, 2 add, 1 compare
 BQ_OPS = 9
@@ -196,26 +208,48 @@ def fail(msg):
     sys.exit(1)
 
 
+def time_in_turns(torch, *fns, rounds=2):
+    """Each fn's mean over `rounds` of its `time_ms`, the fns timed in turns
+    (a, b, a, b), so a kernel and its yardstick share the card's state."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for t, fn in zip(times, fns):
+            t.append(time_ms(torch, fn))
+    return [statistics.fmean(t) for t in times]
+
+
 def time_ms(torch, fn, reps=REPS, warmup=2):
-    """Median, over `reps` runs after `warmup`, of CUDA-event milliseconds."""
+    """Median, over `reps` runs after `warmup`, of CUDA-event milliseconds a
+    call, each run a stretch of back-to-back calls spanning about SPAN_MS,
+    so a short kernel's host-side launch cost overlaps the calls before it,
+    as on the paths, instead of idling the card inside the measurement."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    calls = max(1, min(100, int(SPAN_MS / max((time.perf_counter() - t0) * 1e3, 1e-3))))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, tc_flops=0):
     """(the least ms the card could take, what bounds it): the larger of the
-    operations over the fp32 peak and the bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    operations' time and the bytes over the memory rate.  The operations'
+    time is `flops` over the fp32 peak plus `tc_flops`, fp32-accurate
+    (3xTF32) tensor-core products, over TF32_PEAK / 3."""
+    ops_ms = (flops / FP32_PEAK + tc_flops / (TF32_PEAK / 3)) * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -241,9 +275,15 @@ def ball_query_bound(torch, radius, k, xyz, centres, grouped=False):
     return bound(BQ_OPS * ball_query_tests(torch, radius, k, xyz, centres), nbytes)
 
 
-def attention_bound(b, h, sq, skv, d):
-    # QK and PV (2 x 2D a pair) and the softmax's max, subtract, exp, sum, scale
-    return bound(b * h * sq * skv * (4 * d + 5), 4 * b * h * (2 * sq * d + 2 * skv * d))
+def attention_bound(b, h, sq, skv, d, tensor_cores=True):
+    """QK and PV (2 x 2D a query-key pair) in 3xTF32 on the tensor cores, and
+    the softmax's max, subtract, exp, sum, scale at the fp32 peak; with
+    `tensor_cores` False, every operation at the fp32 peak, for comparison."""
+    pairs = b * h * sq * skv
+    nbytes = 4 * b * h * (2 * sq * d + 2 * skv * d)
+    if not tensor_cores:
+        return bound(pairs * (4 * d + 5), nbytes)
+    return bound(pairs * 5, nbytes, tc_flops=pairs * 4 * d)
 
 
 def compare_kernels(torch, xyz, xyz40, results):
@@ -274,9 +314,11 @@ def compare_kernels(torch, xyz, xyz40, results):
         if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
             bad = (a != b).sum().item() if a.shape == b.shape else "shape"
             fail(f"{name} {label}: kernel differs from plain version ({bad} entries)")
-        library_ms = time_ms(torch, library) if library is not None else None
-        record(name, label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main_shape, bnd,
-               library_ms)
+        if library is not None:
+            ms, library_ms = time_in_turns(torch, kern, library)
+        else:
+            ms, library_ms = time_ms(torch, kern), None
+        record(name, label, 0.0, ms, time_ms(torch, plain), main_shape, bnd, library_ms)
         return a
 
     b, n = xyz.shape[:2]
@@ -357,11 +399,11 @@ def compare_kernels(torch, xyz, xyz40, results):
         return torch.randn(shape, device=DEVICE, generator=gen)
 
     cases = [
-        ("encoder self-attention S=2048 H=4 D=64", 2048, 2048, 64, 0.0, True),
-        ("decoder cross-attention Sq=128 Skv=2048 H=4 D=128", 128, 2048, 128, 0.0, False),
-        ("radius-masked S=2048 H=4 D=64 r=1.2**2", 2048, 2048, 64, 1.2 ** 2, False),
+        ("encoder self-attention S=2048 H=4 D=64", 2048, 2048, 64, 0.0, "encoder"),
+        ("decoder cross-attention Sq=128 Skv=2048 H=4 D=128", 128, 2048, 128, 0.0, "decoder"),
+        ("radius-masked S=2048 H=4 D=64 r=1.2**2", 2048, 2048, 64, 1.2 ** 2, None),
     ]
-    for label, sq, skv, d, radius, main_shape in cases:
+    for label, sq, skv, d, radius, shape in cases:
         q = randn(b, 4, sq, d) / d ** 0.5
         k, v = randn(b, 4, d, skv), randn(b, 4, skv, d)
         qxyz = centres[:, :sq].contiguous()
@@ -372,14 +414,22 @@ def compare_kernels(torch, xyz, xyz40, results):
         if not err <= ATTN_TOL:
             fail(f"attention {label}: max_abs_err {err!r} > {ATTN_TOL}")
         library_ms = None
-        if main_shape:  # the same function: q arrives scaled, so scale 1
+        if shape:  # the same function: q arrives scaled, so scale 1
             kt = k.transpose(2, 3).contiguous()
             library = lambda: sdpa(q, kt, v, scale=1.0)
             if not (library() - plain()).abs().max().item() <= ATTN_TOL:
                 fail("scaled_dot_product_attention differs from the plain attention")
-            library_ms = time_ms(torch, library)
-        record("attention", label, err, time_ms(torch, kern), time_ms(torch, plain), main_shape,
-               attention_bound(b, 4, sq, skv, d), library_ms)
+            ms, library_ms = time_in_turns(torch, kern, library)
+        else:
+            ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain)
+        bnd = attention_bound(b, 4, sq, skv, d)
+        record("attention", label, err, ms, plain_ms, shape == "encoder", bnd, library_ms)
+        print(f"  {'':16s} {'':44s} fp32-peak bound_ms="
+              f"{attention_bound(b, 4, sq, skv, d, tensor_cores=False)[0]!r}")
+        if shape == "decoder":
+            results["attention"].update(decoder_ms=ms, decoder_plain_ms=plain_ms,
+                                        decoder_bound_ms=bnd[0], decoder_library_ms=library_ms)
 
     # kernel E at one scene's crops through a ViT-B/16 layer: 128 x 12 x 197 x 64
     q, k, v = (randn(128, 12, 197, 64) for _ in range(3))
@@ -391,9 +441,11 @@ def compare_kernels(torch, xyz, xyz40, results):
         fail(f"vit_attention: max_abs_err {err!r} > {VIT_ATTN_TOL}")
     if not (library() - plain()).abs().max().item() <= VIT_ATTN_TOL:
         fail("scaled_dot_product_attention differs from the plain ViT attention")
-    record("vit_attention", "B=128 crops H=12 S=197 D=64", err, time_ms(torch, kern),
-           time_ms(torch, plain), True, attention_bound(128, 12, 197, 197, 64),
-           time_ms(torch, library))
+    ms, library_ms = time_in_turns(torch, kern, library)
+    record("vit_attention", "B=128 crops H=12 S=197 D=64", err, ms, time_ms(torch, plain), True,
+           attention_bound(128, 12, 197, 197, 64), library_ms)
+    print(f"  {'':16s} {'':44s} fp32-peak bound_ms="
+          f"{attention_bound(128, 12, 197, 197, 64, tensor_cores=False)[0]!r}")
 
 
 def compare_attention_backward(torch):
@@ -1017,8 +1069,7 @@ def main():
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-            **{key: results[name][key]
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()
     ]

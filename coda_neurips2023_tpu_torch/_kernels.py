@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written Hopper kernels.
 
 The CUDA C++ sources under ``csrc/`` expose a plain C interface.  At first use
-they are compiled by ``nvcc`` for ``sm_90a`` into one shared library,
+they are compiled by ``nvcc`` for ``sm_90a``, one process a source, all at
+once, and linked into one shared library,
 ``build/torch_kernels/libcoda_torch_kernels.so`` at the root of the checkout,
 and loaded with ``ctypes``.  The build runs again whenever a hash of the
 sources and flags changes.  A failed build or load raises: there is no
@@ -33,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libcoda_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # kernel name -> launches since the last reset_launches()
@@ -50,8 +51,10 @@ _SIGNATURES = {
     "coda_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "coda_gather": ("gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_attention": (
-        "attention", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _P]
+        "attention", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P]
     ),
+    # kernel D's second launch when it splits the keys: counted under "attention"
+    "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "coda_ball_query_group": ("ball_query_group", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "coda_ball_query_tile": ("ball_query_tile", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
@@ -59,6 +62,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_entry_points = {}  # C entry point -> its ctypes function
 
 
 def reset_launches() -> None:
@@ -95,16 +99,30 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so", delete=False) as tmp:
         tmp_path = tmp.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    # one nvcc a source, all at once, then one link
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objects = [BUILD_DIR / (p.name + ".o") for p in units]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(units, objects)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outputs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_path, *map(str, objects)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        cmds.append(link)
+        outputs.append(proc.stdout)
+        if proc.returncode != 0:
+            failed.append(link)
     (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        "".join(" ".join(c) + "\n" + out for c, out in zip(cmds, outputs))
     )
-    if proc.returncode != 0:
+    if failed:
         os.unlink(tmp_path)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}); log in {BUILD_DIR / 'build.log'}:\n"
-            + proc.stderr[-4000:]
+            f"nvcc failed on {' '.join(failed[0])}; log in {BUILD_DIR / 'build.log'}:\n"
+            + outputs[cmds.index(failed[0])][-4000:]
         )
     os.replace(tmp_path, LIBRARY)
     stamp.write_text(digest)
@@ -134,10 +152,12 @@ def launch(fn: str, *args) -> None:
     alive and has checked device, dtype, shape and contiguity.
     """
     name, _ = _SIGNATURES[fn]
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    entry = _entry_points.get(fn)
+    if entry is None:
+        entry = _entry_points.setdefault(fn, getattr(library(), fn))
+    device = next(a for a in args if isinstance(a, torch.Tensor)).device
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = getattr(library(), fn)(*ptrs, stream)
+    err = entry(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
     LAUNCHES[name] += 1

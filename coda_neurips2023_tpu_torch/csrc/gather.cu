@@ -5,46 +5,111 @@
 // Replaces coda_neurips2023_tpu/ops/pallas_group_gather.py ::
 // group_points_pallas.  On the TPU an arbitrary gather had to be built from
 // one-hot matrix products (with a bf16x3 split to stay exact); on the card
-// it is an indexed load, exact by construction.
+// it is an indexed load, exact by construction: the output is bit-equal to
+// the plain version's.
 //
 // Bound on the card: bytes.  At the eval shape the grouped xyz is
 // 32 * 2048 * 64 * 3 * 4 B = 50 MB written and 16 MB of indices read; the
-// scene (240 KB a row) stays in L2.  One thread per output element, so
-// neighbouring threads write neighbouring addresses and the reads of one
-// gathered row are contiguous.  An index outside [0, N) is clamped, so the
-// kernel never reads outside the row; callers pass indices from FPS and the
-// ball query, which are always in range.  Forward only: the scatter-add
-// backward comes with training.
+// scene (240 KB a row) stays in L2.  The batch row comes from blockIdx.y, so
+// every offset inside a row is 32-bit arithmetic (the wrapper checks R*C and
+// N*C < 2^31) with no 64-bit division.  Each index is read once and clamped
+// into [0, N), so the kernel never reads outside the row; callers pass
+// indices from FPS and the ball query, which are always in range.
+//   * C = 3 (xyz, every caller on the eval and training paths): a warp
+//     takes 128 rows.  It reads their indices once, as one 16-byte load a
+//     lane where aligned, into shared memory; then lane l gathers floats
+//     l, l + 32, ..., l + 352 of the rows' 384 (all twelve loads in flight
+//     at once) and writes them back in the same order.  Neighbouring lanes
+//     read neighbouring floats of a row, so one sector serves a row's
+//     three, and each store is 128 contiguous bytes a warp.  (Measured on
+//     the card, this beat a lane gathering four consecutive floats and
+//     writing them as one 16-byte store: scripts/bench_gather_variants.py.)
+//   * any other C: a thread takes one row and copies its C floats.
+// The scatter-add backward is plain PyTorch (ops/grouping.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void gather_kernel(const float* __restrict__ features,
-                              const int32_t* __restrict__ idx,
-                              float* __restrict__ out, long long total, int n,
-                              int r, int c) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int ch = (int)(t % c);
-  const long long row = t / c;  // b * R + j
-  const long long b = row / r;
-  int i = idx[row];
-  i = i < 0 ? 0 : (i >= n ? n - 1 : i);
-  out[t] = features[(b * n + i) * c + ch];
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int clamp_index(int i, int n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+constexpr int kRowsPerWarp = 128;
+
+__global__ void __launch_bounds__(kThreads)
+gather3_kernel(const float* __restrict__ features, const int32_t* __restrict__ idx,
+               float* __restrict__ out, int n, int r) {
+  __shared__ __align__(16) int rows_idx[kThreads / 32][kRowsPerWarp];  // index * 3
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (blockIdx.x * (kThreads / 32) + warp) * kRowsPerWarp;
+  if (row0 >= r) return;
+  const int rows = min(kRowsPerWarp, r - row0);
+  const long long b = blockIdx.y;
+  const float* f = features + b * n * 3;
+  const int32_t* ib = idx + b * r + row0;
+  float* ob = out + (b * r + row0) * 3;
+  int* si = rows_idx[warp];
+  if (rows == kRowsPerWarp && aligned16(ib)) {
+    const int4 i4 = reinterpret_cast<const int4*>(ib)[lane];
+    reinterpret_cast<int4*>(si)[lane] =
+        make_int4(clamp_index(i4.x, n) * 3, clamp_index(i4.y, n) * 3, clamp_index(i4.z, n) * 3,
+                  clamp_index(i4.w, n) * 3);
+  } else {
+    for (int j = lane; j < rows; j += 32) si[j] = clamp_index(ib[j], n) * 3;
+  }
+  __syncwarp();
+  if (rows == kRowsPerWarp) {
+    float x[3 * kRowsPerWarp / 32];
+#pragma unroll
+    for (int k = 0; k < 3 * kRowsPerWarp / 32; ++k) {
+      const int e = 32 * k + lane;
+      const int row = e / 3;
+      x[k] = __ldg(f + si[row] + (e - 3 * row));
+    }
+#pragma unroll
+    for (int k = 0; k < 3 * kRowsPerWarp / 32; ++k) ob[32 * k + lane] = x[k];
+  } else {
+    for (int e = lane; e < 3 * rows; e += 32) {
+      const int row = e / 3;
+      ob[e] = __ldg(f + si[row] + (e - 3 * row));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const float* __restrict__ features, const int32_t* __restrict__ idx,
+                   float* __restrict__ out, int n, int r, int c) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= r) return;
+  const long long b = blockIdx.y;
+  const float* p = features + b * n * c + clamp_index(idx[b * r + row], n) * c;
+  float* o = out + (b * r + row) * c;
+  for (int ch = 0; ch < c; ++ch) o[ch] = __ldg(p + ch);
 }
 
 }  // namespace
 
 extern "C" int coda_gather(const float* features, const int32_t* idx, float* out,
                            int b, int n, int r, int c, cudaStream_t stream) {
-  const long long total = (long long)b * r * c;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gather_kernel<<<(unsigned)blocks, threads, 0, stream>>>(features, idx, out, total,
-                                                          n, r, c);
+  if (b == 0 || r == 0 || c == 0) return (int)cudaSuccess;
+  if (b > 65535 || n < 1 || (long long)r * c > 0x7fffffffLL || (long long)n * c > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (c == 3) {
+    const int rows_per_block = kThreads / 32 * kRowsPerWarp;
+    const dim3 grid((unsigned)((r + rows_per_block - 1) / rows_per_block), (unsigned)b);
+    gather3_kernel<<<grid, kThreads, 0, stream>>>(features, idx, out, n, r);
+  } else {
+    const dim3 grid((unsigned)((r + kThreads - 1) / kThreads), (unsigned)b);
+    gather_rows_kernel<<<grid, kThreads, 0, stream>>>(features, idx, out, n, r, c);
+  }
   return (int)cudaGetLastError();
 }

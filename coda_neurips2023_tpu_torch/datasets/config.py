@@ -4,9 +4,10 @@ Counterpart of coda_neurips2023_tpu/datasets/config.py:27-158:
 `DatasetConfigBase` (angle bins, box slots and the two corner
 parametrizations), `SunrgbdAnonymousConfig` with its class vocabulary and
 train/test ranges, `SunrgbdImageConfig` (the 46-class eval config) and the
-asset loaders the CLIP text banks read.  The class-name `.npy` files are the
-JAX package's (coda_neurips2023_tpu/datasets/assets/), read by path; an
-explicit `asset_dir` overrides them.  ScanNet's configs are not ported yet.
+asset loaders the CLIP text banks read.  The class-name `.npy` files ship
+with this package, in datasets/assets/ beside this module (byte-identical
+copies of the JAX package's); an explicit `asset_dir` overrides them.
+ScanNet's configs are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +25,7 @@ CMP_CLASSES_SUNRGBD = "ov_3detr.npy"
 CMP_CLASSES_SCANNET = "ov_3detr_scannet.npy"
 SUPERSET_CLASSES = "lvis_1204.npy"
 
-DEFAULT_ASSET_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "coda_neurips2023_tpu", "datasets", "assets",
-)
+DEFAULT_ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 
 def _asset_path(asset_dir: Optional[str], filename: str) -> Optional[str]:

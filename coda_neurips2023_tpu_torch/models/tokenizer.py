@@ -2,9 +2,9 @@
 
 Copy of coda_neurips2023_tpu/models/tokenizer.py (pure Python, no jax), kept
 as it is apart from where it finds its data: the merge table
-`bpe_simple_vocab_16e6.txt.gz` is read by path from the JAX package's
-datasets/assets/, which the port shares; `bpe_path` or the CODA_CLIP_BPE env
-var override it.  Functional equivalent of the reference's SimpleTokenizer
+`bpe_simple_vocab_16e6.txt.gz` ships with this package, in datasets/assets/
+(a byte-identical copy of the JAX package's); `bpe_path` or the CODA_CLIP_BPE
+env var override it.  Functional equivalent of the reference's SimpleTokenizer
 and `clip.tokenize`: GPT-2-style byte-level BPE over a lower-cased,
 whitespace-normalized string, wrapped with <|startoftext|> / <|endoftext|>
 and padded to a 77-token context.  Without the `regex` package the word
@@ -66,8 +66,8 @@ def whitespace_clean(text):
 
 
 PACKAGED_BPE_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "coda_neurips2023_tpu", "datasets", "assets", "bpe_simple_vocab_16e6.txt.gz",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "datasets", "assets", "bpe_simple_vocab_16e6.txt.gz",
 )
 
 

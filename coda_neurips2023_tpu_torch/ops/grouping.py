@@ -9,9 +9,12 @@ Counterparts of coda_neurips2023_tpu/ops/grouping.py:
     kernel (`ball_query_kernel`); on a CPU tensor it takes the plain version
     below, whatever the environment says, as the JAX package's CPU path does.
   * `group_points`: the batched gather out[b, m, k] = features[b, idx[b, m, k]].
-    Kernel C (csrc/gather.cu) on CUDA, `torch.gather` on the CPU.  It is an
-    autograd Function: the backward is the scatter-add of the JAX package's
-    custom VJP (grouping.py:169-178), in plain PyTorch (`index_add_`).
+    Kernel C (csrc/gather.cu) on CUDA, bit-equal to `torch.gather` on the
+    CPU; it offsets inside a batch row in 32 bits, so M*K*C and N*C must lie
+    below 2^31 and B at most 65535.  Where features need a gradient it runs
+    as an autograd Function: the backward is the scatter-add of the JAX
+    package's custom VJP (grouping.py:169-178), in plain PyTorch
+    (`index_add_`).
   * `ball_query_group`: both in one pass, `ball_query` then `group_points` of
     the coordinates.  Kernel F (csrc/ball_query_group.cu) on CUDA.
   * `query_and_group`: the above, re-centred and radius-normalized; it takes
@@ -170,6 +173,12 @@ def group_points_plain(features: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 def _gather_kernel(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, n, c = features.shape
     _, m, k = idx.shape
+    # kernel C offsets inside a batch row in 32 bits
+    if m * k * c >= 2 ** 31 or n * c >= 2 ** 31:
+        raise ValueError(f"group_points: a batch row of {m * k} x {c} outputs or {n} x {c}"
+                         " features needs offsets of 2^31 or more")
+    if b > 65535 or (n == 0 and m * k > 0):
+        raise ValueError(f"group_points: B={b} (at most 65535) or N={n} (at least 1) out of range")
     out = torch.empty((b, m, k, c), dtype=torch.float32, device=features.device)
     _kernels.launch("coda_gather", features, idx, out, b, n, m * k, c)
     return out
@@ -185,6 +194,12 @@ def scatter_add_grouped(grad: torch.Tensor, idx: torch.Tensor, n: int) -> torch.
     return out.reshape(b, n, c)
 
 
+def _group_forward(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if features.device.type == "cpu":
+        return group_points_plain(features, idx)
+    return _gather_kernel(features, idx)
+
+
 class GroupPoints(torch.autograd.Function):
     """Forward: kernel C on a CUDA tensor, the plain gather on a CPU one.
     Backward: the scatter-add, on either.  idx takes no gradient."""
@@ -193,9 +208,7 @@ class GroupPoints(torch.autograd.Function):
     def forward(ctx, features, idx):
         ctx.save_for_backward(idx)
         ctx.n = features.shape[1]
-        if features.device.type == "cpu":
-            return group_points_plain(features, idx)
-        return _gather_kernel(features, idx)
+        return _group_forward(features, idx)
 
     @staticmethod
     def backward(ctx, grad):
@@ -215,6 +228,8 @@ def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"group_points: unsupported device {features.device}")
     if features.device.type == "cuda" and not (features.is_contiguous() and idx.is_contiguous()):
         raise ValueError("group_points: inputs must be contiguous")
+    if not (torch.is_grad_enabled() and features.requires_grad):
+        return _group_forward(features, idx)  # no gradient wanted: no autograd node
     return GroupPoints.apply(features, idx)
 
 

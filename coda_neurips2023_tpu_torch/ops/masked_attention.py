@@ -10,9 +10,17 @@ are set to finfo(f32).min before the softmax.  With radius <= 0 the
 coordinates are ignored and may be None.
 
 On a CUDA tensor `masked_attention` launches kernel D (csrc/attention.cu);
-on a CPU tensor it takes `masked_attention_plain`.  Both run in fp32: the
-JAX package's TPU default of bf16 operands is a precision choice for a later,
-measured change.
+on a CPU tensor it takes `masked_attention_plain`.  Both are fp32-accurate:
+kernel D runs its two products on the tensor cores in 3xTF32 (each operand
+split into two TF32 parts, three products summed in fp32), about 22 of
+fp32's 24 bits; the JAX package's TPU default of bf16 operands is a
+precision choice for a later, measured change.
+
+Where (B*H) x ceil(Sq / QUERY_TILE) blocks of kernel D would leave the card
+idle (the decoder's cross-attention), `attention_splits` cuts the keys into
+chunks, one a block, and a second launch combines the chunks' partial
+(max, sum, output) triples.  `masked_attention_split_plain` is that scheme written out
+in PyTorch, the reference for the combine.
 
 In training, `dropout` > 0 drops attention weights as flax's
 MultiHeadDotProductAttention does by default (broadcast_dropout): one keep
@@ -38,6 +46,38 @@ from coda_neurips2023_tpu_torch import _kernels
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _M32 = 0xFFFFFFFF
+# blocks of kernel D resident on the card at once: 132 SMs x 2
+RESIDENT_BLOCKS = 132 * 2
+# a chunk spans at least this many keys: below it the blocks' fixed cost
+# (the query tile's load, the partials' store and combine) outweighs the
+# parallelism gained
+MIN_CHUNK_KEYS = 256
+QUERY_TILE = 128  # query rows a block of kernel D (csrc/attention.cu Cfg::TQ)
+
+
+def key_tile(d: int) -> int:
+    """Keys a tile of kernel D at head width d (csrc/attention.cu Cfg::TK)."""
+    return 32 if d <= 64 else 16
+
+
+def attention_splits(b: int, h: int, sq: int, skv: int, d: int):
+    """(splits, chunk): kernel D cuts the Skv keys into `splits` chunks of
+    `chunk` keys (a whole number of key tiles, at least MIN_CHUNK_KEYS), one
+    chunk a block, where the (B*H) x ceil(Sq / QUERY_TILE) blocks are fewer
+    than RESIDENT_BLOCKS and so leave the card idle.  A block's time falls
+    as 1/splits while the card runs ceil(blocks * splits / RESIDENT_BLOCKS)
+    waves of them: the fewest splits that minimise waves / splits (a split
+    that fills waves badly, 3 at 128 blocks, measured slower than 2 or 4).
+    Every chunk holds at least one key (the combine of an
+    all-padding chunk would divide 0 by 0) and the chunks cover the keys
+    exactly."""
+    tk = key_tile(d)
+    tiles = -(-skv // tk)
+    blocks = b * h * -(-sq // QUERY_TILE)
+    most = 1 if blocks >= RESIDENT_BLOCKS else max(1, min(tiles, skv // MIN_CHUNK_KEYS))
+    want = min(range(1, most + 1), key=lambda s: -(-blocks * s // RESIDENT_BLOCKS) / s)
+    per = -(-tiles // want)  # tiles a chunk
+    return -(-tiles // per), per * tk
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -63,10 +103,9 @@ def attention_keep_mask(seed: torch.Tensor, sq: int, skv: int, dropout: float) -
     return (_mix32(_mix32(seed & _M32) ^ ij) >= threshold).reshape(sq, skv)
 
 
-def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float,
-                           dropout: float = 0.0, seed=None) -> torch.Tensor:
-    """Plain PyTorch version of `masked_attention`, on any device."""
-    scores = torch.matmul(q, k)  # (B, H, Sq, Skv)
+def _scores(q, k, qxyz, kxyz_t, radius: float) -> torch.Tensor:
+    """(B, H, Sq, Skv) scores, disallowed keys at finfo(f32).min."""
+    scores = torch.matmul(q, k)
     if radius > 0:
         # elementwise, in kernel D's order, so both decide the mask alike
         qx, qy, qz = (qxyz[:, :, i, None] for i in range(3))
@@ -77,13 +116,50 @@ def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float,
         d2 = torch.clamp((sq_q + sq_k) - 2.0 * cross, min=0.0)
         allowed = torch.sqrt(d2) < radius
         scores = scores.masked_fill(~allowed[:, None], torch.finfo(torch.float32).min)
-    weights = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float,
+                           dropout: float = 0.0, seed=None) -> torch.Tensor:
+    """Plain PyTorch version of `masked_attention`, on any device."""
+    weights = torch.softmax(_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
     if dropout > 0:
         keep = attention_keep_mask(seed, q.shape[2], v.shape[2], dropout)
         _, scale = dropout_constants(dropout)
         weights = torch.where(keep, weights * scale, torch.zeros((), dtype=weights.dtype,
                                                                   device=weights.device))
     return torch.matmul(weights, v)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Merge per-chunk softmax partials (kernel D's combine): m, l (S, ...,
+    Sq) the chunks' running max and sum, o (S, ..., Sq, D) their unnormalized
+    outputs -> sum_s o_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s."""
+    w = torch.exp(m - m.amax(0))
+    return (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]
+
+
+def masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius: float, chunk: int,
+                                 dropout: float = 0.0, seed=None) -> torch.Tensor:
+    """`masked_attention_plain` by kernel D's split-key scheme: the keys in
+    chunks of `chunk`, each chunk's (max, sum, unnormalized output), then
+    `combine_partials`.  The sum takes the weights before the drop."""
+    scores = _scores(q, k, qxyz, kxyz_t, radius)
+    sq, skv = scores.shape[-2:]
+    keep = attention_keep_mask(seed, sq, skv, dropout) if dropout > 0 else None
+    scale = dropout_constants(dropout)[1] if dropout > 0 else 1.0
+    parts = []
+    for c0 in range(0, skv, chunk):
+        s = scores[..., c0:c0 + chunk]
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        l = p.sum(-1)
+        if keep is not None:
+            p = torch.where(keep[:, c0:c0 + chunk], p * scale, torch.zeros((), dtype=p.dtype,
+                                                                           device=p.device))
+        parts.append((m, l, torch.matmul(p, v[..., c0:c0 + chunk, :])))
+    m, l, o = (torch.stack(x) for x in zip(*parts))
+    return combine_partials(m, l, o)
 
 
 def _check(q, k, v, qxyz, kxyz_t, radius, dropout, seed) -> None:
@@ -137,9 +213,22 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed
     out = torch.empty_like(q)
     qx, kx = (qxyz, kxyz_t) if radius > 0 else (None, None)
     threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
-    _kernels.launch("coda_attention", q, k, v, qx, kx, out, b, h, sq, skv, d, radius,
-                    seed if dropout > 0 else None, threshold, scale)
+    splits, chunk = attention_splits(b, h, sq, skv, d)
+    o_part = ml_part = None
+    if splits > 1:  # scratch for the chunks' partials, merged by the combine
+        o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32, device=q.device)
+        ml_part = torch.empty((splits, b, h, sq, 2), dtype=torch.float32, device=q.device)
+    _kernels.launch("coda_attention", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq, skv, d,
+                    radius, seed if dropout > 0 else None, threshold, scale, splits, chunk)
+    if splits > 1:
+        _kernels.launch("coda_attention_combine", o_part, ml_part, out, b, h, sq, d, splits)
     return out
+
+
+def _attention_forward(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed):
+    if q.device.type == "cpu":
+        return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+    return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
 
 
 class MaskedAttention(torch.autograd.Function):
@@ -150,9 +239,7 @@ class MaskedAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, qxyz, kxyz_t, radius, dropout=0.0, seed=None):
         ctx.save_for_backward(q, k, v, qxyz, kxyz_t, seed)
         ctx.radius, ctx.dropout = radius, dropout
-        if q.device.type == "cpu":
-            return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
-        return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+        return _attention_forward(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
 
     @staticmethod
     def backward(ctx, grad):

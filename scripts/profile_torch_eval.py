@@ -5,7 +5,8 @@
 
 Builds the flagship CoDA model (random weights from a seed), warms the eval
 step up, then traces STEPS steps with torch.profiler and prints the device
-time by kernel, the device time by phase of the forward (record_function
+time by kernel, that of the port's own kernels (csrc/, A-G, with kernel D's
+combine launch) apart, the device time by phase of the forward (record_function
 ranges), and the device's busy share of the traced wall time.  With --clip
 it profiles the baseline detector's CLIP-crop eval step instead (ViT-B/16,
 531 x 730 images), with the detector, the crops and the image tower as
@@ -23,14 +24,17 @@ at each boundary.  Needs a GPU.
 
 import argparse
 import os
+import re
 import statistics
 import sys
 import time
 import types
+from pathlib import Path
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 from coda_neurips2023_tpu_torch.datasets.config import (  # noqa: E402
     SunrgbdAnonymousConfig,
@@ -55,6 +59,13 @@ from coda_neurips2023_tpu_torch.optimizer import build_optimizer  # noqa: E402
 from coda_neurips2023_tpu_torch.stages import StageContext  # noqa: E402
 
 STEPS = 3
+# the __global__ functions of the port's csrc/*.cu
+PORT_KERNELS = {
+    m.group(1)
+    for src in (ROOT / "coda_neurips2023_tpu_torch" / "csrc").glob("*.cu")
+    for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+                         src.read_text())
+}
 
 
 def main():
@@ -176,6 +187,11 @@ def main():
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
         t = e.self_device_time_total
         print(f"  {t / STEPS / 1e3:10.3f}  {t / dev_total:6.1%}  x{e.count // STEPS:<5d} {e.key[:90]}")
+    print("the port's kernels A-G (ms/step, launches/step), by csrc/ kernel function:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        name = e.key.partition("(anonymous namespace)::")[2].split("(")[0]
+        if name.split("<")[0] in PORT_KERNELS:
+            print(f"  {e.self_device_time_total / STEPS / 1e3:10.3f}  x{e.count // STEPS:<5d} {name}")
     print("device time by phase (ms/step, span on the device):")
     for e in on_device:
         if e.key.startswith(ranges):

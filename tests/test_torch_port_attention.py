@@ -1,0 +1,185 @@
+"""Kernel D's arithmetic on the CPU: 3xTF32 products, the key split, the combine.
+
+Kernel D (csrc/attention.cu) runs QK^T and PV on the tensor cores in
+3xTF32 and, where its blocks would not fill the card, splits the keys into
+chunks whose partial (max, sum, output) triples a second launch combines.
+None of that runs here, so these tests hold its arithmetic in PyTorch:
+
+  * a TF32 emulation of cvt.rna (round the low 13 mantissa bits to nearest,
+    ties away from zero) shows that the hi/lo split keeps the products at
+    the encoder's and decoder's widths within ATTN_TOL of fp64, and that a
+    single TF32 pass does not;
+  * `attention_splits` gives chunks that are whole key tiles, none all
+    padding, covering Skv exactly;
+  * `masked_attention_split_plain` (the combine written out beside the
+    kernel) equals `masked_attention_plain` and the JAX package's reference,
+    with all-masked rows and with dropout.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coda_neurips2023_tpu.ops import pallas_masked_attention as jattn
+
+from coda_neurips2023_tpu_torch.ops.masked_attention import (
+    MIN_CHUNK_KEYS,
+    QUERY_TILE,
+    RESIDENT_BLOCKS,
+    attention_splits,
+    combine_partials,
+    key_tile,
+    masked_attention,
+    masked_attention_plain,
+    masked_attention_split_plain,
+)
+
+ATTN_TOL = 1e-4
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 as cvt.rna.tf32.f32: the low 13 mantissa bits rounded to
+    nearest, ties away from zero (a carry moves into the exponent)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def product_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: lo*hi + hi*lo + hi*hi, each product exact in fp32
+    (11-bit by 11-bit significands), summed in fp32 as the MMA accumulates."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def product_1x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tf32(a) @ tf32(b)
+
+
+def _inputs(seed, b, h, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((b, h, sq, d)) / np.sqrt(d)).astype(np.float32)
+    k = rng.standard_normal((b, h, d, skv)).astype(np.float32)
+    v = rng.standard_normal((b, h, skv, d)).astype(np.float32)
+    return map(torch.from_numpy, (q, k, v))
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 2 - ulp / 2, 0.0], dtype=torch.float32)
+    # ties away from zero on both signs, below a tie down, a carry into the exponent
+    assert tf32(x).tolist() == [one + ulp, -(one + ulp), one, one + 2 * ulp, 2.0, 0.0]
+    assert (tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).eq(0).all()
+    hi, lo = split(torch.tensor([np.pi], dtype=torch.float32))
+    assert abs((hi + lo).double().item() - np.float32(np.pi)) <= 2.0 ** -22 * np.pi
+
+
+@pytest.mark.parametrize("sq,skv,d", [(256, 2048, 64), (128, 2048, 128)],
+                         ids=["encoder", "decoder"])
+def test_3xtf32_products_keep_fp32_parity(sq, skv, d):
+    """At the encoder's (D = 64) and the decoder's (D = 128) widths, QK^T and
+    PV in 3xTF32 err from fp64 about as much as fp32 products do, far inside
+    ATTN_TOL, and so does the attention they make; single-pass TF32 scores
+    miss ATTN_TOL tenfold."""
+    q, k, v = _inputs(d, 1, 2, sq, skv, d)
+    exact = q.double() @ k.double()
+    fp32_err = ((q @ k).double() - exact).abs().max().item()
+    scores = product_3x(q, k)
+    err3 = (scores.double() - exact).abs().max().item()
+    err1 = (product_1x(q, k).double() - exact).abs().max().item()
+    assert err3 <= 2 * fp32_err and err3 <= ATTN_TOL / 10
+    assert err1 > 10 * ATTN_TOL
+    p = torch.softmax(scores, -1)
+    out = product_3x(p, v)
+    assert (out.double() - p.double() @ v.double()).abs().max().item() <= ATTN_TOL / 100
+    want = torch.softmax(exact, -1) @ v.double()
+    assert (out.double() - want).abs().max().item() <= ATTN_TOL / 100
+
+
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 2048, 2049])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_attention_splits_cover_the_keys(skv, d):
+    """Chunks are whole key tiles, every chunk starts before Skv (none is all
+    padding), and they cover Skv exactly, at the paths' shapes and small ones."""
+    for b, h, sq in ((32, 4, 2048), (32, 4, 128), (8, 4, 128), (2, 3, 70), (1, 1, 1)):
+        splits, chunk = attention_splits(b, h, sq, skv, d)
+        assert splits >= 1 and chunk % key_tile(d) == 0
+        assert (splits - 1) * chunk < skv <= splits * chunk
+        blocks = b * h * -(-sq // QUERY_TILE)
+        if splits > 1:  # split only where the blocks leave the card idle
+            assert blocks < RESIDENT_BLOCKS and chunk >= MIN_CHUNK_KEYS
+            waves = -(-blocks * splits // RESIDENT_BLOCKS)
+            assert waves / splits < 1  # fewer waves a split than unsplit
+
+
+def test_attention_splits_at_the_paths_shapes():
+    """Blocks a wave (264): the eval encoder's 4096 and the training
+    encoder's 512 blocks fill whole waves unsplit; the eval decoder's 128
+    fill one wave twice over as 2 splits, the training decoder's 32 as 8."""
+    assert attention_splits(32, 4, 2048, 2048, 64) == (1, 2048)
+    assert attention_splits(8, 4, 2048, 2048, 64) == (1, 2048)
+    assert attention_splits(32, 4, 128, 2048, 128) == (2, 1024)
+    assert attention_splits(8, 4, 128, 2048, 128) == (8, 256)
+
+
+def _attention_args(seed, b, h, sq, skv, d, radius):
+    q, k, v = _inputs(seed, b, h, sq, skv, d)
+    rng = np.random.default_rng(seed + 1)
+    kxyz = rng.uniform(-1, 1, (b, skv, 3)).astype(np.float32)
+    qxyz = rng.uniform(-1, 1, (b, sq, 3)).astype(np.float32)
+    qxyz[:, 0] = 100.0  # with radius > 0, a row with no allowed key: uniform
+    qxyz, kxyz_t = torch.from_numpy(qxyz), torch.from_numpy(np.ascontiguousarray(kxyz.transpose(0, 2, 1)))
+    return q, k, v, qxyz, kxyz_t, radius
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("radius", [0.0, 0.8])
+@pytest.mark.parametrize("chunk", [32, 64, 96])
+def test_split_combine_matches_plain_and_jax(chunk, radius, dropout):
+    """The keys in chunks, each chunk's (max, sum, unnormalized output), then
+    the combine: equal to the plain version within fp32 rounding (and to the
+    JAX reference without dropout), all-masked rows uniform."""
+    args = _attention_args(chunk, 2, 3, 40, 150, 16, radius)
+    seed = torch.tensor(987654321, dtype=torch.int64)
+    got = masked_attention_split_plain(*args, chunk=chunk, dropout=dropout, seed=seed)
+    want = masked_attention_plain(*args, dropout=dropout, seed=seed)
+    assert (got - want).abs().max().item() <= 1e-6
+    if dropout == 0:
+        ref = jattn._reference(*(jnp.asarray(t.numpy()) for t in args[:5]), radius, jnp.float32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=ATTN_TOL)
+        if radius > 0:
+            np.testing.assert_allclose(got[:, :, 0].numpy(), args[2].mean(2).numpy(), rtol=0,
+                                       atol=ATTN_TOL)
+
+
+def test_split_combine_at_the_kernels_own_split():
+    """The decoder's cross-attention shape cut to 2 scenes, at the split the
+    kernel takes there (a last chunk shorter than the rest), with dropout."""
+    b, h, sq, skv, d = 2, 4, 128, 2000, 128
+    splits, chunk = attention_splits(b, h, sq, skv, d)
+    assert splits > 1 and skv - (splits - 1) * chunk < chunk
+    args = _attention_args(5, b, h, sq, skv, d, 0.0)
+    seed = torch.tensor(5, dtype=torch.int64)
+    got = masked_attention_split_plain(*args, chunk=chunk, dropout=0.1, seed=seed)
+    assert (got - masked_attention(*args, dropout=0.1, seed=seed)).abs().max().item() <= 1e-6
+
+
+def test_combine_partials_weights_chunks_by_their_max():
+    """Two chunks, one whose every key was radius-masked (max finfo.min):
+    its weight underflows to 0 and the other chunk's output stands."""
+    fmin = torch.finfo(torch.float32).min
+    m = torch.tensor([[fmin], [2.0]])
+    l = torch.tensor([[3.0], [1.5]])
+    o = torch.tensor([[[9.0, 9.0]], [[3.0, -1.5]]])
+    assert combine_partials(m, l, o).tolist() == [[2.0, -1.0]]
+    # both chunks fully masked: uniform over all keys (l counts them)
+    m = torch.tensor([[fmin], [fmin]])
+    want = torch.tensor([[12.0, 7.5]]) / 4.5
+    assert torch.allclose(combine_partials(m, l, o), want, rtol=1e-6, atol=0)

@@ -31,7 +31,11 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
     group_points_plain,
     query_and_group,
 )
-from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
+from coda_neurips2023_tpu_torch.ops.masked_attention import (
+    attention_splits,
+    masked_attention,
+    masked_attention_plain,
+)
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, furthest_point_sample_plain
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
 
@@ -191,6 +195,76 @@ def test_gather_kernel(dev, c):
     assert torch.equal(group_points(feats, idx), group_points_plain(feats, idx))
 
 
+@pytest.mark.parametrize("r,aligned", [(128, True), (130, True), (131, False)])
+def test_gather_kernel_xyz_rows(dev, r, aligned):
+    """C = 3, a warp per 128 rows: R = 128 (whole warps, 16-byte index
+    loads), R = 130 (a ragged last warp; every batch row but the first
+    starts off 16-byte alignment), and indices and features that start one
+    element into their storage; also as gather_points' (B, 1, M) indices."""
+    rng = np.random.default_rng(r)
+    feats = torch.from_numpy(rng.standard_normal((5, 301, 3)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 301, (5, r, 1)).astype(np.int32)).to(dev)
+    if not aligned:
+        f_flat = torch.zeros(feats.numel() + 1, device=dev)
+        f_flat[1:] = feats.reshape(-1)
+        feats = f_flat[1:].view(5, 301, 3)
+        i_flat = torch.zeros(idx.numel() + 1, dtype=torch.int32, device=dev)
+        i_flat[1:] = idx.reshape(-1)
+        idx = i_flat[1:].view(5, r, 1)
+    assert torch.equal(group_points(feats, idx), group_points_plain(feats, idx))
+    assert torch.equal(group_points(feats, idx.reshape(5, 1, r)).reshape(5, r, 3),
+                       group_points_plain(feats, idx).reshape(5, r, 3))
+
+
+def test_gather_kernel_large_batch(dev):
+    """B * R * C above 2^31 (C = 1): the batch row's offset is 64-bit, the
+    offsets inside it 32-bit; checked a batch row at a time."""
+    b, r = 66, 2 ** 25 + 3
+    feats = torch.randn((b, 1000, 1), device=dev)
+    idx = torch.randint(0, 1000, (b, 1, r), device=dev, dtype=torch.int32)
+    out = group_points(feats, idx)
+    for i in (0, 1, b // 2, b - 1):
+        assert torch.equal(out[i:i + 1], group_points_plain(feats[i:i + 1], idx[i:i + 1]))
+    del out
+    with pytest.raises(ValueError):  # a batch row of 2^31 outputs or more
+        group_points(torch.zeros((1, 4, 64), device=dev),
+                     torch.zeros((1, 1, 2 ** 25), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("b,h,d,sq,skv,radius,dropout", [
+    (32, 4, 128, 128, 2048, 0.0, 0.0),  # the decoder's cross-attention
+    (32, 4, 128, 128, 2048, 0.0, 0.1),
+    (8, 4, 128, 128, 2048, 0.0, 0.1),   # the training step's cross-attention
+    (2, 3, 16, 33, 1001, 0.5, 0.0),     # Skv odd: 4-byte copies
+    (2, 3, 32, 64, 777, 0.0, 0.1),
+    (2, 3, 64, 70, 1000, 0.5, 0.1),     # Skv not a multiple of the chunk
+    (2, 3, 128, 5, 600, 0.5, 0.3),
+])
+def test_attention_split_keys(dev, b, h, d, sq, skv, radius, dropout):
+    """Kernel D with the keys split across blocks and merged by the combine
+    launch: within ATTN_TOL of the plain version, with the same dropout mask,
+    and a row whose every key is radius-masked comes out uniform (the mean
+    of v, dropped as the plain version drops it)."""
+    splits, chunk = attention_splits(b, h, sq, skv, d)
+    assert splits > 1
+    g = torch.Generator(device=dev).manual_seed(d + sq + skv)
+    q = torch.randn((b, h, sq, d), device=dev, generator=g) / d ** 0.5
+    k = torch.randn((b, h, d, skv), device=dev, generator=g)
+    v = torch.randn((b, h, skv, d), device=dev, generator=g)
+    kxyz = torch.rand((b, skv, 3), device=dev, generator=g) * 2 - 1
+    qxyz = torch.rand((b, sq, 3), device=dev, generator=g) * 2 - 1
+    qxyz[:, 0] = 100.0
+    kxyz_t = kxyz.transpose(1, 2).contiguous()
+    seed = torch.randint(0, 2 ** 62, (), device=dev, generator=g)
+    args = (q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+    _kernels.reset_launches()
+    got = masked_attention(*args)
+    assert _kernels.LAUNCHES["attention"] == 2  # the chunks, then the combine
+    assert (got - masked_attention_plain(*args)).abs().max().item() <= ATTN_TOL
+    if radius > 0 and dropout == 0:
+        assert (got[:, :, 0] - v.mean(2)).abs().max().item() <= ATTN_TOL
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,skv", [(64, 64), (70, 130), (5, 200)])
 @pytest.mark.parametrize("radius", [0.0, 0.5])
@@ -300,6 +374,11 @@ def test_launch_counts_and_refusals(dev):
     assert idx.dtype == torch.int32
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1,
                                  "vit_attention": 1, "ball_query_group": 1, "ball_query_tile": 1}
+    # keys split across blocks: the combine is D's second launch
+    q = torch.randn((1, 1, 16, 32), device=dev)
+    assert attention_splits(1, 1, 16, 1000, 32)[0] > 1
+    masked_attention(q, torch.randn((1, 1, 32, 1000), device=dev), torch.randn((1, 1, 1000, 32), device=dev))
+    assert _kernels.LAUNCHES["attention"] == 3
     with pytest.raises(RuntimeError):
         furthest_point_sample(xyz.clone().requires_grad_(), 4)
     with pytest.raises(RuntimeError):  # coordinates take no gradient
