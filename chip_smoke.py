@@ -9,9 +9,14 @@ result):
   2. Build the kernels (coda_neurips2023_tpu_torch/csrc) with nvcc.
   3. Each kernel against its plain PyTorch version at the shapes of the two
      eval paths: FPS, ball query and gather exactly, attention (D) within
-     ATTN_TOL, ViT attention (E) at one scene's crops within VIT_ATTN_TOL;
-     kernel and plain times (CUDA events around back-to-back calls spanning
-     SPAN_MS, median of REPS after warm-up).
+     ATTN_TOL, ViT attention (E) within VIT_ATTN_TOL at one scene's crops
+     (128) and at a stage-1 step's (256); kernel and plain times (CUDA
+     events around back-to-back calls spanning SPAN_MS, median of REPS
+     after warm-up).  FPS (A) is held bit for bit at 32 x 20000 -> 2048,
+     32 x 2048 -> 128, 8 x 20000 -> 2048 and 8 x 40000 -> 2048, each at the
+     cluster size its policy picks on this card, beside the floor of its
+     loop (the same barriers and cross-block merge without the points'
+     work).
   4. The flagship CoDA model (enc 256, dec 512, 3 + 8 layers, 2048 points,
      128 queries) with random weights from a seed, eval step on 3 batches of
      32 synthetic 20000-point scenes against the 46-class text bank, which
@@ -80,7 +85,9 @@ this run's inputs; for the attention kernels D and E, whose products run in
 3xTF32 on the tensor cores, QK and PV at TF32_PEAK / 3 and the softmax at
 the fp32 peak), and the time of one PyTorch call computing the same
 function where there is one; the attention entry also carries the
-decoder shape's kernel, plain, library and bound times.  The last line is
+decoder shape's kernel, plain, library and bound times, the vit_attention
+entry those at 256 crops (stage1_*), the fps entry its cluster size and
+barrier floor at the main shape.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -286,9 +293,23 @@ def attention_bound(b, h, sq, skv, d, tensor_cores=True):
     return bound(pairs * 5, nbytes, tc_flops=pairs * 4 * d)
 
 
+def fps_floor(torch, xyz, npoint, cs):
+    """Kernel A's loop at cluster size cs without its points' work (not a
+    launch of the path, so not counted)."""
+    from coda_neurips2023_tpu_torch import _kernels
+
+    b, n, _ = xyz.shape
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    err = _kernels.library().coda_fps_barrier_floor(xyz.data_ptr(), out.data_ptr(), b, n, npoint,
+                                                    cs, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"coda_fps_barrier_floor: CUDA error {err} at launch")
+
+
 def compare_kernels(torch, xyz, xyz40, results):
     """Phase 3: each kernel vs its plain version at the paths' shapes."""
     from coda_neurips2023_tpu_torch.ops import grouping, sampling
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
     from coda_neurips2023_tpu_torch.ops.masked_attention import (
         masked_attention,
         masked_attention_plain,
@@ -321,19 +342,33 @@ def compare_kernels(torch, xyz, xyz40, results):
         record(name, label, 0.0, ms, time_ms(torch, plain), main_shape, bnd, library_ms)
         return a
 
+    sm_count = multi_processor_count(xyz.device)
+
+    def fps(x, m, main_shape=False):
+        """Kernel A bit for bit at its policy's cluster size, and the floor
+        of its loop (the same barriers and merge, no points' work)."""
+        nb, nn = x.shape[:2]
+        cs = sampling.fps_cluster_size(nb, nn, sm_count,
+                                       lambda c: sampling.resident_clusters(x.device, c))
+        got = exact("fps", f"B={nb} N={nn} -> {m}, cluster of {cs}",
+                    lambda: sampling.furthest_point_sample(x, m),
+                    lambda: sampling.furthest_point_sample_plain(x, m), main_shape,
+                    bound(FPS_OPS * nb * (m - 1) * nn, 12 * nb * nn + 4 * nb * m))
+        floor_ms = time_ms(torch, lambda: fps_floor(torch, x, m, cs))
+        print(f"  {'':16s} {'':44s} barrier floor_ms={floor_ms!r} ({m - 1} steps, cluster of {cs})")
+        if main_shape:
+            results["fps"].update(floor_ms=floor_ms, cluster_size=cs)
+        return got
+
     b, n = xyz.shape[:2]
-    inds = exact("fps", f"B={b} N={NUM_POINTS} -> 2048",
-                 lambda: sampling.furthest_point_sample(xyz, 2048),
-                 lambda: sampling.furthest_point_sample_plain(xyz, 2048),
-                 bnd=bound(FPS_OPS * b * 2047 * n, 12 * b * n + 4 * b * 2048))
+    inds = fps(xyz, 2048, main_shape=True)
     centres = exact("gather", f"gather_points B={b} N={NUM_POINTS} M=2048",
                     lambda: sampling.gather_points(xyz, inds),
                     lambda: grouping.group_points_plain(xyz, inds[:, None, :]).reshape(b, 2048, 3),
                     main_shape=False)
-    q_inds = exact("fps", f"B={b} N=2048 -> 128",
-                   lambda: sampling.furthest_point_sample(centres, 128),
-                   lambda: sampling.furthest_point_sample_plain(centres, 128),
-                   main_shape=False)
+    q_inds = fps(centres, 128)
+    fps(xyz[:TRAIN_BATCH].contiguous(), 2048)
+    fps(xyz40, 2048)
     exact("gather", f"gather_points B={b} N=2048 M=128",
           lambda: sampling.gather_points(centres, q_inds),
           lambda: grouping.group_points_plain(centres, q_inds[:, None, :]).reshape(b, 128, 3),
@@ -431,21 +466,28 @@ def compare_kernels(torch, xyz, xyz40, results):
             results["attention"].update(decoder_ms=ms, decoder_plain_ms=plain_ms,
                                         decoder_bound_ms=bnd[0], decoder_library_ms=library_ms)
 
-    # kernel E at one scene's crops through a ViT-B/16 layer: 128 x 12 x 197 x 64
-    q, k, v = (randn(128, 12, 197, 64) for _ in range(3))
-    kern = lambda: vit_attention(q, k, v)
-    plain = lambda: vit_attention_plain(q, k, v)
-    library = lambda: sdpa(q, k, v)
-    err = (kern() - plain()).abs().max().item()
-    if not err <= VIT_ATTN_TOL:
-        fail(f"vit_attention: max_abs_err {err!r} > {VIT_ATTN_TOL}")
-    if not (library() - plain()).abs().max().item() <= VIT_ATTN_TOL:
-        fail("scaled_dot_product_attention differs from the plain ViT attention")
-    ms, library_ms = time_in_turns(torch, kern, library)
-    record("vit_attention", "B=128 crops H=12 S=197 D=64", err, ms, time_ms(torch, plain), True,
-           attention_bound(128, 12, 197, 197, 64), library_ms)
-    print(f"  {'':16s} {'':44s} fp32-peak bound_ms="
-          f"{attention_bound(128, 12, 197, 197, 64, tensor_cores=False)[0]!r}")
+    # kernel E through a ViT-B/16 layer at one scene's crops (128, the
+    # CLIP-crop eval) and at a stage-1 step's (256): B x 12 x 197 x 64
+    for crops in (128, 8 * N_SEL):
+        q, k, v = (randn(crops, 12, 197, 64) for _ in range(3))
+        kern = lambda: vit_attention(q, k, v)
+        plain = lambda: vit_attention_plain(q, k, v)
+        library = lambda: sdpa(q, k, v)
+        err = (kern() - plain()).abs().max().item()
+        if not err <= VIT_ATTN_TOL:
+            fail(f"vit_attention {crops} crops: max_abs_err {err!r} > {VIT_ATTN_TOL}")
+        if not (library() - plain()).abs().max().item() <= VIT_ATTN_TOL:
+            fail("scaled_dot_product_attention differs from the plain ViT attention")
+        ms, library_ms = time_in_turns(torch, kern, library)
+        plain_ms = time_ms(torch, plain)
+        bnd = attention_bound(crops, 12, 197, 197, 64)
+        record("vit_attention", f"B={crops} crops H=12 S=197 D=64", err, ms, plain_ms, crops == 128,
+               bnd, library_ms)
+        print(f"  {'':16s} {'':44s} fp32-peak bound_ms="
+              f"{attention_bound(crops, 12, 197, 197, 64, tensor_cores=False)[0]!r}")
+        if crops != 128:
+            results["vit_attention"].update(stage1_ms=ms, stage1_plain_ms=plain_ms,
+                                            stage1_bound_ms=bnd[0], stage1_library_ms=library_ms)
 
 
 def compare_attention_backward(torch):

@@ -47,7 +47,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # C entry point -> (kernel name, argument types after the pointers' values)
 _SIGNATURES = {
-    "coda_fps": ("fps", [_P, _P, _I, _I, _I, _P]),
+    "coda_fps": ("fps", [_P, _P, _I, _I, _I, _I, _P]),
     "coda_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "coda_gather": ("gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_attention": (
@@ -139,8 +139,12 @@ def library() -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            lib.coda_fps_max_points.argtypes = []
-            lib.coda_fps_max_points.restype = ctypes.c_int
+            # a timing of kernel A's loop without its work, launched by
+            # measurement scripts through the library, never counted
+            lib.coda_fps_barrier_floor.argtypes = _SIGNATURES["coda_fps"][1]
+            lib.coda_fps_barrier_floor.restype = ctypes.c_int
+            lib.coda_fps_resident_clusters.argtypes = [ctypes.c_int]
+            lib.coda_fps_resident_clusters.restype = ctypes.c_int
             _lib = lib
         return _lib
 

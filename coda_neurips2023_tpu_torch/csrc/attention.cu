@@ -66,7 +66,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using coda_tf32::mma_3xtf32;
+using coda_tf32::split_tf32;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -105,36 +110,6 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
 __device__ __forceinline__ float sum3(float a0, float b0, float a1, float b1,
                                       float a2, float b2) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
-}
-
-// fp32 -> TF32 rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
-// result for finite x, in two integer ops (the kernel ran 13% faster at the
-// encoder's shape than with cvt.rna, a conversion-unit instruction)
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in 3xTF32: the small products first, then the large one
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -43,11 +43,13 @@ from __future__ import annotations
 import torch
 
 from coda_neurips2023_tpu_torch import _kernels
+from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _M32 = 0xFFFFFFFF
-# blocks of kernel D resident on the card at once: 132 SMs x 2
-RESIDENT_BLOCKS = 132 * 2
+# blocks of kernel D resident on one SM at once (two of ~110 KB of shared
+# memory); the card holds this many times its SM count
+BLOCKS_PER_SM = 2
 # a chunk spans at least this many keys: below it the blocks' fixed cost
 # (the query tile's load, the partials' store and combine) outweighs the
 # parallelism gained
@@ -60,22 +62,23 @@ def key_tile(d: int) -> int:
     return 32 if d <= 64 else 16
 
 
-def attention_splits(b: int, h: int, sq: int, skv: int, d: int):
+def attention_splits(b: int, h: int, sq: int, skv: int, d: int, sm_count: int):
     """(splits, chunk): kernel D cuts the Skv keys into `splits` chunks of
     `chunk` keys (a whole number of key tiles, at least MIN_CHUNK_KEYS), one
     chunk a block, where the (B*H) x ceil(Sq / QUERY_TILE) blocks are fewer
-    than RESIDENT_BLOCKS and so leave the card idle.  A block's time falls
-    as 1/splits while the card runs ceil(blocks * splits / RESIDENT_BLOCKS)
-    waves of them: the fewest splits that minimise waves / splits (a split
-    that fills waves badly, 3 at 128 blocks, measured slower than 2 or 4).
-    Every chunk holds at least one key (the combine of an
-    all-padding chunk would divide 0 by 0) and the chunks cover the keys
-    exactly."""
+    than the resident BLOCKS_PER_SM x sm_count (a wave) and so leave the card
+    idle.  A block's time falls as 1/splits while the card runs
+    ceil(blocks * splits / wave) waves of them: the fewest splits that
+    minimise waves / splits (a split that fills waves badly, 3 at 128
+    blocks on 132 SMs, measured slower than 2 or 4).  Every chunk holds at
+    least one key (the combine of an all-padding chunk would divide 0 by 0)
+    and the chunks cover the keys exactly."""
     tk = key_tile(d)
     tiles = -(-skv // tk)
     blocks = b * h * -(-sq // QUERY_TILE)
-    most = 1 if blocks >= RESIDENT_BLOCKS else max(1, min(tiles, skv // MIN_CHUNK_KEYS))
-    want = min(range(1, most + 1), key=lambda s: -(-blocks * s // RESIDENT_BLOCKS) / s)
+    wave = BLOCKS_PER_SM * sm_count
+    most = 1 if blocks >= wave else max(1, min(tiles, skv // MIN_CHUNK_KEYS))
+    want = min(range(1, most + 1), key=lambda s: -(-blocks * s // wave) / s)
     per = -(-tiles // want)  # tiles a chunk
     return -(-tiles // per), per * tk
 
@@ -213,7 +216,7 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed
     out = torch.empty_like(q)
     qx, kx = (qxyz, kxyz_t) if radius > 0 else (None, None)
     threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
-    splits, chunk = attention_splits(b, h, sq, skv, d)
+    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(q.device))
     o_part = ml_part = None
     if splits > 1:  # scratch for the chunks' partials, merged by the combine
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32, device=q.device)

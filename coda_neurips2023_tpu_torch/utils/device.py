@@ -16,3 +16,9 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def multi_processor_count(device) -> int:
+    """The SM count of a CUDA device (132 on an H100 SXM, 114 on an H100
+    PCIe), which the kernels' launch policies size their grids by."""
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count

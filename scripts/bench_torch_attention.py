@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernels D and C on the card: correctness sweep, times against the library,
-and D's key-split sweep.
+"""Kernels D, E and C on the card: correctness sweep, times against the
+library, D's key-split sweep and E's two resident forms.
 
     python3 scripts/bench_torch_attention.py [--no-sweep]
 
@@ -14,13 +14,22 @@ and D's key-split sweep.
    kernel C at 32 x 2048 x 64 x 3 against torch.gather.  Times are CUDA
    events around 10 back-to-back calls, median of 7, kernel and library in
    turns (kernel, library, kernel, library).
-3. Unless --no-sweep: D's time at the decoder's shapes (B = 32 and 8) and
+3. Kernel E's two resident forms (scripts/vit_attention_variants.cu: K and
+   V split into TF32 hi and lo once in shared memory, as the package runs
+   it, or kept in fp32 and split at each fragment load) against the plain
+   version and scaled_dot_product_attention at 32, 128 and 256 crops of
+   ViT-B/16 (12 heads, S = 197, D = 64), the three timed in turns twice;
+   and E's time at 1 head, one and two waves of heads, and 1536 heads.
+4. Unless --no-sweep: D's time at the decoder's shapes (B = 32 and 8) and
    the training encoder's (B = 8) for 1 to 16 key splits, and the host's
    time a `group_points` call takes.
-Needs a GPU; builds the kernels as the port does.
+Needs a GPU and nvcc; builds the kernels as the port does, the variants
+into build/.
 """
 
 import argparse
+import ctypes
+import math
 import os
 import statistics
 import subprocess
@@ -33,8 +42,13 @@ import torch  # noqa: E402
 from coda_neurips2023_tpu_torch import _kernels  # noqa: E402
 from coda_neurips2023_tpu_torch.ops import masked_attention as ma  # noqa: E402
 from coda_neurips2023_tpu_torch.ops.grouping import group_points, group_points_plain  # noqa: E402
+from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain  # noqa: E402
+from coda_neurips2023_tpu_torch.utils.device import multi_processor_count  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ATTN_TOL = 1e-4
+SMS = None  # the card's SM count, read in main()
 
 
 def time_ms(fn, reps=7, inner=10):
@@ -75,7 +89,7 @@ def correctness(g):
                     err = (ma.masked_attention(*args) - ma.masked_attention_plain(*args)).abs().max().item()
                     worst = max(worst, err)
                     print(f"D d={d} {b}x{h}x{sq}x{skv} r={radius} p={dropout} "
-                          f"splits={ma.attention_splits(b, h, sq, skv, d)} err={err!r}"
+                          f"splits={ma.attention_splits(b, h, sq, skv, d, SMS)} err={err!r}"
                           + ("" if err <= ATTN_TOL else "  <-- over ATTN_TOL"))
     print(f"D worst error over the sweep: {worst!r} (ATTN_TOL {ATTN_TOL})")
     return worst <= ATTN_TOL
@@ -96,7 +110,7 @@ def path_shapes(g):
         k_t = k.transpose(2, 3).contiguous()
         lib = lambda: sdpa(q, k_t, v, scale=1.0)  # the unmasked function; q arrives scaled
         ts = [time_ms(kern), time_ms(lib), time_ms(kern), time_ms(lib)]
-        print(f"D {label} B=32 H=4 Sq={sq} Skv={skv} D={d} splits={ma.attention_splits(32, 4, sq, skv, d)}"
+        print(f"D {label} B=32 H=4 Sq={sq} Skv={skv} D={d} splits={ma.attention_splits(32, 4, sq, skv, d, SMS)}"
               f" err={err!r} kernel_ms={ts[0]!r},{ts[2]!r} sdpa_ms={ts[1]!r},{ts[3]!r}"
               f" plain_ms={time_ms(plain)!r}")
     xyz = torch.randn((32, 20000, 3), device="cuda", generator=g)
@@ -109,6 +123,57 @@ def path_shapes(g):
     print(f"C 32x2048x64x3 (random indices) bit-equal={equal} kernel_ms={ts[0]!r},{ts[2]!r} "
           f"gather_ms={ts[1]!r},{ts[3]!r}")
     return equal
+
+
+def vit_forms(g):
+    """Kernel E's resident forms and SDPA at the tower's shapes."""
+    so = os.path.join(ROOT, "build", "vit_attention_variants.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", so,
+                    os.path.join(ROOT, "scripts", "vit_attention_variants.cu")],
+                   check=True, stdout=subprocess.DEVNULL)
+    lib = ctypes.CDLL(so)
+    lib.vit_attention_form.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = True
+    for crops in (32, 128, 256):
+        q, k, v = (torch.randn((crops, 12, 197, 64), device="cuda", generator=g) for _ in range(3))
+        want = vit_attention_plain(q, k, v)
+        fns = {}
+        for form, presplit in (("split_once", 1), ("split_at_load", 0)):
+            out = torch.empty_like(q)
+
+            def fn(out=out, presplit=presplit):
+                err = lib.vit_attention_form(presplit, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             out.data_ptr(), crops * 12, 197, 64, 1 / math.sqrt(64),
+                                             torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"vit_attention_form: CUDA error {err}")
+                return out
+
+            err = (fn() - want).abs().max().item()
+            ok = ok and err <= ATTN_TOL
+            print(f"E {form} {crops} crops err={err!r}")
+            fns[form] = fn
+        err = (vit_attention(q, k, v) - want).abs().max().item()
+        ok = ok and err <= ATTN_TOL
+        fns["sdpa"] = lambda: sdpa(q, k, v)
+        times = {name: [] for name in fns}
+        for _ in range(2):
+            for name, fn in fns.items():
+                times[name].append(time_ms(fn))
+        print(f"E {crops} crops x 12 x 197 x 64: package err={err!r} "
+              + " ".join(f"{name}_ms={statistics.fmean(t)!r}" for name, t in times.items())
+              + f" plain_ms={time_ms(lambda: vit_attention_plain(q, k, v))!r}")
+    # a block a head, one block an SM: time against heads shows a block's
+    # own latency (one head) apart from what blocks contend for (many waves)
+    waves = {}
+    for heads in (1, SMS, 2 * SMS, 1536):
+        q, k, v = (torch.randn((heads, 1, 197, 64), device="cuda", generator=g) for _ in range(3))
+        waves[heads] = time_ms(lambda: vit_attention(q, k, v))
+    print(f"E ms by heads (S=197, D=64; {SMS} SMs): {waves}")
+    return ok
 
 
 def split_sweep(g):
@@ -124,7 +189,7 @@ def split_sweep(g):
                 err = (ma.masked_attention(q, k, v) - want).abs().max().item()
                 res[f"{-(-skv // per)}x{per}"] = (round(time_ms(lambda: ma.masked_attention(q, k, v)), 4),
                                                   f"{err:.1e}")
-            print(f"D splits B={b} Sq={sq} Skv={skv} D={d} policy={chosen(b, 4, sq, skv, d)}: "
+            print(f"D splits B={b} Sq={sq} Skv={skv} D={d} policy={chosen(b, 4, sq, skv, d, SMS)}: "
                   f"{{splits x chunk: (ms, err)}} {res}")
     finally:
         ma.attention_splits = chosen
@@ -152,9 +217,12 @@ def main():
     t0 = time.perf_counter()
     _kernels.library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    global SMS
+    SMS = multi_processor_count("cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     ok = correctness(g)
     ok = path_shapes(g) and ok
+    ok = vit_forms(g) and ok
     if not args.no_sweep:
         split_sweep(g)
     sys.exit(0 if ok else 1)

@@ -14,6 +14,10 @@ None of that runs here, so these tests hold its arithmetic in PyTorch:
   * `masked_attention_split_plain` (the combine written out beside the
     kernel) equals `masked_attention_plain` and the JAX package's reference,
     with all-masked rows and with dropout.
+
+Kernel E (csrc/vit_attention.cu) runs the CLIP tower's attention in the same
+3xTF32, its keys padded to a multiple of 8; the ViT case below holds that
+arithmetic against fp64 and the JAX package's reference.
 """
 
 import jax.numpy as jnp
@@ -22,11 +26,12 @@ import pytest
 import torch
 
 from coda_neurips2023_tpu.ops import pallas_masked_attention as jattn
+from coda_neurips2023_tpu.ops.pallas_vit_attention import _attention_reference as jvit_reference
 
 from coda_neurips2023_tpu_torch.ops.masked_attention import (
     MIN_CHUNK_KEYS,
     QUERY_TILE,
-    RESIDENT_BLOCKS,
+    BLOCKS_PER_SM,
     attention_splits,
     combine_partials,
     key_tile,
@@ -36,6 +41,7 @@ from coda_neurips2023_tpu_torch.ops.masked_attention import (
 )
 
 ATTN_TOL = 1e-4
+VIT_ATTN_TOL = 1e-4  # chip_smoke.py's bound for kernel E
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -103,30 +109,43 @@ def test_3xtf32_products_keep_fp32_parity(sq, skv, d):
     assert (out.double() - want).abs().max().item() <= ATTN_TOL / 100
 
 
+# an H100 SXM and an H100 PCIe
+SM_COUNTS = (132, 114)
+
+
 @pytest.mark.parametrize("skv", [1, 63, 64, 65, 2048, 2049])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_attention_splits_cover_the_keys(skv, d):
+@pytest.mark.parametrize("sm_count", SM_COUNTS)
+def test_attention_splits_cover_the_keys(skv, d, sm_count):
     """Chunks are whole key tiles, every chunk starts before Skv (none is all
     padding), and they cover Skv exactly, at the paths' shapes and small ones."""
+    wave = BLOCKS_PER_SM * sm_count
     for b, h, sq in ((32, 4, 2048), (32, 4, 128), (8, 4, 128), (2, 3, 70), (1, 1, 1)):
-        splits, chunk = attention_splits(b, h, sq, skv, d)
+        splits, chunk = attention_splits(b, h, sq, skv, d, sm_count)
         assert splits >= 1 and chunk % key_tile(d) == 0
         assert (splits - 1) * chunk < skv <= splits * chunk
         blocks = b * h * -(-sq // QUERY_TILE)
         if splits > 1:  # split only where the blocks leave the card idle
-            assert blocks < RESIDENT_BLOCKS and chunk >= MIN_CHUNK_KEYS
-            waves = -(-blocks * splits // RESIDENT_BLOCKS)
+            assert blocks < wave and chunk >= MIN_CHUNK_KEYS
+            waves = -(-blocks * splits // wave)
             assert waves / splits < 1  # fewer waves a split than unsplit
 
 
-def test_attention_splits_at_the_paths_shapes():
-    """Blocks a wave (264): the eval encoder's 4096 and the training
-    encoder's 512 blocks fill whole waves unsplit; the eval decoder's 128
-    fill one wave twice over as 2 splits, the training decoder's 32 as 8."""
-    assert attention_splits(32, 4, 2048, 2048, 64) == (1, 2048)
-    assert attention_splits(8, 4, 2048, 2048, 64) == (1, 2048)
-    assert attention_splits(32, 4, 128, 2048, 128) == (2, 1024)
-    assert attention_splits(8, 4, 128, 2048, 128) == (8, 256)
+@pytest.mark.parametrize("sm_count", SM_COUNTS)
+def test_attention_splits_at_the_paths_shapes(sm_count):
+    """At 132 SMs a wave is 264 blocks: the eval encoder's 4096 and the
+    training encoder's 512 blocks fill whole waves unsplit; the eval
+    decoder's 128 fill one wave twice over as 2 splits, the training
+    decoder's 32 as 8 (the splits measured fastest there).  At 114 SMs (a wave of
+    228) the encoders stay unsplit, and 7 splits of 304 keys fill a wave
+    best for 128 blocks (896 blocks in 4 waves) and for 32 (224 in 1)."""
+    want = {132: [(1, 2048), (1, 2048), (2, 1024), (8, 256)],
+            114: [(1, 2048), (1, 2048), (7, 304), (7, 304)]}[sm_count]
+    got = [attention_splits(32, 4, 2048, 2048, 64, sm_count),
+           attention_splits(8, 4, 2048, 2048, 64, sm_count),
+           attention_splits(32, 4, 128, 2048, 128, sm_count),
+           attention_splits(8, 4, 128, 2048, 128, sm_count)]
+    assert got == want
 
 
 def _attention_args(seed, b, h, sq, skv, d, radius):
@@ -163,7 +182,7 @@ def test_split_combine_at_the_kernels_own_split():
     """The decoder's cross-attention shape cut to 2 scenes, at the split the
     kernel takes there (a last chunk shorter than the rest), with dropout."""
     b, h, sq, skv, d = 2, 4, 128, 2000, 128
-    splits, chunk = attention_splits(b, h, sq, skv, d)
+    splits, chunk = attention_splits(b, h, sq, skv, d, 132)
     assert splits > 1 and skv - (splits - 1) * chunk < chunk
     args = _attention_args(5, b, h, sq, skv, d, 0.0)
     seed = torch.tensor(5, dtype=torch.int64)
@@ -183,3 +202,41 @@ def test_combine_partials_weights_chunks_by_their_max():
     m = torch.tensor([[fmin], [fmin]])
     want = torch.tensor([[12.0, 7.5]]) / 4.5
     assert torch.allclose(combine_partials(m, l, o), want, rtol=1e-6, atol=0)
+
+
+def vit_attention_3x(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel E's arithmetic: q times 1/sqrt(D) (1/8 at D = 64, exact) before
+    the split, K and V padded with zero rows to a multiple of 8 keys, QK^T
+    in 3xTF32, the padded keys' scores at -inf before the softmax, PV in
+    3xTF32."""
+    s, d = q.shape[-2:]
+    pad = -(-s // 8) * 8 - s
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    scores = product_3x(q * (1.0 / d ** 0.5), kp.transpose(-1, -2).contiguous())
+    assert scores.shape[-1] == s + pad and not scores[..., s:].any()
+    scores[..., s:] = -torch.inf
+    p = torch.softmax(scores, -1)
+    assert not p[..., s:].any()  # a padded key takes no weight
+    return product_3x(p, vp)
+
+
+def test_3xtf32_vit_attention_keeps_fp32_parity():
+    """ViT-B/16's attention, S = 197 (keys padded to 200), D = 64, 12 heads:
+    kernel E's 3xTF32 arithmetic lies within VIT_ATTN_TOL of fp64 and of the
+    JAX package's reference, about as close as fp32 products come; a single
+    TF32 pass does not."""
+    rng = np.random.default_rng(197)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 12, 197, 64)).astype(np.float32))
+               for _ in range(3))
+    got = vit_attention_3x(q, k, v)
+    scores = (q.double() @ k.double().transpose(-1, -2)) / 8.0
+    exact = torch.softmax(scores, -1) @ v.double()
+    err = (got.double() - exact).abs().max().item()
+    fp32_err = ((torch.softmax((q @ k.transpose(-1, -2)) / 8.0, -1) @ v).double()
+                - exact).abs().max().item()
+    assert err <= VIT_ATTN_TOL / 10 and err <= 4 * fp32_err
+    ref = jvit_reference(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=VIT_ATTN_TOL)
+    one_pass = torch.softmax(product_1x(q / 8.0, k.transpose(-1, -2).contiguous()), -1)
+    assert ((one_pass.double() @ v.double()) - exact).abs().max().item() > VIT_ATTN_TOL
