@@ -6,7 +6,9 @@
 Phases (any failure raises, and the script exits non-zero without printing a
 result):
   1. torch/CUDA versions, the card's name and power limit, TF32 switched off.
-  2. Build the kernels (coda_neurips2023_tpu_torch/csrc) with nvcc.
+  2. Build the kernels (coda_neurips2023_tpu_torch/csrc) with nvcc, and
+     beside them the scan kernels B and F replaced
+     (scripts/ball_query_variants.cu), phase 3's yardstick, in parallel.
   3. Each kernel against its plain PyTorch version at the shapes of the two
      eval paths: FPS, ball query and gather exactly, attention (D) within
      ATTN_TOL, ViT attention (E) within VIT_ATTN_TOL at one scene's crops
@@ -21,7 +23,9 @@ result):
      128 queries) with random weights from a seed, eval step on 3 batches of
      32 synthetic 20000-point scenes against the 46-class text bank, which
      CLIP's text tower (random weights from a seed) encodes first: shapes,
-     finite values, the launch counts of kernels A-D, step times, peak memory.
+     finite values, the launch counts of kernels A-D (B exactly
+     GRID_LAUNCHES a step: its grid build's two kernels and the query),
+     step times, peak memory.
   5. The same model and weights on the CPU (plain PyTorch paths) on 2 scenes:
      integer outputs equal, floats within MODEL_TOL.
   6. The baseline detector's CLIP-crop eval (3detrmulticlasshead
@@ -29,8 +33,8 @@ result):
      head, CLIP ViT-B/16, batches of 32 scenes with 531 x 730 images, so 4096
      crops through the image tower a step; one warm-up and 3 timed steps:
      shapes, finite values, sem_cls_prob rows that sum to 1 or are zero (an
-     invalid box), the launch counts of all five kernels, step times, crops/s,
-     peak memory.
+     invalid box), the launch counts of all five kernels (B GRID_LAUNCHES a
+     step), step times, crops/s, peak memory.
   7. The CLIP-crop part of that step for one scene on the CPU (plain paths)
      from the GPU detector's boxes: rects equal, sem_cls_prob within CLIP_TOL.
   8. The baseline detector's training step (scripts/coda_baseline_sunrgbd.sh:
@@ -41,7 +45,7 @@ result):
      CODA_BQ_FUSED_GATHER=1 (kernel F) for this phase and the next: one
      warm-up and TRAIN_STEPS timed steps: a finite loss, step times,
      scenes/s, peak memory, the matcher's host ms, the launch counts of A, B,
-     F and D (F, A and D must launch).
+     F and D (F, A and D must launch; F GRID_LAUNCHES a step).
   9. The same step, dropout 0, from the same weights on 2 scenes on the GPU
      and on the CPU (plain paths): assignments equal, loss within STEP_TOL,
      gradients within GRAD_TOL of their global norm.
@@ -67,7 +71,10 @@ result):
      (the MXU kernel's row), kernel B does not, and the outputs equal phase
      4's on that batch within MXU_TOL.
 Phase 3 also holds kernel F against its plain version and against kernel B
-followed by kernel C, bit for bit, kernel G against its plain version and
+followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
+degenerate scene (PLANE_POINTS of each scene's points on one z) and against
+the scan kernels they replaced, which it times in turns with them, beside
+the grid build on its own; kernel G against its plain version and
 kernel B, bit for bit, at three shapes (the SA at 20000 and at ScanNet's
 40000 points, the masked encoder's interim SA), and D in training (with and
 without its attention-weight dropout: the output, and q, k, v gradients
@@ -84,7 +91,11 @@ card's peak rate for them and its bytes over the memory rate, counted from
 this run's inputs; for the attention kernels D and E, whose products run in
 3xTF32 on the tensor cores, QK and PV at TF32_PEAK / 3 and the softmax at
 the fp32 peak), and the time of one PyTorch call computing the same
-function where there is one; the attention entry also carries the
+function where there is one; for the ball queries B, F and G the bound
+counts the distance tests a grid of cell side r needs on these inputs (the
+scan's count is printed beside it, and carried as scan_bound_ms by B and
+F, with the scan kernel's time scan_ms and the grid build's build_ms); the
+attention entry also carries the
 decoder shape's kernel, plain, library and bound times, the vit_attention
 entry those at 256 crops (stage1_*), the fps entry its cluster size and
 barrier floor at the main shape.  The last line is
@@ -168,6 +179,9 @@ BQ_OPS = 9
 FPS_OPS = 10
 BQ_VARS = ("CODA_BQ_ALGO", "CODA_BQ_MXU", "CODA_BQ_FUSED_GATHER")
 SCANNET_POINTS = 40000  # datasets/scannet.py's point count
+# phase 3's degenerate scene: this many points of each scene moved onto z = PLANE_Z
+PLANE_POINTS = 5000
+PLANE_Z = 1.0
 N_SEL = 32  # --distillation_box_num, main.py's default
 # phase 11: a crop rect is an integer truncation of projected corners; the
 # two devices' boxes differ by about 1e-5 m, a few thousandths of a pixel,
@@ -260,9 +274,9 @@ def bound(flops, nbytes, tc_flops=0):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def ball_query_tests(torch, radius, k, xyz, centres):
-    """The distance tests these inputs need: each centre scans its points in
-    index order up to its k-th hit, or all N when it has fewer."""
+def scan_tests(torch, radius, k, xyz, centres):
+    """The distance tests of a scan in index order (the bound's count before
+    the grid): each centre reads its points up to its k-th hit, or all N."""
     from coda_neurips2023_tpu_torch.ops.grouping import _r2, _sq_dist
 
     r2 = _r2(radius).to(xyz.device)
@@ -276,10 +290,53 @@ def ball_query_tests(torch, radius, k, xyz, centres):
 
 
 def ball_query_bound(torch, radius, k, xyz, centres, grouped=False):
+    """(the grid bound, the scan bound): the larger of the distance tests'
+    time and the bytes' (points and centres read once, indices written
+    once, for F the coordinates too), with the tests a grid of cell side r
+    needs on these inputs (the points of the cells each centre reads), and
+    with those of a scan in index order, for comparison with earlier rows."""
+    from coda_neurips2023_tpu_torch.ops.grouping import ball_query_grid_candidates
+
     b, n, _ = xyz.shape
     m = centres.shape[1]
     nbytes = 12 * (b * n + b * m) + 4 * b * m * k + (12 * b * m * k if grouped else 0)
-    return bound(BQ_OPS * ball_query_tests(torch, radius, k, xyz, centres), nbytes)
+    grid = int(ball_query_grid_candidates(radius, xyz, centres, side_factor=1.0).sum())
+    return (bound(BQ_OPS * grid, nbytes),
+            bound(BQ_OPS * scan_tests(torch, radius, k, xyz, centres), nbytes))
+
+
+def load_scan_kernels(lib_path):
+    """The scan kernels B and F were before the grid (scripts/ball_query_variants.cu,
+    a yardstick; not kernels of the path, so never counted) as functions of
+    (radius, k, xyz, centres)."""
+    import ctypes
+
+    import torch
+
+    from coda_neurips2023_tpu_torch.ops.grouping import _r2
+
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bq_scan.argtypes = [p, p, p, i, i, i, i, f, p]
+    lib.bq_group_scan.argtypes = [p, p, p, p, i, i, i, i, f, p]
+
+    def call(grouped, radius, k, x, c):
+        b, n, _ = x.shape
+        m = c.shape[1]
+        idx = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        r2 = float(_r2(radius))
+        if grouped:
+            out = torch.empty((b, m, k, 3), dtype=torch.float32, device=x.device)
+            err = lib.bq_group_scan(x.data_ptr(), c.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                    b, n, m, k, r2, stream)
+        else:
+            err = lib.bq_scan(x.data_ptr(), c.data_ptr(), idx.data_ptr(), b, n, m, k, r2, stream)
+        if err != 0:
+            fail(f"scan kernel: CUDA error {err} at launch")
+        return (idx, out) if grouped else idx
+
+    return call
 
 
 def attention_bound(b, h, sq, skv, d, tensor_cores=True):
@@ -306,8 +363,9 @@ def fps_floor(torch, xyz, npoint, cs):
         fail(f"coda_fps_barrier_floor: CUDA error {err} at launch")
 
 
-def compare_kernels(torch, xyz, xyz40, results):
-    """Phase 3: each kernel vs its plain version at the paths' shapes."""
+def compare_kernels(torch, xyz, xyz40, scan, results):
+    """Phase 3: each kernel vs its plain version at the paths' shapes;
+    `scan` runs the scan kernels B and F replaced (load_scan_kernels)."""
     from coda_neurips2023_tpu_torch.ops import grouping, sampling
     from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
     from coda_neurips2023_tpu_torch.ops.masked_attention import (
@@ -373,10 +431,36 @@ def compare_kernels(torch, xyz, xyz40, results):
           lambda: sampling.gather_points(centres, q_inds),
           lambda: grouping.group_points_plain(centres, q_inds[:, None, :]).reshape(b, 128, 3),
           main_shape=False)
-    idx = exact("ball_query", f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64",
-                lambda: grouping.ball_query(0.2, 64, xyz, centres),
-                lambda: grouping.ball_query_plain(0.2, 64, xyz, centres),
-                bnd=ball_query_bound(torch, 0.2, 64, xyz, centres))
+    def grid_row(name, label, r, k, x, c, main):
+        """Kernel B (or F) bit for bit against its plain version, timed in
+        turns against the scan it replaced (also held against the plain
+        version), and its grid build timed on its own."""
+        grouped = name == "ball_query_group"
+        if grouped:
+            kern = lambda: grouping.ball_query_group(r, k, x, c)
+            plain = lambda: grouping.ball_query_group_plain(r, k, x, c)
+        else:
+            kern = lambda: grouping.ball_query(r, k, x, c)
+            plain = lambda: grouping.ball_query_plain(r, k, x, c)
+        old = lambda: scan(grouped, r, k, x, c)
+        got, want, old_out = kern(), plain(), old()
+        torch.cuda.synchronize()
+        outs = (got, want, old_out) if grouped else ((got,), (want,), (old_out,))
+        for what, ref in (("plain version", outs[1]), ("scan kernel", outs[2])):
+            if not all(torch.equal(g, w) for g, w in zip(outs[0], ref)):
+                fail(f"{name} {label}: kernel differs from the {what}")
+        ms, scan_ms = time_in_turns(torch, kern, old)
+        build_ms = time_ms(torch, lambda: grouping.grid_build(r, x, count_as=name))
+        bnd, scan_bnd = ball_query_bound(torch, r, k, x, c, grouped)
+        record(name, label, 0.0, ms, time_ms(torch, plain), main, bnd)
+        print(f"  {'':16s} {'':44s} scan_ms={scan_ms!r} build_ms={build_ms!r} "
+              f"scan bound_ms={scan_bnd[0]!r} ({scan_bnd[1]})")
+        if main:
+            results[name].update(scan_ms=scan_ms, build_ms=build_ms, scan_bound_ms=scan_bnd[0])
+        return got
+
+    idx = grid_row("ball_query", f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", 0.2, 64, xyz, centres,
+                   True)
     flat = idx.reshape(b, -1, 1).long().expand(-1, -1, 3)
     exact("gather", f"group_points B={b} N={NUM_POINTS} M=2048 K=64",
           lambda: grouping.group_points(xyz, idx),
@@ -387,26 +471,24 @@ def compare_kernels(torch, xyz, xyz40, results):
     for n_scenes in (b, TRAIN_BATCH):
         x, c = xyz[:n_scenes].contiguous(), centres[:n_scenes].contiguous()
         label = f"B={n_scenes} N={NUM_POINTS} M=2048 r=0.2 k=64"
-        kern = lambda: grouping.ball_query_group(0.2, 64, x, c)
-        plain = lambda: grouping.ball_query_group_plain(0.2, 64, x, c)
+        got = grid_row("ball_query_group", label, 0.2, 64, x, c, n_scenes == TRAIN_BATCH)
         bc = lambda: (lambda i: (i, grouping.group_points(x, i)))(grouping.ball_query(0.2, 64, x, c))
-        got, want, via_bc = kern(), plain(), bc()
-        torch.cuda.synchronize()
-        for what, ref in (("plain version", want), ("kernel B then kernel C", via_bc)):
-            if not all(torch.equal(g, w) for g, w in zip(got, ref)):
-                fail(f"ball_query_group {label}: differs from the {what}")
+        if not all(torch.equal(g, w) for g, w in zip(got, bc())):
+            fail(f"ball_query_group {label}: differs from kernel B then kernel C")
         if n_scenes == b and not torch.equal(got[1], two_op()):
             fail("ball_query_group: differs from group_points(ball_query) of phase 3")
-        ms, bc_ms = time_ms(torch, kern), time_ms(torch, bc)
-        main = n_scenes == TRAIN_BATCH
-        bnd = ball_query_bound(torch, 0.2, 64, x, c, grouped=True) if main else None
-        record("ball_query_group", label, 0.0, ms, time_ms(torch, plain), main, bnd)
-        print(f"  {'':16s} {'':44s} kernels B then C ms={bc_ms!r}")
+        print(f"  {'':16s} {'':44s} kernels B then C ms={time_ms(torch, bc)!r}")
     half = sampling.gather_points(centres, sampling.furthest_point_sample(centres, 1024))
-    exact("ball_query", f"B={b} N=2048 M=1024 r=0.4 k=32",
-          lambda: grouping.ball_query(0.4, 32, centres, half),
-          lambda: grouping.ball_query_plain(0.4, 32, centres, half),
-          main_shape=False)
+    grid_row("ball_query", f"B={b} N=2048 M=1024 r=0.4 k=32", 0.4, 32, centres, half, False)
+    # a degenerate scene: PLANE_POINTS of each scene's points moved onto one
+    # z, a wall that puts hundreds of points into each of its cells
+    plane = xyz.clone()
+    plane[:, :PLANE_POINTS, 2] = PLANE_Z
+    plane_c = sampling.gather_points(plane, sampling.furthest_point_sample(plane, 2048))
+    for name, nb in (("ball_query", b), ("ball_query_group", TRAIN_BATCH)):
+        grid_row(name, f"plane B={nb} N={NUM_POINTS} M=2048 r=0.2 k=64", 0.2, 64,
+                 plane[:nb].contiguous(), plane_c[:nb].contiguous(), False)
+    del plane, plane_c
 
     # kernel G against its plain version and kernel B, bit for bit: the SA,
     # the masked encoder's interim SA, the SA at ScanNet's point count
@@ -424,9 +506,11 @@ def compare_kernels(torch, xyz, xyz40, results):
         torch.cuda.synchronize()
         if not (torch.equal(got, want) and torch.equal(got, want_b)):
             fail(f"ball_query_tile {label}: differs from the plain version or kernel B")
-        bnd = ball_query_bound(torch, r, k, x, c)
+        bnd, scan_bnd = ball_query_bound(torch, r, k, x, c)
         record("ball_query_tile", label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main, bnd)
-        print(f"  {'':16s} {'':44s} kernel B ms={time_ms(torch, via_b)!r}")
+        print(f"  {'':16s} {'':44s} kernel B ms={time_ms(torch, via_b)!r} "
+              f"scan kernel B ms={time_ms(torch, lambda: scan(False, r, k, x, c))!r} "
+              f"scan bound_ms={scan_bnd[0]!r} ({scan_bnd[1]})")
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
@@ -527,6 +611,17 @@ def compare_attention_backward(torch):
         print(f"  {'attention':16s} {'train B=8 ' + label:44s} max_abs_err={err!r} (out, dq, dk, dv)")
 
 
+def check_grid_launches(launches, name, steps, path):
+    """Kernel B (or F) runs once a step on its path, and a call launches the
+    grid build's two kernels and the query: GRID_LAUNCHES counts a step."""
+    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES
+
+    if launches[name] != steps * GRID_LAUNCHES:
+        fail(f"{name} launched {launches[name]} times on the {path} path, expected "
+             f"{steps * GRID_LAUNCHES} ({GRID_LAUNCHES} a call: grid cells, pack, query)")
+    print(f"  {name}: {GRID_LAUNCHES} launches a call (grid cells, pack, query), once a step")
+
+
 def check_eval_outputs(torch, outs, nq, what, zero_rows):
     """Keys, shapes and finite values of eval-step outputs; objectness in
     [0, 1]; sem_cls_prob rows that sum to 1 within 1e-4, or, with
@@ -593,6 +688,7 @@ def clip_eval_phase(torch, ctx, cfg, batches):
     for name in ("fps", "ball_query", "gather", "attention", "vit_attention"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the CLIP eval path")
+    check_grid_launches(launches, "ball_query", STEPS, "CLIP eval")
     if launches["vit_attention"] != STEPS * BATCH * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{STEPS * BATCH * CLIP_LAYERS} (every image-tower layer of every scene)")
@@ -703,6 +799,7 @@ def train_phase(torch, cfg, batches):
     for name in ("fps", "ball_query_group", "attention", "gather"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the training path")
+    check_grid_launches(launches, "ball_query_group", TRAIN_STEPS, "training")
     med = statistics.median(times)
     print(f"  train step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
     print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}")
@@ -969,8 +1066,20 @@ def main():
     from coda_neurips2023_tpu_torch import _kernels
 
     t0 = time.perf_counter()
-    lib_path = _kernels.build()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    # the scan kernels B and F replaced, phase 3's yardstick, built beside the package's
+    scan_so = _kernels.BUILD_DIR.parent / "ball_query_variants.so"
+    scan_so.parent.mkdir(parents=True, exist_ok=True)
+    scan_build = subprocess.Popen(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(scan_so),
+         os.path.join(root, "scripts", "ball_query_variants.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        lib_path = _kernels.build()
+    finally:
+        scan_log = scan_build.communicate()[0]
+    if scan_build.returncode != 0:
+        fail(f"nvcc failed on scripts/ball_query_variants.cu:\n{scan_log[-4000:]}")
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s -> {lib_path.name}, {scan_so.name}")
     log = (_kernels.BUILD_DIR / "build.log").read_text().splitlines()
     for line in log:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
@@ -1003,7 +1112,7 @@ def main():
     xyz40 = torch.from_numpy(make_batch(scannet, 0, TRAIN_BATCH)["point_clouds"]).cuda()
     with torch.inference_mode():
         compare_kernels(torch, batches[0]["point_clouds"][..., :3].contiguous(),
-                        xyz40[..., :3].contiguous(), results)
+                        xyz40[..., :3].contiguous(), load_scan_kernels(scan_so), results)
     del xyz40
     compare_attention_backward(torch)
 
@@ -1042,6 +1151,7 @@ def main():
     for name in ("fps", "ball_query", "gather", "attention"):
         if launches4[name] <= 0:
             fail(f"kernel {name} was not launched on the detector eval path")
+    check_grid_launches(launches4, "ball_query", STEPS, "detector eval")
     med = statistics.median(times)
     print(f"  eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
     print(f"  scenes/s (median step): {BATCH / med * 1e3!r}")

@@ -48,7 +48,11 @@ _F = ctypes.c_float
 # C entry point -> (kernel name, argument types after the pointers' values)
 _SIGNATURES = {
     "coda_fps": ("fps", [_P, _P, _I, _I, _I, _I, _P]),
-    "coda_ball_query": ("ball_query", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    # kernel B's grid build (counted under "ball_query", or under
+    # "ball_query_group" where kernel F's wrapper launches it) and query
+    "coda_bq_grid_cells": ("ball_query", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
+    "coda_bq_grid_pack": ("ball_query", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "coda_ball_query": ("ball_query", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
     "coda_gather": ("gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_attention": (
         "attention", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P]
@@ -56,7 +60,9 @@ _SIGNATURES = {
     # kernel D's second launch when it splits the keys: counted under "attention"
     "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
-    "coda_ball_query_group": ("ball_query_group", [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "coda_ball_query_group": (
+        "ball_query_group", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+    ),
     "coda_ball_query_tile": ("ball_query_tile", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
 }
 
@@ -149,13 +155,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def launch(fn: str, *args) -> None:
+def launch(fn: str, *args, count_as: str | None = None) -> None:
     """Call C entry point `fn` with `args` on the current stream; raise on error.
 
-    Tensors in `args` are passed as their data pointers; the caller keeps them
-    alive and has checked device, dtype, shape and contiguity.
+    Tensors in `args` are passed as their data pointers (None as a null
+    pointer); the caller keeps them alive and has checked device, dtype,
+    shape and contiguity.  The launch counts under `count_as`, by default
+    the entry point's kernel name.
     """
-    name, _ = _SIGNATURES[fn]
+    name = count_as or _SIGNATURES[fn][0]
     entry = _entry_points.get(fn)
     if entry is None:
         entry = _entry_points.setdefault(fn, getattr(library(), fn))

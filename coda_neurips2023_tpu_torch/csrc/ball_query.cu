@@ -1,4 +1,5 @@
-// Kernel B: ball query, (B, N, 3) points x (B, M, 3) centres -> (B, M, k) int32.
+// Kernel B: ball query, (B, N, 3) points x (B, M, 3) centres -> (B, M, k) int32,
+// on a spatial cell grid, and the grid's build (shared with kernel F).
 //
 // Replaces coda_neurips2023_tpu/ops/pallas_ball_query_sorted.py ::
 // ball_query_pallas_sorted and its fallback, pallas_ball_query.py ::
@@ -7,72 +8,173 @@
 // trailing slots are filled with the first hit; a row with no hit is all
 // zeros.  r^2 arrives already rounded to f32 from the Python float(r)**2.
 //
-// Bound on the card: a centre with fewer than k neighbours scans all N
-// points, so the work is up to B*M*N distance tests (32 * 2048 * 20000 =
-// 1.3e9 at the eval shape) and the point reads come from L2 (a scene is
-// 240 KB).  One warp per centre: the warp reads 32 consecutive points at a
-// time, __ballot_sync marks the hits, __popc of the lower lanes' bits gives
-// each hit its slot, so the hits land in index order without a sort, and the
-// warp stops as soon as it holds k hits.  The TPU kernels' block sort and
-// lane window were placement tricks for the TPU's vector layout and are not
-// carried over.
+// What bounded the scan this replaces: one warp a centre read the scene in
+// index order up to its k-th hit, and at r = 0.2 most centres never fill,
+// so nearly all of B*M*N distance tests ran (1.3e9 at the eval shape).  The
+// JAX sorted kernel cut that work with a sort along one axis and a window of
+// candidates; here a cell grid cuts it to the points of the cells around a
+// centre (ball_query_grid.cuh), tens instead of 20,000.
 //
-// The distance is ((dx*dx + dy*dy) + dz*dz) with round-to-nearest
-// intrinsics (no FMA contraction), the order of the plain PyTorch version
-// and of the numpy golden model.
+// The build, per call (ops/grouping.py :: grid_build):
+//   1. grid_cells_kernel, one block a scene: the bounding box; the cell side,
+//      the first of side0 * 2^j (exact f32 doublings) that gives at most
+//      `cap` cells, one cell after 64 sides; and every point's key, the
+//      scene's index times `stride` (cap + 1) plus its cell id;
+//   2. a stable torch.sort of the B * N keys as one array in the wrapper (the
+//      JAX package also sorts outside its kernel, with an XLA argsort), so
+//      the points of a cell stay in index order;
+//   3. grid_pack_kernel, one thread a slot and a cell: the points in that
+//      order as float4 (x, y, z, original index), and each cell's first
+//      slot by a binary search of the sorted keys.
+// The side rule and the cell function are the plain version's
+// (grouping.py :: grid_params_plain, _cell_coord) op for op in f32 with
+// round-to-nearest intrinsics, so both build the same grid.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ball_query_grid.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kCellThreads = 512;
+constexpr int kPackThreads = 256;
+constexpr int kDoublings = 64;
+constexpr float kAxisCells = 1048576.0f;  // 2^20: an axis's count saturates here
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ball_query_kernel(const float* __restrict__ xyz, const float* __restrict__ centres,
-                  int32_t* __restrict__ out, int b, int n, int m, int k, float r2) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= (long long)b * m) return;
-  const int bi = (int)(row / m);
-  const float* pts = xyz + (size_t)bi * n * 3;
-  const float cx = centres[3 * row], cy = centres[3 * row + 1], cz = centres[3 * row + 2];
-  int32_t* o = out + row * k;
+__global__ void __launch_bounds__(kCellThreads)
+grid_cells_kernel(const float* __restrict__ xyz, float4* __restrict__ fparams,
+                  int4* __restrict__ iparams, int32_t* __restrict__ keys, int n, float side0,
+                  int cap) {
+  __shared__ float s_red[6][kCellThreads / 32];
+  __shared__ float4 s_fp;
+  __shared__ int4 s_ip;
+  const int bi = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* p = xyz + (size_t)bi * n * 3;
 
-  int cnt = 0;
-  int first = 0;
-  for (int base = 0; base < n && cnt < k; base += 32) {
-    const int i = base + lane;
-    bool hit = false;
-    if (i < n) {
-      const float dx = __fsub_rn(cx, pts[3 * i]);
-      const float dy = __fsub_rn(cy, pts[3 * i + 1]);
-      const float dz = __fsub_rn(cz, pts[3 * i + 2]);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      hit = d2 < r2;
+  float v[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int i = threadIdx.x; i < n; i += kCellThreads) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float x = p[3 * i + a];
+      v[a] = fminf(v[a], x);
+      v[3 + a] = fmaxf(v[3 + a], x);
     }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (mask == 0u) continue;
-    if (cnt == 0) first = base + __ffs(mask) - 1;
-    const int slot = cnt + __popc(mask & ((1u << lane) - 1u));
-    if (hit && slot < k) o[slot] = i;
-    cnt += __popc(mask);
   }
-  // fill: the first hit after the last one written, zeros when none
-  const int fill = cnt > 0 ? first : 0;
-  for (int s = min(cnt, k) + lane; s < k; s += 32) o[s] = fill;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const float o = __shfl_xor_sync(bq_grid::kFull, v[a], d);
+      v[a] = a < 3 ? fminf(v[a], o) : fmaxf(v[a], o);
+    }
+    if (lane == 0) s_red[a][warp] = v[a];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float lo[3], ext[3];
+    for (int a = 0; a < 3; ++a) {
+      float mn = s_red[a][0], mx = s_red[3 + a][0];
+      for (int w = 1; w < kCellThreads / 32; ++w) {
+        mn = fminf(mn, s_red[a][w]);
+        mx = fmaxf(mx, s_red[3 + a][w]);
+      }
+      lo[a] = mn;
+      ext[a] = __fsub_rn(mx, mn);
+    }
+    float s = side0, inv = 0.0f;
+    int g[3] = {1, 1, 1};
+    bool fits = false;
+    for (int j = 0; j < kDoublings && !fits; ++j) {
+      inv = __fdiv_rn(1.0f, s);
+      long long total = 1;
+      for (int a = 0; a < 3; ++a) {
+        const float t = floorf(__fmul_rn(ext[a], inv));
+        g[a] = (t < kAxisCells ? (int)t : (int)kAxisCells) + 1;
+        total *= g[a];
+      }
+      fits = total <= cap;
+      s = __fmul_rn(s, 2.0f);
+    }
+    if (!fits) {
+      inv = __fdiv_rn(1.0f, side0);
+      g[0] = g[1] = g[2] = 1;
+    }
+    s_fp = make_float4(lo[0], lo[1], lo[2], inv);
+    s_ip = make_int4(g[0], g[1], g[2], g[0] * g[1] * g[2]);
+    fparams[bi] = s_fp;
+    iparams[bi] = s_ip;
+  }
+  __syncthreads();
+  const float4 fp = s_fp;
+  const int4 ip = s_ip;
+  int32_t* key = keys + (size_t)bi * n;
+  const int scene = bi * (cap + 1);
+  for (int i = threadIdx.x; i < n; i += kCellThreads) {
+    const int cx = bq_grid::cell_coord(p[3 * i], fp.x, fp.w, ip.x);
+    const int cy = bq_grid::cell_coord(p[3 * i + 1], fp.y, fp.w, ip.y);
+    const int cz = bq_grid::cell_coord(p[3 * i + 2], fp.z, fp.w, ip.z);
+    key[i] = scene + (cz * ip.y + cy) * ip.x + cx;
+  }
+}
+
+__global__ void __launch_bounds__(kPackThreads)
+grid_pack_kernel(const float* __restrict__ xyz, const int32_t* __restrict__ skeys,
+                 const int64_t* __restrict__ perm, const int4* __restrict__ iparams,
+                 float4* __restrict__ pts, int32_t* __restrict__ starts, int b, int n,
+                 int stride) {
+  const long long t = (long long)blockIdx.x * kPackThreads + threadIdx.x;
+  if (t < (long long)b * n) {  // slot t: the point sorted there
+    const int bi = (int)(t / n);
+    const long long src = perm[t];  // bi * n + the original index
+    const float* q = xyz + src * 3;
+    pts[t] = make_float4(q[0], q[1], q[2], __int_as_float((int)(src - (long long)bi * n)));
+  }
+  if (t < (long long)b * stride) {  // cell entry t: its first slot
+    const int bi = (int)(t / stride);
+    const int c = (int)(t - (long long)bi * stride);
+    if (c > iparams[bi].w) return;
+    // the first of the scene's sorted keys at or past bi * stride + c: a
+    // binary search, so an empty stretch of cells costs no thread more
+    const int32_t* seg = skeys + (size_t)bi * n;
+    const int target = bi * stride + c;
+    int lo = 0, hi = n;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (seg[mid] < target) lo = mid + 1; else hi = mid;
+    }
+    starts[t] = lo;
+  }
 }
 
 }  // namespace
 
-extern "C" int coda_ball_query(const float* xyz, const float* centres, int32_t* out,
-                               int b, int n, int m, int k, float r2,
-                               cudaStream_t stream) {
-  const long long rows = (long long)b * m;
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ball_query_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      xyz, centres, out, b, n, m, k, r2);
+extern "C" int coda_bq_grid_cells(const float* xyz, float* fparams, int32_t* iparams,
+                                  int32_t* keys, int b, int n, float side0, int cap,
+                                  cudaStream_t stream) {
+  if (b == 0) return (int)cudaSuccess;
+  grid_cells_kernel<<<b, kCellThreads, 0, stream>>>(
+      xyz, reinterpret_cast<float4*>(fparams), reinterpret_cast<int4*>(iparams), keys, n,
+      side0, cap);
   return (int)cudaGetLastError();
+}
+
+extern "C" int coda_bq_grid_pack(const float* xyz, const int32_t* skeys, const int64_t* perm,
+                                 const int32_t* iparams, float* pts, int32_t* starts, int b,
+                                 int n, int stride, cudaStream_t stream) {
+  const long long slots = (long long)b * n, entries = (long long)b * stride;
+  const long long threads = slots > entries ? slots : entries;
+  if (threads == 0) return (int)cudaSuccess;
+  const long long blocks = (threads + kPackThreads - 1) / kPackThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  grid_pack_kernel<<<(unsigned)blocks, kPackThreads, 0, stream>>>(
+      xyz, skeys, perm, reinterpret_cast<const int4*>(iparams), reinterpret_cast<float4*>(pts),
+      starts, b, n, stride);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int coda_ball_query(const float* pts, const int32_t* starts, const float* fparams,
+                               const int32_t* iparams, const float* centres, int32_t* out, int b,
+                               int n, int m, int k, int stride, float r2, float rw,
+                               cudaStream_t stream) {
+  return bq_grid::launch_query<false>(pts, starts, fparams, iparams, centres, nullptr, out,
+                                      nullptr, b, n, m, k, stride, r2, rw, stream);
 }

@@ -35,6 +35,23 @@ kernel's order, so the plain version and kernels B, F and G agree bit for
 bit.  (The JAX package's CPU path uses |a|^2 + |b|^2 - 2ab instead, which can
 flip a hit lying exactly on the radius; see its grouping.py:22-27.)
 
+Kernels B and F search a spatial cell grid, so a centre tests only the points
+of the cells near it (`ball_query_grid_plain` is their algorithm in tensor
+ops).  Each scene's bounding box is cut into cubes of side at least the
+widened radius r_w = r * (1 + GRID_WIDEN); the side doubles until the scene
+has at most `grid_cap(N)` cells.  A point's cell on each axis is
+floor((x - lo) * inv_side), clamped into the grid, and a centre reads the
+cells from that of nextafter(c - r_w, -inf) to that of nextafter(c + r_w,
++inf).  Why no hit is missed: a hit's f32 distance is below f32(r^2), so on
+each axis |c - p| < r * (1 + 2^-23 + ...) < r_w, and the rounded-outward
+bounds hold c - r_w <= p <= c + r_w exactly; the cell function is monotone
+(each rounding step is) and is the same for points and bounds, so p's cell
+lies in the range.  A far point lands in a border cell and a far centre reads
+a border cell: both are tested, never dropped.  The hits are then reduced to
+the k smallest original indices, which are the first k in index order
+whatever order the candidates came in (the JAX sorted kernel's extraction by
+minimum original index, pallas_ball_query_sorted.py:26-30).
+
 Indices are int32 in and out, as in the JAX package.  Point coordinates take
 no gradient: B, F and G refuse inputs that require one.  A CUDA call launches
 the kernel it is routed to or raises: no size gate of the TPU kernels is
@@ -43,7 +60,9 @@ carried over, and nothing falls back to the plain version.
 
 from __future__ import annotations
 
+import math
 import os
+import struct
 
 import torch
 
@@ -80,6 +99,24 @@ def _r2(radius: float) -> torch.Tensor:
     return torch.tensor(float(radius) ** 2, dtype=torch.float32)
 
 
+def _f32(x: float) -> float:
+    """x rounded to the nearest f32, as a Python float."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def _first_hits(key: torch.Tensor, cnt: torch.Tensor, nsample: int) -> torch.Tensor:
+    """key (M, W): each hit's original index, each miss a larger value; cnt
+    (M, 1) hits -> (M, nsample) int32: the smallest hit indices ascending,
+    trailing slots the first hit, a row without hit zeros."""
+    m, w = key.shape
+    kk = min(nsample, w)
+    first_k = torch.topk(key, kk, dim=1, largest=False, sorted=True).values
+    first = first_k[:, :1]
+    row = torch.where(torch.arange(kk, device=key.device) < cnt, first_k, first)
+    row = torch.cat([row, first.expand(m, nsample - kk)], dim=1)
+    return torch.where(cnt > 0, row, 0).to(torch.int32)
+
+
 def ball_query_plain(radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
     """Plain PyTorch version of `ball_query`, on any device."""
     r2 = _r2(radius).to(xyz.device)
@@ -87,20 +124,120 @@ def ball_query_plain(radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
     m = new_xyz.shape[1]
     out = torch.zeros((b, m, nsample), dtype=torch.int32, device=xyz.device)
     iota = torch.arange(n, device=xyz.device)
-    kk = min(nsample, n)
-    slot = torch.arange(kk, device=xyz.device)
     for bi in range(b):  # one scene at a time bounds the (M, N) buffer
         hit = _sq_dist(new_xyz[bi, :, None, :], xyz[bi, None, :, :]) < r2
-        # hits keep their index, misses go after every hit: the kk smallest
-        # keys are the first hits in index order
+        # hits keep their index, misses go after every hit
         key = torch.where(hit, iota, iota + n)
-        first_k = torch.topk(key, kk, dim=1, largest=False, sorted=True).indices
-        cnt = hit.sum(dim=1, keepdim=True)
-        first = first_k[:, :1]
-        row = torch.where(slot < cnt, first_k, first)
-        row = torch.cat([row, first.expand(m, nsample - kk)], dim=1)
-        out[bi] = torch.where(cnt > 0, row, 0).to(torch.int32)
+        out[bi] = _first_hits(key, hit.sum(dim=1, keepdim=True), nsample)
     return out
+
+
+# The grid of kernels B and F (see the module docstring).  The kernels take
+# these as arguments, so they and the plain version below cannot drift.
+GRID_WIDEN = 8 * 2.0 ** -23  # r_w = r * (1 + GRID_WIDEN): the JAX sorted kernel's 8 ulp
+GRID_SIDE_FACTOR = 1.5  # the first cell side tried, in widened radii (won the sweep of PERF.md)
+GRID_CELLS_PER_POINT = 4  # a scene has at most max(4 N, GRID_MIN_CELLS) cells
+GRID_MIN_CELLS = 4096
+GRID_DOUBLINGS = 64  # a side that still gives too many cells: one cell
+GRID_AXIS_CELLS = 2 ** 20  # an axis's count saturates here (inf or NaN extents)
+GRID_LAUNCHES = 3  # kernel launches a call of B or F: cells, pack, query
+GRID_MAX_SAMPLES = 8192  # min(nsample, N), rounded up to 32, that the query takes
+
+
+def grid_radius(radius: float) -> float:
+    return float(radius) * (1.0 + GRID_WIDEN)
+
+
+def grid_cap(n: int) -> int:
+    return max(GRID_CELLS_PER_POINT * n, GRID_MIN_CELLS)
+
+
+def grid_side(radius: float, side_factor: float = GRID_SIDE_FACTOR) -> float:
+    """The first cell side tried, as the f32 the kernels receive."""
+    return _f32(side_factor * grid_radius(radius))
+
+
+def grid_params_plain(xyz: torch.Tensor, side: float, cap: int):
+    """Per scene (lo (B, 3) f32, inv_side (B,) f32, dims (B, 3) int64): the
+    bounding box's low corner, the inverse of the first side of side * 2^j
+    (f32 doublings, exact) whose grid has at most `cap` cells, and the cells
+    a side; after GRID_DOUBLINGS sides, one cell at the first side."""
+    lo, hi = xyz.amin(1), xyz.amax(1)
+    ext = hi - lo
+    j = torch.arange(GRID_DOUBLINGS, device=xyz.device)
+    sides = torch.tensor(side, dtype=torch.float32, device=xyz.device) * (2.0 ** j).float()
+    inv = 1.0 / sides  # (J,)
+    t = torch.floor(ext[:, None, :] * inv[None, :, None])  # (B, J, 3)
+    dims = torch.where(t < GRID_AXIS_CELLS, t, GRID_AXIS_CELLS).long() + 1
+    ok = dims.prod(-1) <= cap
+    first = ok.int().argmax(1)  # 0 where none fits
+    dims = torch.where(ok.any(1)[:, None], dims[torch.arange(len(first)), first], 1)
+    return lo, inv[first], dims
+
+
+def _cell_coord(x, lo, inv, dims):
+    """The cell of coordinate x on its axis: floor((x - lo) * inv), clamped
+    into [0, dims - 1] (NaN to 0), as the kernels compute it."""
+    t = torch.floor((x - lo) * inv)
+    top = (dims - 1).float()
+    return torch.where(t >= top, top, torch.where(t >= 0, t, 0.0)).long()
+
+
+def _grid_spans_plain(radius: float, xyz, new_xyz, side_factor: float):
+    """The sorted grid and every centre's candidate rows: (perm (B, N) the
+    point order by (cell, original index), beg and length (B, M, R) of each
+    row of cells a centre reads, contiguous in that order)."""
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    lo, inv, dims = grid_params_plain(xyz, grid_side(radius, side_factor), grid_cap(n))
+    lo, inv, dims = lo[:, None, :], inv[:, None, None], dims[:, None, :]
+    pc = _cell_coord(xyz, lo, inv, dims)  # (B, N, 3)
+    cells = (pc[..., 2] * dims[..., 1] + pc[..., 1]) * dims[..., 0] + pc[..., 0]
+    scells, perm = torch.sort(cells, dim=1, stable=True)
+    ncells = int(dims.prod(-1).max())
+    every_cell = torch.arange(ncells + 1, device=dev).expand(b, -1).contiguous()
+    starts = torch.searchsorted(scells, every_cell)
+    rw = torch.tensor(grid_radius(radius), dtype=torch.float32, device=dev)
+    inf = torch.tensor(math.inf, device=dev)
+    c0 = _cell_coord(torch.nextafter(new_xyz - rw, -inf), lo, inv, dims)
+    c1 = _cell_coord(torch.nextafter(new_xyz + rw, inf), lo, inv, dims)
+    w = c1 - c0 + 1
+    nrows = w[..., 1] * w[..., 2]  # (B, M): rows of cells along x
+    r = torch.arange(int(nrows.max()), device=dev)
+    valid = r < nrows[..., None]
+    y = c0[..., 1:2] + r % w[..., 1:2]
+    z = c0[..., 2:3] + r // w[..., 1:2]
+    base = torch.where(valid, (z * dims[..., 1:2] + y) * dims[..., :1], 0)
+    beg = torch.gather(starts, 1, (base + c0[..., :1]).flatten(1)).view_as(base)
+    end = torch.gather(starts, 1, (base + c1[..., :1] + 1).flatten(1)).view_as(base)
+    return perm, beg, torch.where(valid, end - beg, 0)
+
+
+def ball_query_grid_plain(radius: float, nsample: int, xyz, new_xyz,
+                          side_factor: float = GRID_SIDE_FACTOR) -> torch.Tensor:
+    """Kernels B's and F's algorithm in plain PyTorch, on any device: the
+    cell grid, each centre's candidates, the distance test, the k smallest
+    original indices among the hits, filled as `ball_query`.  Bit-equal to
+    `ball_query_plain` (the module docstring says why)."""
+    r2 = _r2(radius).to(xyz.device)
+    b, n, _ = xyz.shape
+    perm, beg, length = _grid_spans_plain(radius, xyz, new_xyz, side_factor)
+    out = torch.zeros((b, new_xyz.shape[1], nsample), dtype=torch.int32, device=xyz.device)
+    for bi in range(b):
+        p = torch.arange(max(int(length[bi].max()), 1), device=xyz.device)
+        valid = p < length[bi, ..., None]  # (M, R, L)
+        slot = torch.where(valid, beg[bi, ..., None] + p, 0)
+        idx = perm[bi][slot]
+        hit = valid & (_sq_dist(new_xyz[bi, :, None, None, :], xyz[bi][idx]) < r2)
+        key = torch.where(hit, idx, n).flatten(1)
+        out[bi] = _first_hits(key, hit.flatten(1).sum(1, keepdim=True), nsample)
+    return out
+
+
+def ball_query_grid_candidates(radius: float, xyz, new_xyz,
+                               side_factor: float = GRID_SIDE_FACTOR) -> torch.Tensor:
+    """(B, M) int64: the points each centre tests on the grid."""
+    return _grid_spans_plain(radius, xyz, new_xyz, side_factor)[2].sum(-1)
 
 
 _BQ_ALGOS = ("window", "adaptive", "sorted")
@@ -136,7 +273,60 @@ def fused_gather(nsample: int, n: int) -> bool:
     )
 
 
+def grid_build(radius: float, xyz: torch.Tensor, side_factor: float = GRID_SIDE_FACTOR,
+               count_as: str = "ball_query"):
+    """Kernels B's and F's grid of a CUDA (B, N, 3): (pts (B, N, 4) the
+    points ordered by (cell, original index) with the index's bits in the
+    fourth lane, starts (B, grid_cap(N) + 1) int32 each cell's first slot in
+    that order, fparams (B, 4) f32 the low corner and inverse side, iparams
+    (B, 4) int32 the cells a side and in all).  Two launches, counted under
+    `count_as`, around a stable `torch.sort` of the keys scene * (cap + 1) +
+    cell as one array (one sort over the card, not one a scene)."""
+    b, n, _ = xyz.shape
+    stride = grid_cap(n) + 1
+    if b * stride >= 2 ** 31:
+        raise ValueError(f"{count_as}: B * (grid_cap(N) + 1) = {b * stride} needs 2^31 or more")
+    # one allocation, cut where each part stays 16-byte aligned: pts,
+    # fparams, iparams (16 bytes a row), starts, keys
+    sizes = (4 * b * n, 4 * b, 4 * b, b * stride, b * n)
+    parts = torch.empty(sum(sizes), dtype=torch.int32, device=xyz.device).split(sizes)
+    pts, fparams = parts[0].view(torch.float32).view(b, n, 4), parts[1].view(torch.float32)
+    iparams, starts, keys = parts[2], parts[3].view(b, stride), parts[4]
+    _kernels.launch("coda_bq_grid_cells", xyz, fparams, iparams, keys, b, n,
+                    grid_side(radius, side_factor), stride - 1, count_as=count_as)
+    skeys, perm = torch.sort(keys, stable=True)
+    _kernels.launch("coda_bq_grid_pack", xyz, skeys, perm, iparams, pts, starts, b, n, stride,
+                    count_as=count_as)
+    return pts, starts, fparams.view(b, 4), iparams.view(b, 4)
+
+
+def grid_query(radius: float, nsample: int, xyz, new_xyz, grouped: bool = False,
+               side_factor: float = GRID_SIDE_FACTOR):
+    """Kernel B (or F with `grouped`) on CUDA tensors: the grid build, then
+    the query.  Returns idx, or (idx, grouped xyz)."""
+    name = "ball_query_group" if grouped else "ball_query"
+    _kernels.check_no_grad(name, xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    if n < 1:
+        raise ValueError(f"{name}: needs N >= 1 (a row with no hit takes point 0)")
+    if -(-min(nsample, n) // 32) * 32 > GRID_MAX_SAMPLES:
+        raise ValueError(f"{name}: min(nsample, N) = {min(nsample, n)} above the query's "
+                         f"{GRID_MAX_SAMPLES}")
+    grid = grid_build(radius, xyz, side_factor, name)
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    tail = (b, n, m, nsample, grid[1].shape[1], _f32(float(radius) ** 2), grid_radius(radius))
+    if not grouped:
+        _kernels.launch("coda_ball_query", *grid, new_xyz, idx, *tail)
+        return idx
+    out = torch.empty((b, m, nsample, 3), dtype=torch.float32, device=xyz.device)
+    _kernels.launch("coda_ball_query_group", *grid, new_xyz, xyz, idx, out, *tail)
+    return idx, out
+
+
 def _launch_ball_query(fn: str, radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
+    if fn == "coda_ball_query":
+        return grid_query(radius, nsample, xyz, new_xyz)
     _kernels.check_no_grad("ball_query", xyz, new_xyz)
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
@@ -244,20 +434,11 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: to
     """xyz (B, N, 3), new_xyz (B, M, 3) -> (idx (B, M, nsample) int32,
     grouped (B, M, nsample, 3) = xyz gathered at idx)."""
     _check_query(nsample, xyz, new_xyz)
-    b, n, _ = xyz.shape
-    if n < 1:
+    if xyz.shape[1] < 1:
         raise ValueError("ball_query_group: needs N >= 1 (a row with no hit takes point 0)")
     if xyz.device.type == "cpu":
         return ball_query_group_plain(radius, nsample, xyz, new_xyz)
-    _kernels.check_no_grad("ball_query_group", xyz, new_xyz)
-    m = new_xyz.shape[1]
-    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
-    grouped = torch.empty((b, m, nsample, 3), dtype=torch.float32, device=xyz.device)
-    _kernels.launch(
-        "coda_ball_query_group", xyz, new_xyz, idx, grouped, b, n, m, nsample,
-        float(_r2(radius)),
-    )
-    return idx, grouped
+    return grid_query(radius, nsample, xyz, new_xyz, grouped=True)
 
 
 def query_and_group(radius: float, nsample: int, xyz, new_xyz, normalize_xyz: bool = False):

@@ -59,10 +59,10 @@ from coda_neurips2023_tpu_torch.optimizer import build_optimizer  # noqa: E402
 from coda_neurips2023_tpu_torch.stages import StageContext  # noqa: E402
 
 STEPS = 3
-# the __global__ functions of the port's csrc/*.cu
+# the __global__ functions of the port's csrc/*.cu and *.cuh
 PORT_KERNELS = {
     m.group(1)
-    for src in (ROOT / "coda_neurips2023_tpu_torch" / "csrc").glob("*.cu")
+    for src in (ROOT / "coda_neurips2023_tpu_torch" / "csrc").glob("*.cu*")
     for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
                          src.read_text())
 }
@@ -189,7 +189,9 @@ def main():
         print(f"  {t / STEPS / 1e3:10.3f}  {t / dev_total:6.1%}  x{e.count // STEPS:<5d} {e.key[:90]}")
     print("the port's kernels A-G (ms/step, launches/step), by csrc/ kernel function:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        name = e.key.partition("(anonymous namespace)::")[2].split("(")[0]
+        # "void ns::name<args>(params)" or "(anonymous namespace)::name<args>(params)"
+        key = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = key.split("(")[0].split("::")[-1]
         if name.split("<")[0] in PORT_KERNELS:
             print(f"  {e.self_device_time_total / STEPS / 1e3:10.3f}  x{e.count // STEPS:<5d} {name}")
     print("device time by phase (ms/step, span on the device):")

@@ -10,7 +10,8 @@ not use).  The shapes here are the edge cases of each kernel (ragged tiles,
 no-hit rows, fully masked rows, every template instance); chip_smoke.py
 covers the eval and training paths' own shapes.  Indices and gathers must be
 bit-equal to the plain versions and the numpy golden models (kernel F also
-to kernel B followed by kernel C, kernel G also to kernel B); both attention kernels agree within
+to kernel B followed by kernel C, kernel G also to kernel B; B's and F's grid
+build also to its plain version); both attention kernels agree within
 ATTN_TOL (fp32, summed in another order than cuBLAS), and so do D's
 gradients through its autograd Function and the gather's scatter-add
 backward with autograd of the plain versions.
@@ -22,11 +23,19 @@ import torch
 
 from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import (
+    GRID_LAUNCHES,
+    GRID_MAX_SAMPLES,
+    _cell_coord,
     ball_query,
     ball_query_group,
     ball_query_group_plain,
     ball_query_plain,
     ball_query_tile,
+    grid_build,
+    grid_cap,
+    grid_params_plain,
+    grid_query,
+    grid_side,
     group_points,
     group_points_plain,
     query_and_group,
@@ -139,6 +148,89 @@ def test_ball_query_group_kernel(dev, n, m, radius, k, scale):
         np.testing.assert_array_equal(idx.cpu().numpy(), ball_query_golden(radius, k, xyz, new_xyz))
 
 
+def _degenerate(case, n, m):
+    """A wall (a third of the points on one z) or a dense clump (every point
+    within 1 cm of the origin, hits >> k), with two far centres."""
+    xyz = _pc(n, 2, n, 1.0)
+    if case == "plane":
+        xyz[:, : n // 3, 2] = 0.25
+    else:
+        xyz *= 0.01
+    ctr = np.concatenate([xyz[:, : m - 2], np.full((2, 2, 3), 50.0, np.float32)], axis=1)
+    return xyz, np.ascontiguousarray(ctr)
+
+
+@pytest.mark.parametrize("case,n,m,radius,k", [("plane", 5000, 300, 0.2, 64),
+                                               ("plane", 20000, 256, 0.2, 64),
+                                               ("clump", 300, 40, 0.2, 16),
+                                               ("clump", 5000, 100, 0.2, 64),
+                                               ("clump", 4000, 50, 0.5, 1000),
+                                               ("clump", 9000, 6, 0.5, GRID_MAX_SAMPLES)])
+def test_ball_query_grid_degenerate(dev, case, n, m, radius, k):
+    """B and F on a wall and on a clump of thousands of hits a centre (the
+    warp keeps its k smallest indices in passes): bit-equal to the plain
+    versions, F also to B then C."""
+    xyz, ctr = _degenerate(case, n, m)
+    a, b = torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev)
+    got = ball_query(radius, k, a, b)
+    assert torch.equal(got, ball_query_plain(radius, k, a, b))
+    idx, grouped = ball_query_group(radius, k, a, b)
+    assert torch.equal(idx, got) and torch.equal(grouped, group_points_plain(a, got))
+    assert torch.equal(got[:, -2:], torch.zeros_like(got[:, -2:]))
+
+
+@pytest.mark.parametrize("side_factor", [1.0, 1.5, 2.0])
+@pytest.mark.parametrize("case", ["scene", "plane", "outlier"])
+def test_grid_build_matches_plain(dev, case, side_factor):
+    """The build's side, corner and cells equal the plain version's, its
+    points are ordered by (cell, original index), and each cell's first slot
+    is right; the query at that side equals the plain ball query."""
+    xyz = _pc(7, 3, 3000, 1.0)
+    if case == "plane":
+        xyz[:, :1000, 2] = 0.25
+    elif case == "outlier":
+        xyz[1, 17] = (1e4, -1e4, 3.0)
+    t = torch.from_numpy(xyz).to(dev)
+    pts, starts, fparams, iparams = grid_build(0.2, t, side_factor)
+    lo, inv, dims = grid_params_plain(t, grid_side(0.2, side_factor), grid_cap(3000))
+    assert torch.equal(fparams[:, :3], lo) and torch.equal(fparams[:, 3], inv)
+    assert torch.equal(iparams[:, :3].long(), dims) and torch.equal(iparams[:, 3].long(), dims.prod(-1))
+    cc = _cell_coord(t, lo[:, None], inv[:, None, None], dims[:, None])
+    cells = (cc[..., 2] * dims[:, None, 1] + cc[..., 1]) * dims[:, None, 0] + cc[..., 0]
+    scells, perm = torch.sort(cells, dim=1, stable=True)
+    assert torch.equal(pts[..., 3].view(torch.int32).long(), perm)
+    assert torch.equal(pts[..., :3], torch.gather(t, 1, perm[..., None].expand(-1, -1, 3)))
+    for bi in range(3):
+        nc = int(dims[bi].prod())
+        want = torch.searchsorted(scells[bi], torch.arange(nc + 1, device=dev))
+        assert torch.equal(starts[bi, : nc + 1].long(), want)
+    ctr = t[:, ::10].contiguous()
+    assert torch.equal(grid_query(0.2, 64, t, ctr, side_factor=side_factor),
+                       ball_query_plain(0.2, 64, t, ctr))
+
+
+def test_ball_query_never_scans(dev):
+    """No size or data setting reaches a scan of the scene: every call of B
+    at N from 1 to 40,000, k from 1 to 1000, sparse, dense and degenerate
+    scenes launches the grid build and query (GRID_LAUNCHES) and nothing
+    else, and the kernel library has no scan entry point left."""
+    lib = _kernels.library()
+    assert not hasattr(lib, "bq_scan") and not hasattr(lib, "coda_ball_query_scan")
+    for n, k, scale in ((1, 8, 1.0), (300, 1, 0.25), (2048, 32, 1.0), (5000, 200, 0.05),
+                        (20000, 64, 3.0), (40000, 64, 0.001), (4096, 1000, 1.0)):
+        a = torch.from_numpy(_pc(n + 3, 1, n, scale)).to(dev)
+        c = a[:, : min(n, 64)].contiguous()
+        _kernels.reset_launches()
+        got = ball_query(0.2, k, a, c)
+        assert _kernels.LAUNCHES == dict.fromkeys(_kernels.LAUNCHES, 0) | {"ball_query": GRID_LAUNCHES}
+        assert torch.equal(got, ball_query_plain(0.2, k, a, c))
+    with pytest.raises(ValueError):  # beyond the query's buffer: refused, not scanned
+        a = torch.zeros((1, GRID_MAX_SAMPLES + 40, 3), device=dev)
+        ball_query(0.2, GRID_MAX_SAMPLES + 33, a, a[:, :4].contiguous())
+    with pytest.raises(ValueError):
+        ball_query(0.2, 8, torch.zeros((1, 0, 3), device=dev), torch.zeros((1, 4, 3), device=dev))
+
+
 def _check_tile(a, b, radius, k):
     got = ball_query_tile(radius, k, a, b)
     torch.cuda.synchronize()
@@ -211,7 +303,8 @@ def test_ball_query_dispatch_launches(dev, monkeypatch):
         mp.setenv("CODA_BQ_FUSED_GATHER", "1")
         _kernels.reset_launches()
         query_and_group(0.2, 64, xyz, centres)
-        assert _kernels.LAUNCHES["ball_query_group"] == 1 and _kernels.LAUNCHES["ball_query"] == 0
+        assert _kernels.LAUNCHES["ball_query_group"] == GRID_LAUNCHES
+        assert _kernels.LAUNCHES["ball_query"] == 0
         mp.setenv("CODA_BQ_ALGO", "adaptive")
         _kernels.reset_launches()
         query_and_group(0.2, 64, xyz, centres)
@@ -408,8 +501,10 @@ def test_launch_counts_and_refusals(dev):
     masked_attention(q, torch.randn((1, 2, 32, 16), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     vit_attention(q, torch.randn((1, 2, 16, 32), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     assert idx.dtype == torch.int32
-    assert _kernels.LAUNCHES == {"fps": 1, "ball_query": 1, "gather": 1, "attention": 1,
-                                 "vit_attention": 1, "ball_query_group": 1, "ball_query_tile": 1}
+    # B and F: the grid build's two launches and the query
+    assert _kernels.LAUNCHES == {"fps": 1, "ball_query": GRID_LAUNCHES, "gather": 1, "attention": 1,
+                                 "vit_attention": 1, "ball_query_group": GRID_LAUNCHES,
+                                 "ball_query_tile": 1}
     # keys split across blocks: the combine is D's second launch
     q = torch.randn((1, 1, 16, 32), device=dev)
     assert attention_splits(1, 1, 16, 1000, 32, multi_processor_count(dev))[0] > 1

@@ -32,11 +32,21 @@ from coda_neurips2023_tpu.ops.sampling import gather_points as jax_gather_points
 
 from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import (
+    GRID_DOUBLINGS,
     ball_query,
+    ball_query_grid_candidates,
+    ball_query_grid_plain,
     ball_query_group,
     ball_query_plain,
+    _r2,
+    _sq_dist,
     ball_query_tile,
+    grid_cap,
+    grid_params_plain,
+    grid_radius,
+    grid_side,
     group_points,
+    group_points_plain,
     query_and_group,
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
@@ -98,14 +108,63 @@ def _bq_inputs(case):
     return radius, nsample, xyz, new_xyz
 
 
-@pytest.mark.parametrize("case", sorted(BQ_CASES))
+def _grid_inputs(case):
+    """The cases that stress kernel B's and F's cell grid, N <= 300 for
+    interpret mode: (radius, nsample, xyz, new_xyz)."""
+    rng = np.random.default_rng(29)
+    far = np.full((1, 2, 3), 50.0, np.float32)
+    if case == "lattice":  # 0.25 apart, r = 0.25: points on cell faces and on the radius
+        g = np.arange(-3, 3, dtype=np.float32) * 0.25
+        xyz = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(1, -1, 3)
+        return 0.25, 16, xyz, np.ascontiguousarray(xyz[:, ::7])
+    if case == "clump":  # every point in one cell, hits >> k
+        xyz = rand_pc(rng, 1, 300, scale=0.01)
+        return 0.2, 16, xyz, np.concatenate([xyz[:, :20], far], 1)
+    if case == "plane":  # 300 points with one z: a wall
+        xyz = rand_pc(rng, 1, 300, scale=1.0)
+        xyz[..., 2] = 0.5
+        return 0.3, 16, xyz, np.concatenate([xyz[:, :30], far], 1)
+    if case == "far_centres":  # every centre outside the grid: border cells, no hit
+        xyz = rand_pc(rng, 1, 200, scale=1.0)
+        ctr = np.concatenate([np.full((1, 6, 3), 50.0, np.float32),
+                              np.full((1, 5, 3), -50.0, np.float32)], 1)
+        ctr[0, 3] = (50.0, 0.0, 0.0)
+        return 0.3, 8, xyz, ctr
+    if case == "outlier":  # one far point stretches the box past the cell cap
+        xyz = rand_pc(rng, 1, 300, scale=0.3)
+        xyz[0, 7] = (1e4, 1e4, 1e4)
+        return 0.3, 16, xyz, np.ascontiguousarray(xyz[:, :30])
+    if case == "n1":
+        xyz = rand_pc(rng, 2, 1, scale=1.0)
+        ctr = np.concatenate([xyz, xyz + 0.5, np.broadcast_to(far, (2, 2, 3))], 1)
+        return 1.0, 8, xyz, np.ascontiguousarray(ctr)
+    if case == "k_above_n":
+        xyz = rand_pc(rng, 2, 40, scale=1.0)
+        return 2.0, 64, xyz, np.concatenate([xyz[:, :15], np.broadcast_to(far, (2, 2, 3))], 1)
+    return _bq_inputs(case)
+
+
+GRID_CASES = sorted(BQ_CASES) + ["clump", "far_centres", "k_above_n", "lattice", "n1", "outlier",
+                                 "plane"]
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
 def test_ball_query_matches_golden_and_pallas(monkeypatch, case):
-    radius, nsample, xyz, new_xyz = _bq_inputs(case)
-    got = ball_query(radius, nsample, torch.from_numpy(xyz), torch.from_numpy(new_xyz))
+    """ball_query (the plain version on the CPU) and the grid scheme of
+    kernels B and F at three cell sides, against the golden model and the
+    JAX sorted and v3 Pallas kernels in interpret mode; the grid's grouped
+    coordinates against the fused Pallas kernel's."""
+    radius, nsample, xyz, new_xyz = _grid_inputs(case)
+    t, c = torch.from_numpy(xyz), torch.from_numpy(new_xyz)
+    got = ball_query(radius, nsample, t, c)
     assert got.dtype == torch.int32
     want = ball_query_golden(radius, nsample, xyz, new_xyz)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert np.all(want[:, -2:] == 0)
+    if case in BQ_CASES:
+        assert np.all(want[:, -2:] == 0)
+    for side_factor in (1.0, 1.5, 2.0):
+        grid = ball_query_grid_plain(radius, nsample, t, c, side_factor=side_factor)
+        assert torch.equal(grid, got), side_factor
     # the Pallas kernels with their blocks shrunk so multi-block paths run
     monkeypatch.setattr(jbq, "_NC", 128)
     monkeypatch.setattr(jbqs, "_BLK", 128)
@@ -116,6 +175,47 @@ def test_ball_query_matches_golden_and_pallas(monkeypatch, case):
     with pltpu.force_tpu_interpret_mode():
         np.testing.assert_array_equal(np.asarray(jbq.ball_query_pallas_v3(*args)), want)
         np.testing.assert_array_equal(np.asarray(jbqs.ball_query_pallas_sorted(*args)), want)
+        idx, grouped = jbqs.ball_query_and_group_sorted(*args)
+    np.testing.assert_array_equal(np.asarray(idx), want)
+    np.testing.assert_array_equal(np.asarray(grouped), group_points_plain(t, grid).numpy())
+
+
+@pytest.mark.parametrize("case", ["dense", "clump", "plane", "outlier", "n1"])
+def test_grid_params_and_candidates(case):
+    """The grid's side is the first of side0 * 2^j whose grid has at most
+    grid_cap(N) cells, never below the widened radius; every centre tests at
+    least its hits and at most all N points."""
+    radius, nsample, xyz, new_xyz = _grid_inputs(case)
+    t, c = torch.from_numpy(xyz), torch.from_numpy(new_xyz)
+    b, n, _ = xyz.shape
+    lo, inv, dims = grid_params_plain(t, grid_side(radius), grid_cap(n))
+    side = 1.0 / inv.double()
+    assert torch.equal(lo, t.amin(1))
+    assert (dims.prod(-1) <= grid_cap(n)).all()
+    assert (side >= grid_radius(radius) * (1 - 2 ** -23)).all()
+    ext = (t.amax(1) - t.amin(1)).double()
+    finer = side / 2  # the side before: too many cells, unless it was the first
+    too_many = (torch.floor(ext / finer[:, None]) + 1).prod(-1) > grid_cap(n)
+    assert ((side <= grid_side(radius) * (1 + 2 ** -23)) | too_many).all()
+    if case == "outlier":
+        assert (side > 1.0).all()  # the cap forced doublings
+    cand = ball_query_grid_candidates(radius, t, c)
+    hits = (_sq_dist(c[:, :, None], t[:, None]) < _r2(radius)).sum(-1)
+    assert (cand <= n).all() and (cand >= hits).all()
+
+
+def test_grid_one_cell_when_no_side_fits():
+    """An infinite extent: no side of GRID_DOUBLINGS fits the cap, so the
+    scene is one cell, every centre tests every point, and the result is
+    still exact."""
+    xyz = rand_pc(np.random.default_rng(3), 1, 50)
+    xyz[0, 4] = (np.inf, 0.0, 0.0)
+    t = torch.from_numpy(xyz)
+    lo, inv, dims = grid_params_plain(t, grid_side(0.5), grid_cap(50))
+    assert dims.tolist() == [[1, 1, 1]] and GRID_DOUBLINGS == 64
+    c = t[:, :10].contiguous()
+    assert (ball_query_grid_candidates(0.5, t, c) == 50).all()
+    assert torch.equal(ball_query_grid_plain(0.5, 8, t, c), ball_query_plain(0.5, 8, t, c))
 
 
 # kernel G's function (the adaptive and MXU Pallas kernels, rows 4 and 5 of
