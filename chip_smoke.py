@@ -7,7 +7,7 @@ Phases (any failure raises, and the script exits non-zero without printing a
 result):
   1. torch/CUDA versions, the card's name and power limit, TF32 switched off.
   2. Build the kernels (coda_neurips2023_tpu_torch/csrc) with nvcc, and
-     beside them the scan kernels B and F replaced
+     beside them the scan kernels B, F and G replaced
      (scripts/ball_query_variants.cu), phase 3's yardstick, in parallel.
   3. Each kernel against its plain PyTorch version at the shapes of the two
      eval paths: FPS, ball query and gather exactly, attention (D) within
@@ -59,8 +59,8 @@ result):
      abstraction; F stays off, as the JAX package's gate says): one warm-up
      and TRAIN_STEPS timed steps: a finite loss, the distillation loss above
      0, the count of valid crops, the launch counts of A, G, C, D and E (all
-     must launch, B and F must not), step times, scenes/s, crops/s, the
-     matcher's host ms, peak memory.
+     must launch, B and F must not; G TILE_LAUNCHES a step), step times,
+     scenes/s, crops/s, the matcher's host ms, peak memory.
  11. The same step at dropout 0 on 2 scenes, GPU vs CPU (plain paths), from
      the same weights and the same crop selection (boxes whose rect
      coordinates lie at least RECT_MARGIN px from an integer, so both
@@ -68,15 +68,19 @@ result):
      CLIP_TOL, assignments equal, loss within STEP_TOL, gradients within
      GRAD_TOL of their global norm.
  12. One batch of phase 4's eval step with CODA_BQ_MXU=1: kernel G launches
-     (the MXU kernel's row), kernel B does not, and the outputs equal phase
-     4's on that batch within MXU_TOL.
+     (the MXU kernel's row) TILE_LAUNCHES times, kernel B does not, and the
+     outputs equal phase 4's on that batch within MXU_TOL.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
 the scan kernels they replaced, which it times in turns with them, beside
-the grid build on its own; kernel G against its plain version and
-kernel B, bit for bit, at three shapes (the SA at 20000 and at ScanNet's
-40000 points, the masked encoder's interim SA), and D in training (with and
+the grid build on its own; kernel G (tiles of nearby centres on B's grid)
+against its plain version, kernel B and the old G (a scan, also from
+scripts/ball_query_variants.cu), bit for bit, on the eval SA, stage 1's 8
+scenes, the plane, a uniform cloud, ScanNet's 40000 points and the masked
+encoder's interim SA, each with G's time and the old G's in turns, B's,
+G's build, sort and query alone, the points a centre tests and stages
+and the host's time a call; and D in training (with and
 without its attention-weight dropout: the output, and q, k, v gradients
 through its autograd Function) against its plain version and autograd of it.
 The CODA_BQ_* variables are cleared at the start; each phase sets its own.
@@ -93,8 +97,10 @@ this run's inputs; for the attention kernels D and E, whose products run in
 the fp32 peak), and the time of one PyTorch call computing the same
 function where there is one; for the ball queries B, F and G the bound
 counts the distance tests a grid of cell side r needs on these inputs (the
-scan's count is printed beside it, and carried as scan_bound_ms by B and
-F, with the scan kernel's time scan_ms and the grid build's build_ms); the
+scan's count is printed beside it, and carried as scan_bound_ms by B, F and
+G, with the scan kernel's time scan_ms and the grid build's build_ms; G also
+carries B's time, its sort and query alone and, as stage1_*, its times at
+the stage-1 step's 8 scenes); the
 attention entry also carries the
 decoder shape's kernel, plain, library and bound times, the vit_attention
 entry those at 256 crops (stage1_*), the fps entry its cluster size and
@@ -306,9 +312,9 @@ def ball_query_bound(torch, radius, k, xyz, centres, grouped=False):
 
 
 def load_scan_kernels(lib_path):
-    """The scan kernels B and F were before the grid (scripts/ball_query_variants.cu,
+    """The scan kernels B, F and G were before the grid (scripts/ball_query_variants.cu,
     a yardstick; not kernels of the path, so never counted) as functions of
-    (radius, k, xyz, centres)."""
+    (kernel name, radius, k, xyz, centres)."""
     import ctypes
 
     import torch
@@ -318,25 +324,70 @@ def load_scan_kernels(lib_path):
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bq_scan.argtypes = [p, p, p, i, i, i, i, f, p]
+    lib.bq_tile_scan.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.bq_group_scan.argtypes = [p, p, p, p, i, i, i, i, f, p]
 
-    def call(grouped, radius, k, x, c):
+    def call(name, radius, k, x, c):
         b, n, _ = x.shape
         m = c.shape[1]
         idx = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
         stream = torch.cuda.current_stream().cuda_stream
         r2 = float(_r2(radius))
-        if grouped:
+        out = None
+        if name == "ball_query_group":
             out = torch.empty((b, m, k, 3), dtype=torch.float32, device=x.device)
             err = lib.bq_group_scan(x.data_ptr(), c.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                     b, n, m, k, r2, stream)
         else:
-            err = lib.bq_scan(x.data_ptr(), c.data_ptr(), idx.data_ptr(), b, n, m, k, r2, stream)
+            fn = lib.bq_tile_scan if name == "ball_query_tile" else lib.bq_scan
+            err = fn(x.data_ptr(), c.data_ptr(), idx.data_ptr(), b, n, m, k, r2, stream)
         if err != 0:
-            fail(f"scan kernel: CUDA error {err} at launch")
-        return (idx, out) if grouped else idx
+            fail(f"scan kernel of {name}: CUDA error {err} at launch")
+        return idx if out is None else (idx, out)
 
     return call
+
+
+def tile_steps(torch, r, k, x, c):
+    """Kernel G's steps timed alone (not launches of a path): its whole
+    build (the grid and the centres' order), the build's sort of the points'
+    and centres' keys as one array and of the points' keys alone, and the
+    query on a built grid."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.ops import grouping
+
+    b, n, _ = x.shape
+    m = c.shape[1]
+    sf = grouping.TILE_SIDE_FACTOR
+    cap = grouping.grid_cap(n)
+    build = lambda: grouping.grid_build(r, x, sf, "ball_query_tile", centres=c)
+    f = torch.empty((b, 4), device=x.device)
+    i = torch.empty((b, 4), dtype=torch.int32, device=x.device)
+    keys = torch.empty((b * (n + m),), dtype=torch.int32, device=x.device)
+    _kernels.launch("coda_bq_grid_cells", x, c, f, i, keys, b, n, m, grouping.grid_side(r, sf),
+                    cap, count_as="ball_query_tile")
+    points = keys[: b * n]
+    *grid, ctr = build()
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=x.device)
+    query = lambda: _kernels.launch(
+        "coda_ball_query_tile", *grid, ctr, idx, b, n, m, k, cap + 1,
+        float(grouping._r2(r)), grouping.grid_radius(r), grouping.TILE_SIZE)
+    return {"build_ms": time_ms(torch, build),
+            "sort_ms": time_ms(torch, lambda: torch.sort(keys, stable=True)),
+            "points_sort_ms": time_ms(torch, lambda: torch.sort(points, stable=True)),
+            "query_ms": time_ms(torch, query)}
+
+
+def host_us(torch, fn, calls=20):
+    """The host's microseconds a call takes to return, calls back to back
+    without a synchronise (their enqueue)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def attention_bound(b, h, sq, skv, d, tensor_cores=True):
@@ -442,7 +493,7 @@ def compare_kernels(torch, xyz, xyz40, scan, results):
         else:
             kern = lambda: grouping.ball_query(r, k, x, c)
             plain = lambda: grouping.ball_query_plain(r, k, x, c)
-        old = lambda: scan(grouped, r, k, x, c)
+        old = lambda: scan(name, r, k, x, c)
         got, want, old_out = kern(), plain(), old()
         torch.cuda.synchronize()
         outs = (got, want, old_out) if grouped else ((got,), (want,), (old_out,))
@@ -488,29 +539,57 @@ def compare_kernels(torch, xyz, xyz40, scan, results):
     for name, nb in (("ball_query", b), ("ball_query_group", TRAIN_BATCH)):
         grid_row(name, f"plane B={nb} N={NUM_POINTS} M=2048 r=0.2 k=64", 0.2, 64,
                  plane[:nb].contiguous(), plane_c[:nb].contiguous(), False)
-    del plane, plane_c
 
-    # kernel G against its plain version and kernel B, bit for bit: the SA,
-    # the masked encoder's interim SA, the SA at ScanNet's point count
+    # kernel G against its plain version, kernel B and the old G (a scan),
+    # bit for bit, on B's scenes and shapes: the eval SA (main), the stage-1
+    # step's 8 scenes, the plane, a uniform cloud, ScanNet's 40,000 points,
+    # the masked encoder's interim SA
+    box = torch.tensor([8.0, 8.0, 3.0], device=xyz.device)
+    uniform = (torch.rand(xyz.shape, device=xyz.device,
+                          generator=torch.Generator(device=xyz.device).manual_seed(SEED))
+               * box - box * torch.tensor([0.5, 0.5, 0.0], device=xyz.device))
+    uniform_c = sampling.gather_points(uniform, sampling.furthest_point_sample(uniform, 2048))
     centres40 = sampling.gather_points(xyz40, sampling.furthest_point_sample(xyz40, 2048))
-    for label, x, c, r, k, main in (
-        (f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", xyz, centres, 0.2, 64, True),
-        (f"B={b} N=2048 M=1024 r=0.4 k=32", centres, half, 0.4, 32, False),
+    nt = TRAIN_BATCH
+    for label, x, c, r, k, key in (
+        (f"B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", xyz, centres, 0.2, 64, "main"),
+        (f"B={nt} N={NUM_POINTS} M=2048 r=0.2 k=64", xyz[:nt].contiguous(),
+         centres[:nt].contiguous(), 0.2, 64, "stage1"),
+        (f"plane B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", plane, plane_c, 0.2, 64, "plane"),
+        (f"uniform B={b} N={NUM_POINTS} M=2048 r=0.2 k=64", uniform, uniform_c, 0.2, 64,
+         "uniform"),
         (f"B={xyz40.shape[0]} N={SCANNET_POINTS} M=2048 r=0.2 k=64", xyz40, centres40, 0.2, 64,
-         False),
+         "scannet"),
+        (f"B={b} N=2048 M=1024 r=0.4 k=32", centres, half, 0.4, 32, "masked"),
     ):
         kern = lambda: grouping.ball_query_tile(r, k, x, c)
         via_b = lambda: grouping.ball_query(r, k, x, c)
         plain = lambda: grouping.ball_query_plain(r, k, x, c)
-        got, want, want_b = kern(), plain(), via_b()
+        old = lambda: scan("ball_query_tile", r, k, x, c)
+        got = kern()
         torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(got, want_b)):
-            fail(f"ball_query_tile {label}: differs from the plain version or kernel B")
+        for what, ref in (("plain version", plain), ("kernel B", via_b), ("old kernel G", old)):
+            if not torch.equal(got, ref()):
+                fail(f"ball_query_tile {label}: differs from the {what}")
+        ms, old_ms = time_in_turns(torch, kern, old)
         bnd, scan_bnd = ball_query_bound(torch, r, k, x, c)
-        record("ball_query_tile", label, 0.0, time_ms(torch, kern), time_ms(torch, plain), main, bnd)
-        print(f"  {'':16s} {'':44s} kernel B ms={time_ms(torch, via_b)!r} "
-              f"scan kernel B ms={time_ms(torch, lambda: scan(False, r, k, x, c))!r} "
-              f"scan bound_ms={scan_bnd[0]!r} ({scan_bnd[1]})")
+        record("ball_query_tile", label, 0.0, ms, time_ms(torch, plain), key == "main", bnd)
+        steps = tile_steps(torch, r, k, x, c)
+        tested, staged = (t.float() for t in grouping.ball_query_tile_candidates(r, x, c))
+        b_ms = time_ms(torch, via_b)
+        print(f"  {'':16s} {'':44s} old G ms={old_ms!r} kernel B ms={b_ms!r} "
+              + " ".join(f"{name}={v!r}" for name, v in steps.items())
+              + f" tested a centre: mean {tested.mean().item()!r} max {int(tested.max())}"
+              f" staged a centre: mean {(staged / grouping.TILE_SIZE).mean().item()!r}"
+              f" a tile: max {int(staged.max())}"
+              f" host_us_a_call={host_us(torch, kern)!r} scan bound_ms={scan_bnd[0]!r}")
+        if key == "main":
+            results["ball_query_tile"].update(scan_ms=old_ms, b_ms=b_ms, **steps,
+                                              scan_bound_ms=scan_bnd[0])
+        elif key == "stage1":
+            results["ball_query_tile"].update(stage1_ms=ms, stage1_scan_ms=old_ms,
+                                              stage1_b_ms=b_ms, stage1_bound_ms=bnd[0])
+    del uniform, uniform_c, plane, plane_c
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
 
@@ -612,14 +691,16 @@ def compare_attention_backward(torch):
 
 
 def check_grid_launches(launches, name, steps, path):
-    """Kernel B (or F) runs once a step on its path, and a call launches the
-    grid build's two kernels and the query: GRID_LAUNCHES counts a step."""
-    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES
+    """Kernel B, F or G launched exactly its count a call, once a step: the
+    grid build's two kernels and the query (GRID_LAUNCHES for B and F,
+    TILE_LAUNCHES for G, whose build also orders the centres)."""
+    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES, TILE_LAUNCHES
 
-    if launches[name] != steps * GRID_LAUNCHES:
+    per_call = TILE_LAUNCHES if name == "ball_query_tile" else GRID_LAUNCHES
+    if launches[name] != steps * per_call:
         fail(f"{name} launched {launches[name]} times on the {path} path, expected "
-             f"{steps * GRID_LAUNCHES} ({GRID_LAUNCHES} a call: grid cells, pack, query)")
-    print(f"  {name}: {GRID_LAUNCHES} launches a call (grid cells, pack, query), once a step")
+             f"{steps * per_call} ({per_call} a call: grid cells, pack, query)")
+    print(f"  {name}: {per_call} launches a call (grid cells, pack, query), once a step")
 
 
 def check_eval_outputs(torch, outs, nq, what, zero_rows):
@@ -922,6 +1003,7 @@ def stage1_phase(torch, cfg, batches):
     for name in ("ball_query", "ball_query_group"):
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the stage-1 path under CODA_BQ_ALGO=adaptive")
+    check_grid_launches(launches, "ball_query_tile", TRAIN_STEPS, "stage-1")
     if launches["vit_attention"] != TRAIN_STEPS * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{TRAIN_STEPS * CLIP_LAYERS} (one tower call of every step's crops)")
@@ -1032,6 +1114,7 @@ def mxu_phase(torch, model, text, batch, want):
     print(f"  launches: {launches}")
     if launches["ball_query_tile"] <= 0 or launches["ball_query"] != 0:
         fail("CODA_BQ_MXU=1: kernel G did not take kernel B's place")
+    check_grid_launches(launches, "ball_query_tile", 1, "MXU eval")
     err = max((out[k] - want[k]).abs().max().item() for k in want)
     print(f"  outputs vs phase 4's on that batch: max_abs_err={err!r}")
     if not err <= MXU_TOL:

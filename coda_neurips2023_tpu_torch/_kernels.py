@@ -49,9 +49,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "coda_fps": ("fps", [_P, _P, _I, _I, _I, _I, _P]),
     # kernel B's grid build (counted under "ball_query", or under
-    # "ball_query_group" where kernel F's wrapper launches it) and query
-    "coda_bq_grid_cells": ("ball_query", [_P, _P, _P, _P, _I, _I, _F, _I, _P]),
-    "coda_bq_grid_pack": ("ball_query", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # "ball_query_group" or "ball_query_tile" where kernel F's or G's wrapper
+    # launches it) and query
+    "coda_bq_grid_cells": ("ball_query", [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    "coda_bq_grid_pack": ("ball_query", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_ball_query": ("ball_query", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
     "coda_gather": ("gather", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "coda_attention": (
@@ -63,7 +64,9 @@ _SIGNATURES = {
     "coda_ball_query_group": (
         "ball_query_group", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
     ),
-    "coda_ball_query_tile": ("ball_query_tile", [_P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "coda_ball_query_tile": (
+        "ball_query_tile", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]
+    ),
 }
 
 _lock = threading.Lock()

@@ -52,6 +52,17 @@ the k smallest original indices, which are the first k in index order
 whatever order the candidates came in (the JAX sorted kernel's extraction by
 minimum original index, pallas_ball_query_sorted.py:26-30).
 
+Kernel G serves a tile of nearby centres at once on the same grid
+(`ball_query_tile_grid_plain` is its algorithm in tensor ops).  The build's
+one sort also orders each scene's centres by the Morton key of their own
+cell (`_tile_keys_plain`); a block takes TILE_SIZE consecutive centres of
+that order, stages the rows of cells its centres read, one contiguous run
+of slots a row (`_tile_union_rows`), into shared memory by asynchronous
+copies, and each centre tests its own cells among the staged points.  The
+union holds all of a centre's cells, so no hit is missed, and the k
+smallest indices are taken as in B; each result goes back to its centre's
+own row.
+
 Indices are int32 in and out, as in the JAX package.  Point coordinates take
 no gradient: B, F and G refuse inputs that require one.  A CUDA call launches
 the kernel it is routed to or raises: no size gate of the TPU kernels is
@@ -183,27 +194,39 @@ def _cell_coord(x, lo, inv, dims):
     return torch.where(t >= top, top, torch.where(t >= 0, t, 0.0)).long()
 
 
-def _grid_spans_plain(radius: float, xyz, new_xyz, side_factor: float):
-    """The sorted grid and every centre's candidate rows: (perm (B, N) the
-    point order by (cell, original index), beg and length (B, M, R) of each
-    row of cells a centre reads, contiguous in that order)."""
+def _grid_plain(radius: float, xyz, side_factor: float):
+    """The sorted grid of each scene: (lo (B, 1, 3), inv (B, 1, 1), dims
+    (B, 1, 3), perm (B, N) the point order by (cell, original index),
+    starts (B, cells + 1) each cell's first slot in that order)."""
     b, n, _ = xyz.shape
-    dev = xyz.device
     lo, inv, dims = grid_params_plain(xyz, grid_side(radius, side_factor), grid_cap(n))
     lo, inv, dims = lo[:, None, :], inv[:, None, None], dims[:, None, :]
     pc = _cell_coord(xyz, lo, inv, dims)  # (B, N, 3)
     cells = (pc[..., 2] * dims[..., 1] + pc[..., 1]) * dims[..., 0] + pc[..., 0]
     scells, perm = torch.sort(cells, dim=1, stable=True)
     ncells = int(dims.prod(-1).max())
-    every_cell = torch.arange(ncells + 1, device=dev).expand(b, -1).contiguous()
-    starts = torch.searchsorted(scells, every_cell)
-    rw = torch.tensor(grid_radius(radius), dtype=torch.float32, device=dev)
-    inf = torch.tensor(math.inf, device=dev)
-    c0 = _cell_coord(torch.nextafter(new_xyz - rw, -inf), lo, inv, dims)
-    c1 = _cell_coord(torch.nextafter(new_xyz + rw, inf), lo, inv, dims)
+    every_cell = torch.arange(ncells + 1, device=xyz.device).expand(b, -1).contiguous()
+    return lo, inv, dims, perm, torch.searchsorted(scells, every_cell)
+
+
+def _centre_boxes(radius: float, new_xyz, lo, inv, dims):
+    """Each centre's range of cells on each axis, (B, M, 3) from and to
+    (inclusive): those of its widened box's bounds, rounded outward."""
+    rw = torch.tensor(grid_radius(radius), dtype=torch.float32, device=new_xyz.device)
+    inf = torch.tensor(math.inf, device=new_xyz.device)
+    return (_cell_coord(torch.nextafter(new_xyz - rw, -inf), lo, inv, dims),
+            _cell_coord(torch.nextafter(new_xyz + rw, inf), lo, inv, dims))
+
+
+def _grid_spans_plain(radius: float, xyz, new_xyz, side_factor: float):
+    """The sorted grid and every centre's candidate rows: (perm (B, N) the
+    point order by (cell, original index), beg and length (B, M, R) of each
+    row of cells a centre reads, contiguous in that order)."""
+    lo, inv, dims, perm, starts = _grid_plain(radius, xyz, side_factor)
+    c0, c1 = _centre_boxes(radius, new_xyz, lo, inv, dims)
     w = c1 - c0 + 1
     nrows = w[..., 1] * w[..., 2]  # (B, M): rows of cells along x
-    r = torch.arange(int(nrows.max()), device=dev)
+    r = torch.arange(int(nrows.max()), device=xyz.device)
     valid = r < nrows[..., None]
     y = c0[..., 1:2] + r % w[..., 1:2]
     z = c0[..., 2:3] + r // w[..., 1:2]
@@ -240,6 +263,174 @@ def ball_query_grid_candidates(radius: float, xyz, new_xyz,
     return _grid_spans_plain(radius, xyz, new_xyz, side_factor)[2].sum(-1)
 
 
+# Kernel G (see the module docstring): B's grid, with a block for a tile of
+# TILE_SIZE centres that lie close together.  Each scene's centres are
+# ordered by the Morton key of their own cell (`_tile_keys_plain`) in the
+# build's one sort; a tile is TILE_SIZE consecutive centres in that order.
+TILE_SIZE = 8  # centres a block of G (PERF.md: the chip sweep of 8, 16, 32, 64)
+TILE_SIZES = (8, 16, 32, 64)  # the tile sizes the kernel is built for
+TILE_SIDE_FACTOR = 1.0  # G's first cell side, in widened radii (PERF.md)
+TILE_LAUNCHES = 3  # kernel launches a call of G: cells, pack, query
+TILE_MAX_SAMPLES = 512  # min(nsample, N), rounded up to 32, that G's query takes
+
+
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """The bit length of each entry of a non-negative integer tensor below 2^31."""
+    return (v[..., None] >= 2 ** torch.arange(31, device=v.device)).sum(-1)
+
+
+def _tile_key_bits(dims: torch.Tensor, stride: int):
+    """(bits, shift), both (B, 3): how many low bits of each axis's cell
+    coordinate, shifted right by `shift`, the Morton key of a scene with
+    `dims` cells a side takes, so that every key lies below `stride` (the
+    scene's key range in the build's sort): while the axes' bit lengths add
+    up to more than floor(log2(stride)), the longest (x before y before z)
+    gives up its lowest bit."""
+    full = _bit_length(dims - 1)
+    bits = full.clone()
+    budget = int(_bit_length(torch.tensor(stride))) - 1
+    rows = torch.arange(bits.shape[0], device=dims.device)
+    while True:
+        over = bits.sum(-1) > budget
+        if not over.any():
+            return bits, full - bits
+        bits[rows[over], bits[over].argmax(-1)] -= 1
+
+
+def _tile_keys_plain(cells: torch.Tensor, bits: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """cells (B, M, 3) int64 -> (B, M) int64 Morton keys: the shifted
+    coordinates' bits interleaved from the lowest, x, y, z in turn, an axis
+    dropping out once its `bits` are spent (so a long axis orders the
+    coarsest level).  Kernel G's cells kernel computes the same."""
+    q = cells >> shift[:, None, :]
+    key = torch.zeros(cells.shape[:-1], dtype=torch.int64, device=cells.device)
+    pos = torch.zeros_like(key)
+    for j in range(int(bits.max()) if bits.numel() else 0):
+        for a in range(3):
+            take = (j < bits[:, None, a]).long()
+            key |= (((q[..., a] >> j) & 1) * take) << pos
+            pos += take
+    return key
+
+
+def tile_order_plain(radius: float, xyz, new_xyz, side_factor: float = TILE_SIDE_FACTOR):
+    """(B, M) int64: each scene's centres in kernel G's order, by the Morton
+    key of their cell and then by index (a stable sort)."""
+    lo, inv, dims = grid_params_plain(xyz, grid_side(radius, side_factor), grid_cap(xyz.shape[1]))
+    cells = _cell_coord(new_xyz, lo[:, None], inv[:, None, None], dims[:, None])
+    bits, shift = _tile_key_bits(dims, grid_cap(xyz.shape[1]) + 1)
+    return torch.sort(_tile_keys_plain(cells, bits, shift), dim=1, stable=True).indices
+
+
+def _tile_union_rows(c0, c1, dims, starts, tile: int):
+    """One scene's tiles: c0, c1 (M, 3) the centres' cell ranges in tile
+    order, dims (3,), starts (cells + 1,) -> (beg, length) (T, R), u0 (T,
+    3), wy (T,): each (y, z) row r = (z - u0_z) * wy + (y - u0_y) of a
+    tile's bounding box of rows, as one run of slots from the least to the
+    greatest x cell the tile's centres that read the row read on it (length
+    0 where none does)."""
+    m = c0.shape[0]
+    nt = -(-m // tile)
+    pad = nt * tile - m
+    big = torch.iinfo(torch.int64).max
+    # a padding centre reads nothing: its range is empty on every axis
+    c0 = torch.cat([c0, c0.new_full((pad, 3), big)]).view(nt, tile, 3)
+    c1 = torch.cat([c1, c1.new_full((pad, 3), -1)]).view(nt, tile, 3)
+    u0, u1 = c0.amin(1), c1.amax(1)  # (T, 3)
+    wy = u1[:, 1] - u0[:, 1] + 1
+    nrows = wy * (u1[:, 2] - u0[:, 2] + 1)
+    r = torch.arange(int(nrows.max()), device=c0.device)
+    y = u0[:, 1:2] + r % wy[:, None]  # (T, R)
+    z = u0[:, 2:3] + r // wy[:, None]
+    reads = ((c0[:, None, :, 1] <= y[..., None]) & (y[..., None] <= c1[:, None, :, 1])
+             & (c0[:, None, :, 2] <= z[..., None]) & (z[..., None] <= c1[:, None, :, 2]))
+    xmin = torch.where(reads, c0[:, None, :, 0], big).amin(-1)
+    xmax = torch.where(reads, c1[:, None, :, 0], -1).amax(-1)
+    used = reads.any(-1) & (r < nrows[:, None])
+    base = torch.where(used, (z * dims[1] + y) * dims[0], 0)
+    beg = starts[base + torch.where(used, xmin, 0)]
+    end = starts[base + torch.where(used, xmax + 1, 0)]
+    return beg, torch.where(used, end - beg, 0), u0, wy
+
+
+def _tile_candidates_plain(radius: float, xyz, new_xyz, tile: int, side_factor: float, order):
+    """Per scene, the centres in tile order: (order (M,), slot and valid
+    (M, R, L): the grid slots of a centre's own cells on each of its rows,
+    cut to that row's run in its tile's union, union (M,): the points its
+    tile stages), with perm (B, N)."""
+    lo, inv, dims, perm, starts = _grid_plain(radius, xyz, side_factor)
+    c0, c1 = _centre_boxes(radius, new_xyz, lo, inv, dims)
+    if order is None:
+        order = tile_order_plain(radius, xyz, new_xyz, side_factor)
+    scenes = []
+    for bi in range(xyz.shape[0]):
+        o = order[bi]
+        a0, a1 = c0[bi, o], c1[bi, o]
+        beg, length, u0, wy = _tile_union_rows(a0, a1, dims[bi, 0], starts[bi], tile)
+        t = torch.arange(len(o), device=xyz.device) // tile  # each centre's tile
+        w = a1 - a0 + 1
+        nrows = w[:, 1] * w[:, 2]
+        rr = torch.arange(int(nrows.max()), device=xyz.device)
+        y = a0[:, 1:2] + rr % w[:, 1:2]
+        z = a0[:, 2:3] + rr // w[:, 1:2]
+        ur = (z - u0[t, 2:3]) * wy[t, None] + (y - u0[t, 1:2])  # (M, R): rows of the union
+        ok = rr < nrows[:, None]
+        ur = torch.where(ok, ur, 0)
+        # the centre's own cells on the row, cut to the row's staged run
+        base = torch.where(ok, (z * dims[bi, 0, 1] + y) * dims[bi, 0, 0], 0)
+        run = beg[t[:, None], ur]
+        lo = torch.maximum(starts[bi][base + a0[:, :1]], run)
+        hi = torch.minimum(starts[bi][base + a1[:, :1] + 1], run + length[t[:, None], ur])
+        n_ = torch.where(ok, (hi - lo).clamp(min=0), 0)
+        p = torch.arange(max(int(n_.max()), 1), device=xyz.device)
+        valid = p < n_[..., None]
+        scenes.append((o, torch.where(valid, lo[..., None] + p, 0), valid, length.sum(-1)[t]))
+    return perm, scenes
+
+
+def ball_query_tile_grid_plain(radius: float, nsample: int, xyz, new_xyz,
+                               tile: int = TILE_SIZE, side_factor: float = TILE_SIDE_FACTOR,
+                               order=None) -> torch.Tensor:
+    """Kernel G's algorithm in plain PyTorch, on any device: B's cell grid;
+    the centres in `order` ((B, M), by default `tile_order_plain`), cut
+    into tiles of `tile`; each tile stages the rows of its union
+    (`_tile_union_rows`), and each centre tests its own cells in the staged
+    runs of its rows; the k smallest original indices among the hits,
+    filled as `ball_query`, go back to each centre's own row.  Bit-equal to
+    `ball_query_plain` for any order and tile (its tile's union holds all
+    of a centre's cells)."""
+    r2 = _r2(radius).to(xyz.device)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    out = torch.zeros((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    if m == 0 or n == 0:
+        return out
+    perm, scenes = _tile_candidates_plain(radius, xyz, new_xyz, tile, side_factor, order)
+    for bi, (o, slot, valid, _) in enumerate(scenes):
+        idx = perm[bi][slot]  # (M, R, L) original indices
+        hit = valid & (_sq_dist(new_xyz[bi, o][:, None, None], xyz[bi][idx]) < r2)
+        key = torch.where(hit, idx, n).flatten(1)
+        out[bi, o] = _first_hits(key, hit.flatten(1).sum(-1, keepdim=True), nsample)
+    return out
+
+
+def ball_query_tile_candidates(radius: float, xyz, new_xyz, tile: int = TILE_SIZE,
+                               side_factor: float = TILE_SIDE_FACTOR, order=None):
+    """(tested, staged), both (B, M) int64 at each centre's own row: the
+    points a centre tests in kernel G (its own cells, as in B), and the
+    points its tile stages (the union)."""
+    b, m = new_xyz.shape[:2]
+    tested = torch.zeros((b, m), dtype=torch.int64, device=xyz.device)
+    staged = torch.zeros_like(tested)
+    if m == 0 or xyz.shape[1] == 0:
+        return tested, staged
+    _, scenes = _tile_candidates_plain(radius, xyz, new_xyz, tile, side_factor, order)
+    for bi, (o, _, valid, union) in enumerate(scenes):
+        tested[bi, o] = valid.flatten(1).sum(-1)
+        staged[bi, o] = union
+    return tested, staged
+
+
 _BQ_ALGOS = ("window", "adaptive", "sorted")
 
 
@@ -274,30 +465,40 @@ def fused_gather(nsample: int, n: int) -> bool:
 
 
 def grid_build(radius: float, xyz: torch.Tensor, side_factor: float = GRID_SIDE_FACTOR,
-               count_as: str = "ball_query"):
+               count_as: str = "ball_query", centres: torch.Tensor | None = None):
     """Kernels B's and F's grid of a CUDA (B, N, 3): (pts (B, N, 4) the
     points ordered by (cell, original index) with the index's bits in the
     fourth lane, starts (B, grid_cap(N) + 1) int32 each cell's first slot in
     that order, fparams (B, 4) f32 the low corner and inverse side, iparams
     (B, 4) int32 the cells a side and in all).  Two launches, counted under
     `count_as`, around a stable `torch.sort` of the keys scene * (cap + 1) +
-    cell as one array (one sort over the card, not one a scene)."""
+    cell as one array (one sort over the card, not one a scene).  With
+    `centres` (B, M, 3) (kernel G) the same launches and sort also order
+    each scene's centres by the Morton key of their cell (keys (B + scene)
+    * (cap + 1) + `_tile_keys_plain`, after every point's), and a fifth
+    tensor follows: (B, M, 4) f32, the centres in that order with the bits
+    of their row scene * M + index in the fourth lane."""
     b, n, _ = xyz.shape
+    m = 0 if centres is None else centres.shape[1]
     stride = grid_cap(n) + 1
-    if b * stride >= 2 ** 31:
-        raise ValueError(f"{count_as}: B * (grid_cap(N) + 1) = {b * stride} needs 2^31 or more")
+    ranges = 2 * b if centres is not None else b  # the centres' keys take a second range
+    if ranges * stride >= 2 ** 31:
+        raise ValueError(f"{count_as}: {ranges} * (grid_cap(N) + 1) = {ranges * stride} keys "
+                         "need 2^31 or more")
     # one allocation, cut where each part stays 16-byte aligned: pts,
-    # fparams, iparams (16 bytes a row), starts, keys
-    sizes = (4 * b * n, 4 * b, 4 * b, b * stride, b * n)
+    # fparams, iparams (16 bytes a row), the sorted centres, starts, keys
+    sizes = (4 * b * n, 4 * b, 4 * b, 4 * b * m, b * stride, b * (n + m))
     parts = torch.empty(sum(sizes), dtype=torch.int32, device=xyz.device).split(sizes)
     pts, fparams = parts[0].view(torch.float32).view(b, n, 4), parts[1].view(torch.float32)
-    iparams, starts, keys = parts[2], parts[3].view(b, stride), parts[4]
-    _kernels.launch("coda_bq_grid_cells", xyz, fparams, iparams, keys, b, n,
+    iparams, ctr = parts[2], parts[3].view(torch.float32).view(b, m, 4)
+    starts, keys = parts[4].view(b, stride), parts[5]
+    _kernels.launch("coda_bq_grid_cells", xyz, centres, fparams, iparams, keys, b, n, m,
                     grid_side(radius, side_factor), stride - 1, count_as=count_as)
     skeys, perm = torch.sort(keys, stable=True)
-    _kernels.launch("coda_bq_grid_pack", xyz, skeys, perm, iparams, pts, starts, b, n, stride,
-                    count_as=count_as)
-    return pts, starts, fparams.view(b, 4), iparams.view(b, 4)
+    _kernels.launch("coda_bq_grid_pack", xyz, centres, skeys, perm, iparams, pts, starts, ctr,
+                    b, n, m, stride, count_as=count_as)
+    grid = (pts, starts, fparams.view(b, 4), iparams.view(b, 4))
+    return grid if centres is None else grid + (ctr,)
 
 
 def grid_query(radius: float, nsample: int, xyz, new_xyz, grouped: bool = False,
@@ -324,15 +525,39 @@ def grid_query(radius: float, nsample: int, xyz, new_xyz, grouped: bool = False,
     return idx, out
 
 
+def tile_query(radius: float, nsample: int, xyz, new_xyz, tile: int = TILE_SIZE,
+               side_factor: float = TILE_SIDE_FACTOR) -> torch.Tensor:
+    """Kernel G on CUDA tensors: the grid build with the centres' order,
+    then the query, TILE_LAUNCHES launches.  It refuses, before anything is
+    built or launched, inputs needing a gradient (RuntimeError), N = 0,
+    min(nsample, N) above TILE_MAX_SAMPLES, more than 65535 scenes, a tile
+    it is not built for and a cell side below the widened radius
+    (ValueError), and `grid_build` key ranges past 2^31."""
+    _kernels.check_no_grad("ball_query_tile", xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    if n < 1:
+        raise ValueError("ball_query_tile: needs N >= 1 (a row with no hit takes point 0)")
+    if -(-min(nsample, n) // 32) * 32 > TILE_MAX_SAMPLES:
+        raise ValueError(f"ball_query_tile: min(nsample, N) = {min(nsample, n)} above the "
+                         f"query's {TILE_MAX_SAMPLES}")
+    if b > 65535:
+        raise ValueError(f"ball_query_tile: B = {b} scenes, at most 65535")
+    if tile not in TILE_SIZES:
+        raise ValueError(f"ball_query_tile: a tile of {tile} centres, not one of {TILE_SIZES}")
+    if not side_factor >= 1.0:  # a centre then reads at most 4 x 4 rows, a lane each
+        raise ValueError(f"ball_query_tile: a cell side of {side_factor} widened radii, below 1")
+    *grid, ctr = grid_build(radius, xyz, side_factor, "ball_query_tile", centres=new_xyz)
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    _kernels.launch("coda_ball_query_tile", *grid, ctr, idx, b, n, m, nsample,
+                    grid[1].shape[1], _f32(float(radius) ** 2), grid_radius(radius), tile)
+    return idx
+
+
 def _launch_ball_query(fn: str, radius: float, nsample: int, xyz, new_xyz) -> torch.Tensor:
     if fn == "coda_ball_query":
         return grid_query(radius, nsample, xyz, new_xyz)
-    _kernels.check_no_grad("ball_query", xyz, new_xyz)
-    b, n, _ = xyz.shape
-    m = new_xyz.shape[1]
-    out = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
-    _kernels.launch(fn, xyz, new_xyz, out, b, n, m, nsample, float(_r2(radius)))
-    return out
+    return tile_query(radius, nsample, xyz, new_xyz)
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
@@ -345,7 +570,8 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Te
 
 def ball_query_tile(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
     """`ball_query` through kernel G whatever the environment says (the plain
-    version on a CPU tensor): for holding G against B and the plain version."""
+    version on a CPU tensor): for holding G against B and the plain version.
+    On a CUDA tensor G refuses what `tile_query` lists."""
     _check_query(nsample, xyz, new_xyz)
     if xyz.device.type == "cpu":
         return ball_query_plain(radius, nsample, xyz, new_xyz)

@@ -10,8 +10,8 @@ not use).  The shapes here are the edge cases of each kernel (ragged tiles,
 no-hit rows, fully masked rows, every template instance); chip_smoke.py
 covers the eval and training paths' own shapes.  Indices and gathers must be
 bit-equal to the plain versions and the numpy golden models (kernel F also
-to kernel B followed by kernel C, kernel G also to kernel B; B's and F's grid
-build also to its plain version); both attention kernels agree within
+to kernel B followed by kernel C, kernel G also to kernel B; the grid build,
+with G's centre order, also to its plain version); both attention kernels agree within
 ATTN_TOL (fp32, summed in another order than cuBLAS), and so do D's
 gradients through its autograd Function and the gather's scatter-add
 backward with autograd of the plain versions.
@@ -25,6 +25,9 @@ from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.ops.grouping import (
     GRID_LAUNCHES,
     GRID_MAX_SAMPLES,
+    TILE_LAUNCHES,
+    TILE_MAX_SAMPLES,
+    TILE_SIZES,
     _cell_coord,
     ball_query,
     ball_query_group,
@@ -39,6 +42,8 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
     group_points,
     group_points_plain,
     query_and_group,
+    tile_order_plain,
+    tile_query,
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import (
     attention_splits,
@@ -245,8 +250,8 @@ def _kernel_b(radius, k, a, b):
     return _launch_ball_query("coda_ball_query", radius, k, a, b)
 
 
-# k below, at and above a warp, and the SA's 64; N = 1; N one past a chunk
-# of 2048; M not a multiple of the 64 centres of a tile
+# k below, at and above a warp, and the SA's 64; N = 1; N one past a stage
+# of 512 and past the old G's chunk of 2048; M not a multiple of a tile
 @pytest.mark.parametrize("n,m,radius,k,scale", [(300, 70, 0.5, 1, 0.25), (300, 70, 0.5, 31, 0.25),
                                                 (300, 70, 0.5, 32, 0.25), (300, 70, 0.5, 33, 0.25),
                                                 (2049, 129, 0.4, 64, 0.3), (1, 5, 1.0, 64, 1.0),
@@ -264,8 +269,8 @@ def test_ball_query_tile_kernel(dev, n, m, radius, k, scale):
 
 def test_ball_query_tile_all_miss_and_unfilled_centre(dev):
     """A scene where no centre has a hit (every row zeros), and a tile whose
-    centres all fill in the first chunk but one, whose only hit is the last
-    point of the scene: the tile's early stop must wait for it."""
+    centres all fill from a dense clump but one, whose only hit is the last
+    point of the scene, far from the clump: nothing stops a tile early."""
     n, m, k = 5000, 64, 16
     xyz = _pc(3, 1, n, 0.01)  # a dense clump at the origin
     far = np.full((1, m, 3), 50.0, np.float32)
@@ -279,6 +284,83 @@ def test_ball_query_tile_all_miss_and_unfilled_centre(dev):
     got = _check_tile(a, torch.from_numpy(ctr).to(dev), 0.1, k)
     assert torch.equal(got[0, 37], torch.full((k,), n - 1, dtype=torch.int32, device=dev))
     assert (got[0, :37] < 2048).all()
+
+
+@pytest.mark.parametrize("case,n,m,k", [("clump", 9000, 40, 64), ("clump", 9000, 6, TILE_MAX_SAMPLES),
+                                        ("clump", 4000, 50, 33), ("plane", 20000, 256, 64)])
+def test_ball_query_tile_degenerate(dev, case, n, m, k):
+    """G on a clump of thousands of hits a centre (more than twice k: the
+    buffer keeps its k smallest indices in passes) and on a wall: bit-equal
+    to the plain version and to kernel B."""
+    xyz, ctr = _degenerate(case, n, m)
+    a, b = torch.from_numpy(xyz).to(dev), torch.from_numpy(ctr).to(dev)
+    got = _check_tile(a, b, 0.5 if case == "clump" else 0.2, k)
+    assert torch.equal(got[:, -2:], torch.zeros_like(got[:, -2:]))
+
+
+def _scenes(dev):
+    """A synthetic-like scene (boxes of points in a room), a wall of a third
+    of it, and a uniform cloud: (name, xyz (4, 6000, 3))."""
+    rng = np.random.default_rng(41)
+    room = rng.uniform((-4, -4, 0), (4, 4, 3), (4, 6000, 3)).astype(np.float32)
+    room[:, :3000] = (rng.uniform(-3, 3, (4, 6, 1, 3)) + rng.uniform(-0.4, 0.4, (4, 6, 500, 3))
+                      ).reshape(4, 3000, 3).astype(np.float32)
+    plane = room.copy()
+    plane[:, :2000, 2] = 1.0
+    uniform = rng.uniform((-4, -4, 0), (4, 4, 3), (4, 6000, 3)).astype(np.float32)
+    return [(name, torch.from_numpy(x).to(dev)) for name, x in
+            (("scene", room), ("plane", plane), ("uniform", uniform))]
+
+
+def test_ball_query_tile_fps_centres_every_tile(dev):
+    """Centres in furthest-point order (far apart, not spatially sorted) on a
+    scene, a wall and a uniform cloud: G at every tile size and at sides 1
+    and 1.5 equals kernel B and the plain version; k = 32 and 64."""
+    for name, x in _scenes(dev):
+        c = group_points(x, furthest_point_sample(x, 700)[:, None, :])[:, 0]
+        for k in (32, 64):
+            want = ball_query_plain(0.2, k, x, c)
+            assert torch.equal(_kernel_b(0.2, k, x, c), want), name
+            for tile in TILE_SIZES:
+                for side in (1.0, 1.5):
+                    assert torch.equal(tile_query(0.2, k, x, c, tile, side), want), (name, tile, side)
+
+
+def test_tile_build_order_matches_plain(dev):
+    """The build with centres: the points' grid as without them, and each
+    scene's centres, with their rows, in the plain version's order (Morton
+    key, index)."""
+    for _, x in _scenes(dev):
+        c = x[:, ::9].contiguous()
+        pts, starts, fparams, iparams, ctr = grid_build(0.2, x, 1.0, centres=c)
+        grid = grid_build(0.2, x, 1.0)
+        assert all(torch.equal(u, v) for u, v in zip((pts, fparams, iparams), grid[:1] + grid[2:]))
+        for bi in range(x.shape[0]):  # a scene's starts past its cells are not written
+            cells = int(iparams[bi, 3]) + 1
+            assert torch.equal(starts[bi, :cells], grid[1][bi, :cells])
+        b, m = c.shape[:2]
+        order = tile_order_plain(0.2, x, c)
+        rows = order + m * torch.arange(b, device=dev)[:, None]
+        assert torch.equal(ctr[..., 3].view(torch.int32).long(), rows)
+        assert torch.equal(ctr[..., :3], torch.gather(c, 1, order[..., None].expand(-1, -1, 3)))
+
+
+def test_ball_query_tile_refusals(dev):
+    """G refuses, and launches nothing for, k above its cap, N = 0, a tile
+    it is not built for and inputs needing a gradient; nothing falls back."""
+    a = torch.from_numpy(_pc(5, 1, TILE_MAX_SAMPLES + 40, 1.0)).to(dev)
+    c = a[:, :4].contiguous()
+    _kernels.reset_launches()
+    for call in (lambda: ball_query_tile(0.2, TILE_MAX_SAMPLES + 1, a, c),
+                 lambda: ball_query_tile(0.2, 8, a[:, :0].contiguous(), c),
+                 lambda: tile_query(0.2, 8, a, c, tile=24)):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(RuntimeError):
+        ball_query_tile(0.2, 8, a.clone().requires_grad_(), c)
+    assert not any(_kernels.LAUNCHES.values())
+    assert torch.equal(ball_query_tile(0.2, TILE_MAX_SAMPLES, a, c),
+                       ball_query_plain(0.2, TILE_MAX_SAMPLES, a, c))
 
 
 def test_ball_query_dispatch_launches(dev, monkeypatch):
@@ -308,7 +390,8 @@ def test_ball_query_dispatch_launches(dev, monkeypatch):
         mp.setenv("CODA_BQ_ALGO", "adaptive")
         _kernels.reset_launches()
         query_and_group(0.2, 64, xyz, centres)
-        assert _kernels.LAUNCHES["ball_query_group"] == 0 and _kernels.LAUNCHES["ball_query_tile"] == 1
+        assert (_kernels.LAUNCHES["ball_query_group"] == 0
+                and _kernels.LAUNCHES["ball_query_tile"] == TILE_LAUNCHES)
         mp.setenv("CODA_BQ_ALGO", "sortd")
         with pytest.raises(ValueError):
             ball_query(0.2, 64, xyz, centres)
@@ -501,10 +584,10 @@ def test_launch_counts_and_refusals(dev):
     masked_attention(q, torch.randn((1, 2, 32, 16), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     vit_attention(q, torch.randn((1, 2, 16, 32), device=dev), torch.randn((1, 2, 16, 32), device=dev))
     assert idx.dtype == torch.int32
-    # B and F: the grid build's two launches and the query
+    # B, F and G: the grid build's two launches and the query
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": GRID_LAUNCHES, "gather": 1, "attention": 1,
                                  "vit_attention": 1, "ball_query_group": GRID_LAUNCHES,
-                                 "ball_query_tile": 1}
+                                 "ball_query_tile": TILE_LAUNCHES}
     # keys split across blocks: the combine is D's second launch
     q = torch.randn((1, 1, 16, 32), device=dev)
     assert attention_splits(1, 1, 16, 1000, 32, multi_processor_count(dev))[0] > 1
