@@ -70,6 +70,21 @@ result):
  12. One batch of phase 4's eval step with CODA_BQ_MXU=1: kernel G launches
      (the MXU kernel's row) TILE_LAUNCHES times, kernel B does not, and the
      outputs equal phase 4's on that batch within MXU_TOL.
+ 13. The eval entry point end to end: phase 4's weights saved to build/ as a
+     reference-format .pth, then `coda_neurips2023_tpu_torch.main --test_only
+     --test_ckpt` (the flags of test_release_models.sh) on the card on the
+     synthetic split of CLI_SCENES // 4 scenes (batches of 32, the last
+     padded), once with the AP stack on CODA_AP_WORKERS=8 and once serial
+     (0): the scan count, finite metrics with the JAX package's key set, the
+     first batch's outputs against phase 4's eval step on that batch (with
+     the CLI's text bank) within MXU_TOL, every scan's NMS in the host
+     library, A-D launched per step as in phase 4 and no other kernel; and
+     the numbers of the loop: scenes/s from loader to metrics, device ms a
+     step (CUDA events around each batch's copies and step), host metering
+     ms a batch split into the in-hull test, NMS and the AP curves, and the
+     device's idle share over the loop.  Then one batch (CLIP_SCENES scenes
+     padded to 32 rows) through --model_name 3detrmulticlasshead
+     --if_with_clip: kernel E launches once a row and layer.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -197,6 +212,20 @@ RECT_MARGIN = 0.05
 # phase 12: kernel G is bit-equal to kernel B, so the eval outputs may only
 # differ where a kernel sums in a run-dependent order
 MXU_TOL = 1e-5
+# phase 13: --synthetic_num_scenes; the real_test split is a quarter of it,
+# 70 scenes: 2 batches of 32 and a tail of 6 padded to 32
+CLI_SCENES = 280
+CLI_WORKERS = (8, 0)  # CODA_AP_WORKERS of phase 13's two runs
+CLI_KERNELS = ("fps", "ball_query", "gather", "attention", "vit_attention")
+CLIP_SCENES = 8  # phase 13's --if_with_clip run: one batch, padded to BATCH rows
+# test_release_models.sh's flags for the SUN RGB-D stage-1 model (the
+# flagship's widths) on the synthetic split
+CLI_ARGS = [
+    "--test_only", "--dataset_name", "synthetic", "--model_name", "3detr_predictedbox_distillation",
+    "--test_num_semcls", "46", "--test_range_max", "46", "--enc_dim", "256", "--dec_dim", "512",
+    "--nqueries", "128", "--num_semcls", "2", "--batchsize_per_gpu_test", "32", "--if_use_v1",
+    "--num_points", "20000", "--seed", str(SEED),
+]
 # the flagship detector's flags (the JAX package's defaults, main.py)
 FLAGSHIP_ARGS = dict(
     enc_dim=256, dec_dim=512, enc_type="vanilla", enc_nlayers=3, enc_nhead=4, enc_ffn_dim=128,
@@ -1121,6 +1150,165 @@ def mxu_phase(torch, model, text, batch, want):
         fail(f"CODA_BQ_MXU=1 changed the eval outputs by {err!r} > {MXU_TOL}")
 
 
+def expected_metric_keys(ncls):
+    """The keys compute_metrics gives a threshold when the AP dict has
+    classes 0 .. ncls-1 (the JAX package's utils/ap_calculator.py:396-485;
+    the buckets where ncls > 2)."""
+    names = [str(c) for c in range(ncls)]
+    keys = {f"{c} Average Precision" for c in names} | {f"{c} Prec" for c in names}
+    keys |= {f"{c} Recall" for c in names} | {"mAP", "Prec", "AR"}
+    if ncls > 2:
+        for stem in ("mAP", "Prec", "AR"):
+            keys |= {f"{stem}_{b}" for b in ("fre", "common", "base", "novel")}
+    return keys
+
+
+@contextlib.contextmanager
+def recording_eval_step(engine, store):
+    """engine.make_eval_step wrapped so that the text bank it is given and its
+    step's first batch and outputs land in `store`."""
+    make = engine.make_eval_step
+
+    def wrapped(model, eval_text_features=None, **kw):
+        store["bank"] = eval_text_features
+        step = make(model, eval_text_features=eval_text_features, **kw)
+
+        def recorded(batch):
+            out = step(batch)
+            if "first" not in store:
+                store["first"] = (dict(batch), {k: v.clone() for k, v in out.items()})
+            return out
+
+        return recorded
+
+    engine.make_eval_step = wrapped
+    try:
+        yield store
+    finally:
+        engine.make_eval_step = make
+
+
+def cli_run(torch, argv, workers):
+    """One `main(argv)` on the card with CODA_AP_WORKERS=workers: (metrics,
+    launches, EVAL_STATS, ap METER, seconds)."""
+    from coda_neurips2023_tpu_torch import _kernels, engine
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.utils import ap_calculator
+
+    ap_calculator.close_pool()
+    os.environ["CODA_AP_WORKERS"] = str(workers)
+    ap_calculator.reset_meter()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = cli_main(argv)
+    seconds = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    ap_calculator.close_pool()
+    return metrics, launches, dict(engine.EVAL_STATS), dict(ap_calculator.METER), seconds
+
+
+def check_cli_metrics(metrics, scans, stats, meter, what):
+    if stats["scans"] != scans or meter["scans"] != scans:
+        fail(f"{what}: metered {stats['scans']} scans (parsed {meter['scans']}), expected {scans}")
+    if meter["native_nms_scans"] != scans:
+        fail(f"{what}: NMS ran in the host library for {meter['native_nms_scans']} of {scans} scans")
+    if set(metrics) != {0.25, 0.5}:
+        fail(f"{what}: metric thresholds {sorted(metrics)}")
+    for thresh, ret in metrics.items():
+        ncls = sum(1 for k in ret if k.endswith(" Average Precision"))
+        if ncls not in (1, EVAL_CLASSES) or set(ret) != expected_metric_keys(ncls):
+            fail(f"{what}: IoU {thresh} keys differ from the JAX package's: {sorted(ret)[:12]}")
+        bad = [k for k, v in ret.items() if not math.isfinite(float(v))]
+        if bad:
+            fail(f"{what}: non-finite metrics {bad[:5]}")
+    print(f"  {what}: {scans} scans; mAP@0.25 {float(metrics[0.25]['mAP'])!r}, "
+          f"mAP@0.5 {float(metrics[0.5]['mAP'])!r}, AR@0.25 {float(metrics[0.25]['AR'])!r}; "
+          f"{ncls} classes in the AP dict; NMS in the host library for every scan")
+
+
+def report_loop(stats, meter, seconds, workers):
+    """Print the eval loop's numbers of one CLI run."""
+    n = stats["batches"]
+    device_ms = stats["device_ms"]
+    busy_ms = sum(device_ms)
+    wall_ms = stats["wall_s"] * 1e3
+    curve_ms = meter["ap_curve_s"] * 1e3
+    scans = stats["scans"]
+    print(f"  CODA_AP_WORKERS={workers}: main() {seconds!r} s; loop (loader to last meter) "
+          f"{wall_ms!r} ms for {n} batches; AP curves {curve_ms!r} ms")
+    print(f"    scenes/s loader to metrics: {scans / (wall_ms + curve_ms) * 1e3!r}; "
+          f"device ms a batch {[round(x, 3) for x in device_ms]} (median {statistics.median(device_ms)!r})")
+    print(f"    waiting for the loader ms a batch: {[round(x * 1e3, 3) for x in stats['load_s']]}")
+    print(f"    host meter ms a batch: {[round(x * 1e3, 3) for x in stats['meter_s']]}; "
+          f"blocked on the outputs' copy {[round(x * 1e3, 3) for x in stats['wait_s']]}")
+    print(f"    of it, a batch: parse_predictions {meter['parse_s'] * 1e3 / n!r} ms wall, in-hull "
+          f"{meter['in_hull_s'] * 1e3 / n!r} ms and NMS {meter['nms_s'] * 1e3 / n!r} ms "
+          f"(summed over the processes that ran them)")
+    print(f"    device idle share over the loop: {1 - busy_ms / wall_ms!r} "
+          f"(busy {busy_ms!r} of {wall_ms!r} ms)")
+
+
+def cli_phase(torch, model, launches4):
+    """Phase 13: the eval entry point end to end on the card."""
+    from coda_neurips2023_tpu_torch import _kernels, engine
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+
+    scans = CLI_SCENES // 4
+    print(f"phase 13: main --test_only --test_ckpt on {scans} synthetic scenes "
+          f"(batches of {BATCH}, the last padded), the flagship at full width")
+    out_dir = _kernels.BUILD_DIR.parent / "phase13"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = out_dir / "model.pth"
+    torch.save({"model": model.state_dict()}, ckpt)
+    argv = CLI_ARGS + ["--synthetic_num_scenes", str(CLI_SCENES), "--test_ckpt", str(ckpt),
+                       "--log_file", str(out_dir / "eval.lst")]
+    steps = -(-scans // BATCH)
+    cli_launches = {}
+    for workers in CLI_WORKERS:
+        with recording_eval_step(engine, {}) as store:
+            metrics, launches, stats, meter, seconds = cli_run(torch, argv, workers)
+        check_cli_metrics(metrics, scans, stats, meter, f"CODA_AP_WORKERS={workers}")
+        print(f"    launches: {launches}")
+        for name in ("fps", "ball_query", "gather", "attention"):
+            if launches[name] != launches4[name] // STEPS * steps:
+                fail(f"{name} launched {launches[name]} times in {steps} CLI steps, phase 4 "
+                     f"{launches4[name]} in {STEPS}")
+        others = {k: v for k, v in launches.items()
+                  if k not in ("fps", "ball_query", "gather", "attention") and v}
+        if others:
+            fail(f"kernels off the detector eval path launched: {others}")
+        cli_launches.update(launches)
+        batch, got = store["first"]
+        want = make_eval_step(model, eval_text_features=store["bank"], eval_logit_scale=100.0)(batch)
+        err = max((got[k] - want[k]).abs().max().item() for k in want)
+        print(f"    first batch vs phase 4's eval step (its model, the CLI's bank): "
+              f"max_abs_err={err!r}")
+        if not err <= MXU_TOL:
+            fail(f"the CLI's first batch differs from phase 4's eval step by {err!r} > {MXU_TOL}")
+        report_loop(stats, meter, seconds, workers)
+
+    # one batch: CLIP_SCENES scenes padded to BATCH rows (E runs on every row)
+    clip_argv = list(CLI_ARGS) + ["--synthetic_num_scenes", str(4 * CLIP_SCENES),
+                                         "--if_with_clip", "--if_input_image",
+                                         "--log_file", str(out_dir / "eval_clip.lst")]
+    clip_argv[clip_argv.index("3detr_predictedbox_distillation")] = "3detrmulticlasshead"
+    metrics, launches, stats, meter, seconds = cli_run(torch, clip_argv, CLI_WORKERS[0])
+    print("  3detrmulticlasshead --if_with_clip, one batch:")
+    check_cli_metrics(metrics, CLIP_SCENES, stats, meter, "CLIP-crop eval")
+    print(f"    launches: {launches}")
+    for name in ("fps", "ball_query", "gather", "attention", "vit_attention"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the CLIP-crop CLI path")
+    if launches["vit_attention"] != BATCH * CLIP_LAYERS:
+        fail(f"vit_attention launched {launches['vit_attention']} times, expected "
+             f"{BATCH * CLIP_LAYERS}")
+    cli_launches["vit_attention"] = launches["vit_attention"]
+    report_loop(stats, meter, seconds, CLI_WORKERS[0])
+    os.environ.pop("CODA_AP_WORKERS", None)
+    return cli_launches
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -1163,6 +1351,12 @@ def main():
     if scan_build.returncode != 0:
         fail(f"nvcc failed on scripts/ball_query_variants.cu:\n{scan_log[-4000:]}")
     print(f"kernels built in {time.perf_counter() - t0:.1f} s -> {lib_path.name}, {scan_so.name}")
+    from coda_neurips2023_tpu_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("g++ failed on coda_neurips2023_tpu_torch/csrc/host/coda_native.cpp")
+    print(f"host library (the AP stack's NMS and IoU) built in {time.perf_counter() - t0:.1f} s")
     log = (_kernels.BUILD_DIR / "build.log").read_text().splitlines()
     for line in log:
         if "Used" in line or "spill" in line or "Compiling entry" in line:
@@ -1292,7 +1486,9 @@ def main():
         stage1_cpu_phase(torch, cfg, stage1_ctx, stage1_batches[0])
     del stage1_batches, stage1_ctx
 
-    mxu_phase(torch, model.to("cuda"), text, phase4_batch, phase4_out)
+    model = model.to("cuda")
+    mxu_phase(torch, model, text, phase4_batch, phase4_out)
+    cli_launches = cli_phase(torch, model, launches4)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -1304,6 +1500,7 @@ def main():
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
+            **({"cli_launches": cli_launches[name]} if name in CLI_KERNELS else {}),
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()

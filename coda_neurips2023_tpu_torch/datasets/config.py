@@ -1,13 +1,14 @@
 """Dataset configuration: box parametrization and SUN RGB-D class vocabularies.
 
-Counterpart of coda_neurips2023_tpu/datasets/config.py:27-158:
-`DatasetConfigBase` (angle bins, box slots and the two corner
-parametrizations), `SunrgbdAnonymousConfig` with its class vocabulary and
-train/test ranges, `SunrgbdImageConfig` (the 46-class eval config) and the
-asset loaders the CLIP text banks read.  The class-name `.npy` files ship
+Counterpart of coda_neurips2023_tpu/datasets/config.py:27-158, 263-282:
+`DatasetConfigBase` (angle bins, box slots, the two corner
+parametrizations and my_compute_box_3d), `SunrgbdAnonymousConfig` with its
+class vocabulary and train/test ranges, `SunrgbdImageConfig` (the 46-class
+eval config), `SunrgbdCmpImageConfig` (the 20-class OV-3DETR comparison
+config) and the asset loaders the CLIP text banks read.  The class-name `.npy` files ship
 with this package, in datasets/assets/ beside this module (byte-identical
 copies of the JAX package's); an explicit `asset_dir` overrides them.
-ScanNet's configs are not ported yet.
+ScanNet's configs are not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ CMP_CLASSES_SCANNET = "ov_3detr_scannet.npy"
 SUPERSET_CLASSES = "lvis_1204.npy"
 
 DEFAULT_ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+
+# the OV-3DETR comparison vocabulary: raw SUN RGB-D v1 class ids in the
+# order of the ov_3detr.npy names
+CMP_RAW_IDS_SUNRGBD = [0, 1, 2, 4, 5, 6, 9, 11, 14, 22, 24, 27, 31, 40, 48, 51, 55, 71, 106, 218]
 
 
 def _asset_path(asset_dir: Optional[str], filename: str) -> Optional[str]:
@@ -70,12 +75,24 @@ class DatasetConfigBase:
     num_angle_bin: int = 12
     max_num_obj: int = 64
 
+    def angle2class(self, angle):
+        return box_ops.angle2class(angle, self.num_angle_bin)
+
+    def class2angle(self, cls, residual):
+        return box_ops.class2angle(cls, residual, self.num_angle_bin)
+
+    def class2anglebatch(self, cls, residual):
+        return box_ops.class2angle(cls, residual, self.num_angle_bin)
+
     def box_parametrization_to_corners(self, center_unnorm, size, angle):
         center_upright = box_ops.flip_axis_to_camera(center_unnorm)
         return box_ops.get_3d_box_batch(size, angle, center_upright)
 
     def box_parametrization_to_corners_xyz(self, center_unnorm, size, angle):
         return box_ops.get_3d_box_batch_xyz(size, angle, center_unnorm)
+
+    def my_compute_box_3d(self, center, size, heading_angle):
+        return box_ops.my_compute_box_3d(center, size, heading_angle)
 
 
 class SunrgbdAnonymousConfig(DatasetConfigBase):
@@ -117,3 +134,23 @@ class SunrgbdImageConfig(SunrgbdAnonymousConfig):
     def __init__(self, asset_dir=None, use_v1=True, num_semcls=46, **kw):
         super().__init__(asset_dir, use_v1, **kw)
         self.num_semcls = num_semcls
+
+
+class SunrgbdCmpImageConfig(SunrgbdAnonymousConfig):
+    """20-class OV-3DETR comparison eval config: ground-truth boxes are kept
+    for the 20 raw v1 class ids and renumbered in the ov_3detr.npy name
+    order; the model classifies against the cmp text bank."""
+
+    def __init__(self, asset_dir=None, use_v1=True, **kw):
+        super().__init__(asset_dir, use_v1, **kw)
+        self.cmp_raw_ids = list(CMP_RAW_IDS_SUNRGBD)
+        self.num_semcls = len(self.cmp_raw_ids)
+        # raw v1 id -> cmp index, its position in the ov_3detr name list
+        self.test_class_to_dix = {cid: i for i, cid in enumerate(self.cmp_raw_ids)}
+        names = load_cmp_names(asset_dir, scannet=False)
+        if names is None:
+            names = [self.class2type.get(cid, f"class_{cid:04d}") for cid in self.cmp_raw_ids]
+        self.class2type = dict(enumerate(names))
+        self.type2class = {v: k for k, v in self.class2type.items()}
+        self.vocab_names = list(names)
+        self.seen_vocab_idx = []

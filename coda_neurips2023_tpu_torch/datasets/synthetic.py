@@ -1,21 +1,27 @@
 """Synthetic SUN RGB-D-shaped scenes: point clouds, ground truth, images.
 
 Counterpart of coda_neurips2023_tpu/datasets/synthetic.py
-(SyntheticDetectionDataset, :65-195).  It makes the same numpy draws in the
-same order (box count, centres, sizes, angles, clutter, in-box samples,
-padding, shuffle, image), so a scene here is bit-equal to the JAX
-generator's: the point cloud, the scene extent and the ground-truth box
-fields the criterion reads (corners in the camera and upright frames,
-centres and sizes raw and normalized by the scene extent, angles with their
-class and residual, sem-cls labels, `gt_box_present`, the seen-class
-fields), padded to `max_num_obj` boxes.  With `with_images` a scene also
-carries a random uint8 RGB image of `image_hw` (height, width) and the
-calibration and augmentation fields the CLIP crop path reads (a pinhole K,
-identity Rtilt, no augmentation).  The string fields (`im_name`,
-`pseudo_box_path`) come with the discovery writer.
+(SyntheticDetectionDataset, :30-195). It makes the same numpy draws in the
+same order (box count, the empty-scene draw when `empty_scene_rate` > 0,
+centres, sizes, angles, clutter, in-box samples, padding, shuffle, image),
+so a scene here is bit-equal to the JAX generator's: the point cloud, the
+scene extent and the ground-truth box fields the criterion reads (corners in
+the camera and upright frames, centres and sizes raw and normalized by the
+scene extent, angles with their class and residual, sem-cls labels,
+`gt_box_present`, the seen-class fields), padded to `max_num_obj` boxes.
+With `with_images` a scene also carries a random uint8 RGB image of
+`image_hw` (height, width) and the calibration and augmentation fields the
+CLIP crop path reads (a pinhole K, identity Rtilt, no augmentation) and two
+string fields, `im_name` and `pseudo_box_path`. With `pseudo_dir`, each
+scene reads stage-2 pseudo boxes from its own
+`synthetic_{idx:06d}_novel_bbox.npy` there, when the file exists, and merges
+them as ground truth (class 0, full extents halved), as the SUN RGB-D
+dataset merges its pseudo labels.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -33,6 +39,8 @@ class SyntheticDetectionDataset:
         use_angles: bool = True,
         with_images: bool = False,
         image_hw: tuple = (64, 96),
+        pseudo_dir: str | None = None,
+        empty_scene_rate: float = 0.0,
     ):
         self.dataset_config = dataset_config
         self.num_scenes = num_scenes
@@ -42,6 +50,9 @@ class SyntheticDetectionDataset:
         self.use_angles = use_angles and dataset_config.num_angle_bin > 1
         self.with_images = with_images
         self.image_hw = image_hw
+        self.pseudo_dir = pseudo_dir
+        # the share of scenes with no ground-truth box (SUN RGB-D has ~0.4%)
+        self.empty_scene_rate = float(empty_scene_rate)
 
     def __len__(self):
         return self.num_scenes
@@ -51,6 +62,8 @@ class SyntheticDetectionDataset:
         max_obj = self.dataset_config.max_num_obj
 
         nbox = int(rng.integers(1, self.max_boxes + 1))
+        if self.empty_scene_rate > 0.0 and rng.random() < self.empty_scene_rate:
+            nbox = 0
         centers = np.zeros((max_obj, 3), np.float32)
         sizes = np.zeros((max_obj, 3), np.float32)
         angles = np.zeros((max_obj,), np.float32)
@@ -61,6 +74,24 @@ class SyntheticDetectionDataset:
         if self.use_angles:
             angles[:nbox] = rng.uniform(-np.pi, np.pi, nbox).astype(np.float32)
         present[:nbox] = 1.0
+
+        # pseudo boxes as ground truth after the real ones (class 0, full
+        # extents halved); the points are drawn in the real boxes only
+        n_real = nbox
+        pseudo_box_path = "_"
+        if self.pseudo_dir:
+            pseudo_box_path = os.path.join(self.pseudo_dir, f"synthetic_{idx:06d}_novel_bbox.npy")
+            if os.path.exists(pseudo_box_path):
+                p = np.load(pseudo_box_path)
+                if p.ndim == 2 and p.shape[0] > 0 and p.shape[1] >= 7:
+                    k = min(p.shape[0], max_obj - nbox)
+                    if k > 0:
+                        centers[nbox : nbox + k] = p[:k, 0:3]
+                        sizes[nbox : nbox + k] = p[:k, 3:6] / 2.0
+                        if self.use_angles:
+                            angles[nbox : nbox + k] = p[:k, 6]
+                        present[nbox : nbox + k] = 1.0
+                        nbox += k
 
         # points: room clutter, then samples inside each box
         n_clutter = self.num_points // 2
@@ -74,8 +105,8 @@ class SyntheticDetectionDataset:
                 axis=1,
             ).astype(np.float32)
         ]
-        per_box = max((self.num_points - n_clutter) // nbox, 1)
-        for j in range(nbox):
+        per_box = max((self.num_points - n_clutter) // max(n_real, 1), 1)
+        for j in range(n_real):
             local = rng.uniform(-0.5, 0.5, (per_box, 3)).astype(np.float32) * sizes[j]
             c, s = np.cos(angles[j]), np.sin(angles[j])
             rot = np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]], np.float32)
@@ -136,12 +167,17 @@ class SyntheticDetectionDataset:
                 "rot_angle": np.float32(0),
                 "image_flip_array": np.float32(1),
                 "flip_length": np.float32(w),
-                "gt_ori_box_num": np.int64(nbox),
+                "im_name": f"synthetic_{idx:06d}.jpg",
+                "pseudo_box_path": pseudo_box_path,
+                "gt_ori_box_num": np.int64(n_real),
             })
         return sample
 
 
 def make_batch(dataset, start: int, batch_size: int) -> dict:
-    """Scenes start .. start+batch_size-1 stacked into (B, ...) numpy arrays."""
+    """Scenes start .. start+batch_size-1 stacked into (B, ...) numpy arrays;
+    the string fields are left out (datasets.loader.collate keeps them as
+    lists)."""
     samples = [dataset[i] for i in range(start, start + batch_size)]
-    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]
+            if not isinstance(samples[0][k], str)}

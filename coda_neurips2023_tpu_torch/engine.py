@@ -11,8 +11,12 @@ Counterpart of coda_neurips2023_tpu/engine.py:
   * `make_eval_step` (:176-225): the detector's eval forward, the chosen
     decoder layer's outputs, and class scores either from the distillation
     head against a text bank or, with `clip_crop_fn`, from CLIP crops of the
-    predicted boxes.
-The AP loop and checkpoints come later.
+    predicted boxes;
+  * `evaluate` (:350-449): the eval loop, each batch copied to the device,
+    stepped, its outputs copied back and metered into the host AP
+    calculator, one batch deep (below).  One process; the multi-GPU gather
+    comes with DDP (ROADMAP Queue 1 item 8).
+Checkpoints are saved with the training loop, later.
 """
 
 from __future__ import annotations
@@ -22,9 +26,13 @@ import sys
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from coda_neurips2023_tpu_torch.datasets.loader import to_device
 from coda_neurips2023_tpu_torch.models.model_3detr import get_class_scores
+from coda_neurips2023_tpu_torch.utils import ap_calculator
+from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
 # keys of the batch the criterion reads as targets
 TARGET_KEYS = (
@@ -44,6 +52,18 @@ EVAL_KEYS = (
     "box_corners", "sem_cls_prob", "objectness_prob", "center_unnormalized",
     "size_unnormalized", "angle_continuous",
 )
+
+# the keys of the host batch the AP calculator reads beside the outputs
+METER_KEYS = ("point_clouds", "gt_box_corners", "gt_box_sem_cls_label", "gt_box_present")
+
+# what the last `evaluate` measured: "batches", "scans"; "wall_s", its loop from the
+# first batch to the last meter; per batch, "load_s" (the loop waiting for
+# the loader), "device_ms" (CUDA events from
+# before the batch's copy to the card to after its outputs' copy back: the
+# device's span for the batch, idle gaps inside it included), "meter_s"
+# (the host's AP metering) and "wait_s" (the host blocked on the outputs'
+# copy).  Empty lists for device_ms on the CPU.
+EVAL_STATS: dict = {}
 
 
 def last_layer(outputs: dict, layer_id: int = -1) -> dict:
@@ -181,3 +201,93 @@ def train_one_epoch(train_step, batches, generator=None, curr_epoch: int = 0,
                 f"iter_time {ms:.0f}ms")
     drain()
     return metrics
+
+
+def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=None,
+             exact_eval: bool = True,
+             dataset_name: str = "sunrgbd") -> ap_calculator.APCalculator:
+    """The eval loop: every batch of `batches` (host dicts of numpy arrays, as
+    datasets.loader gives them) through `eval_step` on `device` and into a
+    host APCalculator, which the caller computes metrics from.
+
+    One batch deep, as the JAX package: step i + 1 is launched before the
+    host meters step i, so the card computes while the host runs the AP
+    stack.  Right after a step is launched its EVAL_KEYS outputs are copied
+    into pinned host tensors with non_blocking=True and a CUDA event is
+    recorded behind them; the host meters that step only once that event has
+    completed, and never synchronizes the whole device.  The AP calculator
+    reads the ground truth (METER_KEYS) from the host batch, so nothing comes
+    back from the card but the outputs.  A batch's "pad_mask" (the loader's
+    padded tail) drops the repeated rows before metering.  The AP pool's
+    workers are started first, so their start-up overlaps the first batch.
+    Fills EVAL_STATS.
+    """
+    device = resolve_device(device)
+    cuda = device.type == "cuda"
+    ap = ap_calculator.APCalculator(
+        dataset_config=dataset_config,
+        ap_iou_thresh=[0.25, 0.5],
+        class2type_map=class2type_map,
+        exact_eval=exact_eval,
+        dataset_name=dataset_name,
+    )
+    events, load_s, meter_s, wait_s = [], [], [], []
+
+    def launch(batch):
+        start = torch.cuda.Event(enable_timing=True) if cuda else None
+        if cuda:
+            start.record()
+        outputs = eval_step(to_device(batch, device))
+        if not cuda:
+            return {k: outputs[k].numpy() for k in EVAL_KEYS}, None
+        host = {}
+        for k in EVAL_KEYS:
+            v = outputs[k]
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+        events.append((start, done))
+        return host, done
+
+    def meter(host, done, targets, pad_mask):
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+            host = {k: v.numpy() for k, v in host.items()}
+        t1 = time.perf_counter()
+        if pad_mask is not None and not np.all(pad_mask):
+            mask = np.asarray(pad_mask, bool)
+            host = {k: v[mask] for k, v in host.items()}
+            targets = {k: v[mask] for k, v in targets.items()}
+        ap.step_meter({"outputs": host}, targets)
+        wait_s.append(t1 - t0)
+        meter_s.append(time.perf_counter() - t1)
+
+    t_start = time.perf_counter()
+    ap_calculator.start_pool()
+    pending = None
+    batches = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        load_s.append(time.perf_counter() - t0)
+        device_batch = {k: v for k, v in batch.items()
+                        if not isinstance(v, list) and k != "pad_mask"}
+        host, done = launch(device_batch)
+        if pending is not None:
+            meter(*pending)
+        pending = (host, done, {k: batch[k] for k in METER_KEYS if k in batch},
+                   batch.get("pad_mask"))
+    if pending is not None:
+        meter(*pending)
+    EVAL_STATS.clear()
+    EVAL_STATS.update(
+        batches=len(meter_s), scans=ap.scan_cnt, wall_s=time.perf_counter() - t_start,
+        load_s=load_s, device_ms=[start.elapsed_time(done) for start, done in events],
+        meter_s=meter_s, wait_s=wait_s,
+    )
+    print(f"evaluated {ap.scan_cnt} scans")
+    return ap

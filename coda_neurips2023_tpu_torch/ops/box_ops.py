@@ -1,13 +1,15 @@
 """3D box parametrizations and point normalization (PyTorch).
 
-Counterparts of coda_neurips2023_tpu/ops/box_ops.py:20-147, the part the
-detector's forward uses: corner parametrizations (camera frame and upright
-xyz frame), the depth-to-camera axis flip, and the scene-extent point
-normalization.  All functions broadcast over leading dimensions.
+Counterparts of coda_neurips2023_tpu/ops/box_ops.py:20-147: corner
+parametrizations (camera frame, upright xyz frame, and the dataset configs'
+my_compute_box_3d), the depth-to-camera axis flip, heading-angle bins, and
+the scene-extent point normalization.  All functions broadcast over leading
+dimensions.
 
 The `*_np` functions are the numpy twins the ground truth is built with
-(box_ops.py:157-243 there), written in the same operations and order so the
-synthetic scenes' box fields are bit-equal to the JAX package's.
+(box_ops.py:157-250 there), written in the same operations and order so the
+synthetic scenes' and the SUN RGB-D samples' box fields are bit-equal to the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -62,6 +64,34 @@ def get_3d_box_batch_xyz(box_size, angle, center) -> torch.Tensor:
     return _corners(x, y, z, rotz_batch(-angle), center)
 
 
+def my_compute_box_3d(center, size, heading_angle) -> torch.Tensor:
+    """The dataset configs' my_compute_box_3d: upright-frame corners (..., 8, 3)
+    with `size` taken as the half-extents."""
+    l, w, h = (size[..., i : i + 1] for i in range(3))
+    x = torch.cat([-l, l, l, -l, -l, l, l, -l], dim=-1)
+    y = torch.cat([w, w, -w, -w, w, w, -w, -w], dim=-1)
+    z = torch.cat([h, h, h, h, -h, -h, -h, -h], dim=-1)
+    return _corners(x, y, z, rotz_batch(-heading_angle), center)
+
+
+def angle2class(angle: torch.Tensor, num_angle_bin: int):
+    """Heading angle -> (bin in [0, num_angle_bin) as int32, residual from the bin centre)."""
+    two_pi = 2 * np.pi
+    angle = torch.remainder(angle, two_pi)
+    angle_per_class = two_pi / float(num_angle_bin)
+    shifted = torch.remainder(angle + angle_per_class / 2, two_pi)
+    class_id = torch.floor(shifted / angle_per_class).to(torch.int32)
+    residual = shifted - (class_id.to(angle.dtype) * angle_per_class + angle_per_class / 2)
+    return class_id, residual
+
+
+def class2angle(pred_cls: torch.Tensor, residual: torch.Tensor, num_angle_bin: int):
+    """Inverse of angle2class, wrapped to (-pi, pi]."""
+    angle_per_class = 2 * np.pi / float(num_angle_bin)
+    angle = pred_cls.to(residual.dtype) * angle_per_class + residual
+    return torch.where(angle > np.pi, angle - 2 * np.pi, angle)
+
+
 def shift_scale_points(pred_xyz, src_range, dst_range=None) -> torch.Tensor:
     """Map (B, N, 3) points from the src [min, max] box, a pair of (B, 3)
     tensors, to dst (default the unit cube)."""
@@ -108,6 +138,10 @@ def flip_axis_to_camera_np(pc: np.ndarray) -> np.ndarray:
     return np.stack([pc[..., 0], -pc[..., 2], pc[..., 1]], axis=-1)
 
 
+def flip_axis_to_depth_np(pc: np.ndarray) -> np.ndarray:
+    return np.stack([pc[..., 0], pc[..., 2], -pc[..., 1]], axis=-1)
+
+
 def _half_extents_np(box_size):
     box_size = np.asarray(box_size, np.float32)
     return box_size[..., 0:1] / 2, box_size[..., 1:2] / 2, box_size[..., 2:3] / 2
@@ -134,6 +168,16 @@ def get_3d_box_batch_xyz_np(box_size, angle, center) -> np.ndarray:
     y = np.concatenate([w, w, -w, -w, w, w, -w, -w], axis=-1)
     z = np.concatenate([h, h, h, h, -h, -h, -h, -h], axis=-1)
     return _corners_np(x, y, z, _rotz_batch_np(-np.asarray(angle, np.float32)), center)
+
+
+def my_compute_box_3d_np(center, size, heading_angle) -> np.ndarray:
+    """numpy `my_compute_box_3d`: upright-frame corners, `size` the half-extents."""
+    size = np.asarray(size, np.float32)
+    l, w, h = size[..., 0:1], size[..., 1:2], size[..., 2:3]
+    x = np.concatenate([-l, l, l, -l, -l, l, l, -l], axis=-1)
+    y = np.concatenate([w, w, -w, -w, w, w, -w, -w], axis=-1)
+    z = np.concatenate([h, h, h, h, -h, -h, -h, -h], axis=-1)
+    return _corners_np(x, y, z, _rotz_batch_np(-np.asarray(heading_angle, np.float32)), center)
 
 
 def angle2class_np(angle, num_angle_bin: int):
