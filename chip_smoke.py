@@ -85,6 +85,35 @@ result):
      device's idle share over the loop.  Then one batch (CLIP_SCENES scenes
      padded to 32 rows) through --model_name 3detrmulticlasshead
      --if_with_clip: kernel E launches once a row and layer.
+ 14. The training entry point end to end: `coda_neurips2023_tpu_torch.main`
+     without --test_only, with the flags of scripts/coda_sunrgbd_stage1.sh
+     and scripts/coda_sunrgbd_stage2.sh as the scripts give them, cut only
+     where the data, the time limit and one card force it (no data paths, so
+     the synthetic split of TRAIN_CLI_SCENES scenes with its 64 x 96 images,
+     4 steps an epoch at B=8; random CLIP weights; --ngpus 1; the epochs and
+     cadences of STAGE1_CUTS and STAGE2_CUTS), into build/phase14/: stage 1
+     for one epoch; stage 2 from stage 1's `last_checkpoint` (no suffix, as
+     the script passes it) for 3 epochs with the epoch reset every 2 and
+     discovery at reset epoch 0 (epochs 0 and 2); then the same stage-2 call
+     with --max_epoch 4 and no --set_epoch, which resumes at epoch 3 with
+     the optimizer's count where it stopped.  Checked: a finite loss every
+     step; every step's learning rate equal to the host schedule replayed on
+     the reset epoch; A, B, C, D and E launched on every step (E once a
+     layer), E once a layer more on every discovery batch; stage 2's
+     artifacts are the JAX do_train's names with .pth checkpoints; the
+     pseudo-label files grow from round 1 to round 2 and epoch 1 trains on
+     their rows, or, where no row reaches the writer, the gate counts say
+     which gate emptied the batches; and one discovery batch (2 scenes) on
+     the CPU from the same outputs, with the random tower and with a tower
+     pinned to a class that is not seen: the novel mask equal on the boxes
+     whose rects lie RECT_MARGIN px from integers and whose CLIP decision is
+     not within 1e-4 of a tie or the threshold, the rows within CLIP_TOL.
+     Printed beside the card's name and power limit: step ms (median, min,
+     max) and scenes/s a call, discovery ms a batch with the tower's part
+     and the NMS loop's device ms, the survivors of each gate and the rows
+     written, checkpoint bytes and save ms, each eval's loop ms, the
+     device's idle share over the epoch loop (1 - the steps' and discovery
+     batches' device spans / the loop's wall time), peak memory.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -1309,6 +1338,425 @@ def cli_phase(torch, model, launches4):
     return cli_launches
 
 
+# phase 14: the training entry point (scripts/coda_sunrgbd_stage{1,2}.sh) on
+# the synthetic split of TRAIN_CLI_SCENES scenes: 4 steps an epoch at B=8
+TRAIN_CLI_SCENES = 32
+# what the data, the time limit and one card force on the scripts' flags
+SCRIPT_DROPS = ("--dataset_root_dir", "--calib_dir", "--image_dir", "--clip_model_path")
+STAGE1_CUTS = {"--ngpus": "1", "--max_epoch": "1"}
+STAGE2_CUTS = {"--ngpus": "1", "--max_epoch": "3", "--reset_epoch_periodically": "2",
+               "--online_nms_update_save_epoch": "2", "--real_eval_every_epoch": "2",
+               "--save_separate_checkpoint_every_epoch": "1"}
+# the artifacts of the JAX package's do_train for the stage-2 call, its
+# checkpoint directories as the port's .pth files
+STAGE2_ARTIFACTS = {
+    "checkpoint.pth", "checkpoint_0000.pth", "checkpoint_0001.pth", "checkpoint_0002.pth",
+    "checkpoint_best.pth", "last_checkpoint.pth", "eval_0002.lst", "final_eval.txt",
+    "final_eval.pkl", "metrics.jsonl", "synthetic_pseudo_labels_setting0",
+}
+TRAIN_CLI_KERNELS = ("fps", "ball_query", "gather", "attention", "vit_attention")
+DISCOVERY_SCENES = 2  # phase 14's discovery batch on the CPU
+NOVEL_ROW = 20  # a superset class that is not seen, for the pinned tower
+
+
+def script_argv(root, name, cuts, drops=SCRIPT_DROPS):
+    """The flags of scripts/<name> after `-m coda_neurips2023_tpu.main`, without
+    `drops` (flag and value), with each flag of `cuts` set to its value."""
+    import shlex
+
+    text = open(os.path.join(root, "scripts", name)).read().replace("\\\n", " ")
+    line = next(l for l in text.splitlines() if "coda_neurips2023_tpu.main" in l)
+    tokens = shlex.split(line)
+    tokens = tokens[tokens.index("coda_neurips2023_tpu.main") + 1:]
+    out, i = [], 0
+    while i < len(tokens):
+        tok = tokens[i]
+        has_value = i + 1 < len(tokens) and not tokens[i + 1].startswith("--")
+        if tok in drops:
+            i += 2 if has_value else 1
+            continue
+        out.append(tok)
+        if has_value:
+            out.append(cuts.get(tok, tokens[i + 1]))
+            i += 2
+        else:
+            i += 1
+    for flag, value in cuts.items():
+        if flag not in out:
+            out += [flag, value]
+    return out
+
+
+class TrainCliProbe:
+    """Instrumentation of one training CLI call: for every step the CUDA
+    events around it, its loss tensor, learning rate, epochs, launches and
+    the ground truth it saw; for every discovery batch its events, the
+    tower's and the NMS loop's events, its gate counts; every checkpoint's
+    bytes and save ms; every eval's loop ms; each epoch loop's wall time and
+    its wait for its first batch."""
+
+    def __init__(self, torch, pseudo_dir=None):
+        self.torch = torch
+        self.pseudo_dir = pseudo_dir
+        self.steps, self.discoveries, self.saves, self.evals, self.rounds = [], [], [], [], []
+        self.loop_s, self.first_batch_s, self.first_count = [], [], None
+        self.ctx = self.captured = None
+        self._in_discovery = None
+
+    def event(self):
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    @contextlib.contextmanager
+    def installed(self):
+        from coda_neurips2023_tpu_torch import _kernels, engine, stages
+        from coda_neurips2023_tpu_torch.models import discovery
+        from coda_neurips2023_tpu_torch.utils import io
+
+        probe, torch = self, self.torch
+        saved = (engine.train_one_epoch, engine.evaluate, io.save_checkpoint,
+                 stages.StageContext.run_discovery_and_write, stages.StageContext.clip_image_fn,
+                 discovery.nms_2d_greedy_mask)
+        train_one_epoch, evaluate, save, run_discovery, clip_image_fn, nms = saved
+
+        def one_epoch(train_step, batches, **kw):
+            def step(batch, generator):
+                if len(probe.first_batch_s) < len(probe.loop_s) + 1:
+                    probe.first_batch_s.append(time.perf_counter() - t0)
+                before = dict(_kernels.LAUNCHES)
+                if probe.first_count is None:
+                    probe.first_count = kw["optimizer"].count
+                start = probe.event()
+                out = train_step(batch, generator)
+                end = probe.event()
+                metrics = out[0] if isinstance(out, tuple) else out
+                probe.steps.append(dict(
+                    events=(start, end), loss=metrics["loss"], lr=batch["lr"],
+                    curr=kw["curr_epoch"], epoch=kw["all_epoch"],
+                    launches={k: v - before[k] for k, v in _kernels.LAUNCHES.items()},
+                    present=batch["gt_box_present"].sum(1),
+                    ori=[int(x) for x in batch.get("gt_ori_box_num", [])]))
+                return out
+
+            t0 = time.perf_counter()
+            metrics = train_one_epoch(step, batches, **kw)
+            torch.cuda.synchronize()
+            probe.loop_s.append(time.perf_counter() - t0)
+            if probe.pseudo_dir is not None and os.path.isdir(probe.pseudo_dir):
+                probe.rounds.append(sum(
+                    int(__import__("numpy").load(os.path.join(probe.pseudo_dir, n)).shape[0])
+                    for n in os.listdir(probe.pseudo_dir)))
+            return metrics
+
+        def run_and_write(ctx, disc, last, batch):
+            if probe.captured is None:
+                probe.ctx = ctx
+                probe.captured = ({k: v.clone() for k, v in last.items()},
+                                  {k: v.clone() if isinstance(v, torch.Tensor) else v
+                                   for k, v in batch.items()})
+            before = dict(_kernels.LAUNCHES)
+            probe._in_discovery = {"tower": [], "nms": []}
+            start = probe.event()
+            n = run_discovery(ctx, disc, last, batch)
+            end = probe.event()
+            probe.discoveries.append(dict(
+                events=(start, end), parts=probe._in_discovery, found=dict(ctx.last_discovery),
+                launches={k: v - before[k] for k, v in _kernels.LAUNCHES.items()}))
+            probe._in_discovery = None
+            return n
+
+        def tower(ctx, images):
+            if probe._in_discovery is None:
+                return clip_image_fn(ctx, images)
+            start = probe.event()
+            out = clip_image_fn(ctx, images)
+            probe._in_discovery["tower"].append((start, probe.event()))
+            return out
+
+        def nms_loop(*a, **kw):
+            start = probe.event()
+            out = nms(*a, **kw)
+            if probe._in_discovery is not None:
+                probe._in_discovery["nms"].append((start, probe.event()))
+            return out
+
+        def save_checkpoint(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(*a, **kw)
+            probe.saves.append((os.path.getsize(path), (time.perf_counter() - t0) * 1e3))
+            return path
+
+        def eval_loop(*a, **kw):
+            ap = evaluate(*a, **kw)
+            probe.evals.append(engine.EVAL_STATS["wall_s"] * 1e3)
+            return ap
+
+        engine.train_one_epoch, engine.evaluate, io.save_checkpoint = (
+            one_epoch, eval_loop, save_checkpoint)
+        stages.StageContext.run_discovery_and_write = run_and_write
+        stages.StageContext.clip_image_fn = tower
+        discovery.nms_2d_greedy_mask = nms_loop
+        try:
+            yield self
+        finally:
+            (engine.train_one_epoch, engine.evaluate, io.save_checkpoint,
+             stages.StageContext.run_discovery_and_write, stages.StageContext.clip_image_fn,
+             discovery.nms_2d_greedy_mask) = saved
+
+    def report(self, what, smi):
+        torch = self.torch
+        torch.cuda.synchronize()
+        ms = [s["events"][0].elapsed_time(s["events"][1]) for s in self.steps]
+        losses = [float(s["loss"]) for s in self.steps]
+        if not all(map(math.isfinite, losses)):
+            fail(f"{what}: a training loss is not finite: {losses}")
+        disc = [d["events"][0].elapsed_time(d["events"][1]) for d in self.discoveries]
+        busy = sum(ms) + sum(disc)
+        wall = sum(self.loop_s) * 1e3
+        print(f"  {what} [{smi}]: {len(ms)} steps; step ms median {statistics.median(ms)!r} "
+              f"min {min(ms)!r} max {max(ms)!r}; scenes/s (median step) "
+              f"{TRAIN_BATCH / statistics.median(ms) * 1e3!r}; losses {[round(x, 4) for x in losses]}")
+        if disc:
+            tower = [sum(a.elapsed_time(b) for a, b in d["parts"]["tower"]) for d in self.discoveries]
+            nms = [sum(a.elapsed_time(b) for a, b in d["parts"]["nms"]) for d in self.discoveries]
+            print(f"    discovery ms a batch {[round(x, 3) for x in disc]} (median "
+                  f"{statistics.median(disc)!r}); the tower's part {[round(x, 3) for x in tower]}; "
+                  f"the NMS loop's device ms {[round(x, 3) for x in nms]}")
+        print(f"    epoch loop wall {wall!r} ms over {len(self.loop_s)} epochs, device spans "
+              f"{busy!r} ms: idle share {1 - busy / wall!r}; of the wall, waiting for each "
+              f"epoch's first batch (the loader's worker pool starting) "
+              f"{[round(x * 1e3, 3) for x in self.first_batch_s]} ms")
+        print(f"    checkpoints (bytes, save ms): {self.saves}")
+        print(f"    eval loop ms: {[round(x, 3) for x in self.evals]}")
+        return ms
+
+
+def check_train_launches(probe, what, discovery_batches):
+    """A, B, C, D and E launch on every step of the CLI's path, B its grid's
+    GRID_LAUNCHES, E once a layer; a discovery batch launches E once a layer
+    more."""
+    for i, s in enumerate(probe.steps):
+        for name in TRAIN_CLI_KERNELS:
+            if s["launches"][name] <= 0:
+                fail(f"{what} step {i}: kernel {name} was not launched ({s['launches']})")
+        if s["launches"]["vit_attention"] != CLIP_LAYERS:
+            fail(f"{what} step {i}: vit_attention launched {s['launches']['vit_attention']} "
+                 f"times, expected {CLIP_LAYERS}")
+    for d in probe.discoveries:
+        if d["launches"]["vit_attention"] != CLIP_LAYERS:
+            fail(f"{what}: a discovery batch launched vit_attention "
+                 f"{d['launches']['vit_attention']} times, expected {CLIP_LAYERS}")
+    if len(probe.discoveries) != discovery_batches:
+        fail(f"{what}: {len(probe.discoveries)} discovery batches, expected {discovery_batches}")
+    print(f"    launches a step: {probe.steps[0]['launches']}; a discovery batch: "
+          f"{probe.discoveries[0]['launches'] if probe.discoveries else None}")
+
+
+def check_lr(probe, argv, what, parse):
+    from coda_neurips2023_tpu_torch.optimizer import make_lr_schedule
+
+    args = parse(argv)
+    ipe = TRAIN_CLI_SCENES // TRAIN_BATCH
+    host = make_lr_schedule(args, ipe, host=True)
+    it = 0
+    for i, s in enumerate(probe.steps):
+        it = it + 1 if i and probe.steps[i - 1]["epoch"] == s["epoch"] else 0
+        want = host(s["curr"] * ipe + it)
+        if s["lr"] != want:
+            fail(f"{what} step {i}: lr {s['lr']!r} != the schedule's {want!r} at reset epoch "
+                 f"{s['curr']}, iteration {it}")
+    print(f"    lr of every step equals the host schedule replayed on the reset epoch "
+          f"({[s['curr'] for s in probe.steps][::ipe]} by epoch)")
+
+
+def discovery_cpu_check(torch, probe):
+    """The captured discovery batch (DISCOVERY_SCENES scenes) on the GPU and on
+    the CPU, with the random tower and with one pinned to a superset row that
+    is not seen: masks equal on the boxes whose rects lie RECT_MARGIN px from
+    integers and whose CLIP top-two probabilities (and top one and the keep
+    threshold) differ by more than 1e-4; rows within CLIP_TOL there."""
+    from coda_neurips2023_tpu_torch.models.distillation import clip_crop_scores, crop_rects
+    from coda_neurips2023_tpu_torch.ops.projection import (
+        project_upright_depth_to_image,
+        unaugment_corners,
+    )
+
+    ctx = probe.ctx
+    last, batch = probe.captured
+    last = {k: v[:DISCOVERY_SCENES] for k, v in last.items()}
+    batch = {k: v[:DISCOVERY_SCENES] for k, v in batch.items() if isinstance(v, torch.Tensor)}
+    args = ctx.args
+    bank = ctx.text_banks["superset"] if args.if_clip_superset else ctx.text_banks["test"]
+    # which boxes rounding may decide: rects near integers, CLIP near a tie
+    un = unaugment_corners(last["box_corners_xyz"], batch["scale_array"], batch["rot_array"],
+                           batch["flip_array"], batch.get("zx_flip_array"))
+    b, q = un.shape[:2]
+    uv, _ = project_upright_depth_to_image(un.reshape(b, q * 8, 3).double(), batch["K"].double(),
+                                           batch["Rtilt"].double())
+    hi = torch.stack([batch["ori_width"], batch["ori_height"]], -1).double()[:, None, None, :] - 1
+    uv = torch.minimum(uv.reshape(b, q, 8, 2).clamp(min=0), hi)
+    ext = torch.cat([uv.amin(2), uv.amax(2)], -1)
+    rect_risky = (((ext - ext.round()).abs() < RECT_MARGIN) & (ext > 0)
+                  & (ext < hi[:, :, 0, [0, 1, 0, 1]])).any(-1)
+    with torch.no_grad():
+        probs = clip_crop_scores(last, batch, ctx.clip_image_fn, bank, ctx.logit_scale,
+                                 ctx.crop_size)
+    # the keep gate is decided by rounding only where the top probability
+    # lies at the threshold, or above it with a near tie for the class
+    top2 = probs.topk(2, dim=-1).values
+    thres = args.clip_driven_keep_thres
+    clip_risky = (((top2[..., 0] - thres).abs() <= 1e-4)
+                  | ((top2[..., 0] > thres) & ((top2[..., 0] - top2[..., 1]) <= 1e-4)))
+    safe = (~rect_risky & ~clip_risky).cpu()
+    cpu_ctx = ctx.to("cpu")
+    key = "superset" if args.if_clip_superset else "test"
+    # the pinned variant: a seeded bank of random unit rows (near orthogonal
+    # in 512-d) and a tower that returns its row NOVEL_ROW for every crop, so
+    # CLIP's gate passes every box the gates before it keep
+    gen = torch.Generator().manual_seed(SEED + 14)
+    bank = torch.randn(tuple(ctx.text_banks[key].shape), generator=gen)
+    bank = bank / torch.linalg.vector_norm(bank, dim=-1, keepdim=True)
+    for name, pin in (("random tower", False), ("tower pinned to a novel class", True)):
+        outs = {}
+        for device, c in (("gpu", ctx), ("cpu", cpu_ctx)):
+            saved_bank = c.text_banks[key]
+            if pin:
+                c.text_banks[key] = bank.to(c.device)
+                c.clip_image_fn = lambda images, _r=c.text_banks[key][NOVEL_ROW]: _r.expand(
+                    images.shape[0], -1)
+            try:
+                t0 = time.perf_counter()
+                out = c.discovery_fn()({k: v.to(c.device) for k, v in last.items()},
+                                       {k: v.to(c.device) for k, v in batch.items()})
+                outs[device] = {k: v.cpu() for k, v in out.items()}
+            finally:
+                c.__dict__.pop("clip_image_fn", None)
+                c.text_banks[key] = saved_bank
+            print(f"    {name}, {device}: gates "
+                  f"{dict(zip(('valid', 'nms', 'not_seen_gt', 'objectness', 'clip'), outs[device]['gates'][:5].tolist()))} "
+                  f"in {time.perf_counter() - t0:.2f} s")
+        g, c = outs["gpu"], outs["cpu"]
+        differ = g["novel_mask"] != c["novel_mask"]
+        if (differ & safe).any():
+            fail(f"discovery ({name}): novel_mask differs between GPU and CPU on "
+                 f"{int((differ & safe).sum())} boxes away from rounding boundaries")
+        keep = (~differ)[..., None]
+        err = ((g["save_box_info"] - c["save_box_info"]).abs() * keep).max().item()
+        print(f"    {name}: novel boxes gpu {int(g['novel_mask'].sum())} cpu "
+              f"{int(c['novel_mask'].sum())}, masks differ on {int(differ.sum())} boxes "
+              f"({int((~safe).sum())} of {safe.numel()} near a rounding boundary); rows "
+              f"max_abs_err={err!r}")
+        if not err <= CLIP_TOL:
+            fail(f"discovery ({name}): rows differ between GPU and CPU by {err!r} > {CLIP_TOL}")
+        if pin and int(g["novel_mask"].sum()) == 0:
+            fail("discovery with the pinned tower found no box: the gates before CLIP emptied it")
+
+
+def train_cli_phase(torch, root, smi):
+    """Phase 14: the training entry point end to end on the card."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.main import make_args_parser
+
+    def parse(argv):
+        return make_args_parser().parse_args(argv)
+
+    out_dir = _kernels.BUILD_DIR.parent / "phase14"
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    stage1_dir, stage2_dir = out_dir / "stage1", out_dir / "stage2"
+    data = ["--synthetic_num_scenes", str(TRAIN_CLI_SCENES)]
+    stage1 = script_argv(root, "coda_sunrgbd_stage1.sh", STAGE1_CUTS) + data + [
+        "--checkpoint_dir", str(stage1_dir)]
+    stage2 = script_argv(root, "coda_sunrgbd_stage2.sh", dict(
+        STAGE2_CUTS, **{"--checkpoint_dir": str(stage2_dir),
+                        "--checkpoint_file": str(stage1_dir / "last_checkpoint")})) + data
+    resume = script_argv(root, "coda_sunrgbd_stage2.sh", dict(
+        STAGE2_CUTS, **{"--max_epoch": "4", "--checkpoint_dir": str(stage2_dir),
+                        "--checkpoint_file": str(stage1_dir / "last_checkpoint")}),
+        drops=SCRIPT_DROPS + ("--set_epoch",)) + data
+    print(f"phase 14: the training entry point (scripts/coda_sunrgbd_stage1.sh, then "
+          f"coda_sunrgbd_stage2.sh from stage 1's last_checkpoint, then its resume) on "
+          f"{TRAIN_CLI_SCENES} synthetic scenes at B={TRAIN_BATCH}, the flagship at full width")
+    print(f"  stage 1: {' '.join(stage1)}")
+    print(f"  stage 2: {' '.join(stage2)}")
+    total = {k: 0 for k in _kernels.LAUNCHES}
+    pseudo = stage2_dir / "synthetic_pseudo_labels_setting0"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    for what, argv, probe in (("stage 1", stage1, TrainCliProbe(torch)),
+                              ("stage 2", stage2, TrainCliProbe(torch, str(pseudo))),
+                              ("resume", resume, TrainCliProbe(torch, str(pseudo)))):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with probe.installed():
+            cli_main(argv)
+        seconds = time.perf_counter() - t0
+        for k, v in _kernels.LAUNCHES.items():
+            total[k] += v
+        print(f"  {what}: main() {seconds!r} s")
+        probe.report(what, smi)
+        n_disc = {"stage 1": 0, "stage 2": 2 * TRAIN_CLI_SCENES // TRAIN_BATCH, "resume": 0}[what]
+        check_train_launches(probe, what, n_disc)
+        check_lr(probe, argv, what, parse)
+        if what == "stage 1":
+            if not (stage1_dir / "last_checkpoint.pth").is_file():
+                fail("stage 1 wrote no last_checkpoint.pth")
+        elif what == "stage 2":
+            stage2_probe = probe
+            names = set(os.listdir(stage2_dir))
+            extra = {n for n in names - STAGE2_ARTIFACTS
+                     if not (n.startswith("events.out") or n == "final_eval.xlsx")}
+            if not STAGE2_ARTIFACTS <= names or extra:
+                fail(f"stage 2 artifacts {sorted(names)} differ from the JAX do_train's "
+                     f"{sorted(STAGE2_ARTIFACTS)}")
+            print(f"    artifacts: {sorted(names)}")
+            for i, d in enumerate(probe.discoveries):
+                print(f"    discovery batch {i}: survivors {d['found']['gates']}, novel rows "
+                      f"{d['found']['rows']}, written {d['found']['written']}")
+            if sum(d["found"]["gates"]["valid"] for d in probe.discoveries) <= 0:
+                fail("discovery found no valid box in any batch")
+            print(f"    pseudo-label rows on disk after each epoch: {probe.rounds}")
+            first_round = probe.rounds[0] if probe.rounds else 0
+            if first_round > 0:
+                if not probe.rounds[2] > probe.rounds[0]:
+                    fail(f"the pseudo-label files did not grow from round 1 to round 2: {probe.rounds}")
+                epoch1 = [(p, o) for s in probe.steps if s["epoch"] == 1
+                          for p, o in zip(s["present"].tolist(), s["ori"])]
+                if not any(p > o for p, o in epoch1):
+                    fail("no scene of epoch 1 trained on merged pseudo labels")
+                print(f"    epoch 1 scenes with merged rows: {sum(p > o for p, o in epoch1)}")
+            else:
+                tops = [d["found"]["gates"]["clip_top_prob"] for d in probe.discoveries]
+                print(f"    no row reached the writer: CLIP's gate emptied every batch "
+                      f"(top class probability at most {max(tops)!r} against the keep "
+                      f"threshold {parse(argv).clip_driven_keep_thres}; random weights give "
+                      f"near-uniform probabilities over the bank's classes)")
+            discovery_cpu_check(torch, probe)
+        else:
+            first = probe.steps[0]
+            if first["epoch"] != 3:
+                fail(f"the resumed run started at epoch {first['epoch']}, not 3")
+            want_count = 3 * TRAIN_CLI_SCENES // TRAIN_BATCH
+            if probe.first_count != want_count:
+                fail(f"the resumed run's optimizer count starts at {probe.first_count}, "
+                     f"not {want_count}")
+            print(f"    resumed at epoch {first['epoch']} with the optimizer's count "
+                  f"{probe.first_count}; first lr {first['lr']!r}")
+    from coda_neurips2023_tpu_torch.utils import ap_calculator
+
+    ap_calculator.close_pool()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s; peak memory allocated {peak_gb!r} GB "
+          f"[{smi}]")
+    return total
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -1489,6 +1937,8 @@ def main():
     model = model.to("cuda")
     mxu_phase(torch, model, text, phase4_batch, phase4_out)
     cli_launches = cli_phase(torch, model, launches4)
+    del model
+    train_cli_launches = train_cli_phase(torch, root, smi)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -1501,6 +1951,7 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
             **({"cli_launches": cli_launches[name]} if name in CLI_KERNELS else {}),
+            "train_cli_launches": train_cli_launches[name],
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()

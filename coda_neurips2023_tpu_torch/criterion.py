@@ -11,11 +11,15 @@ the `SetCriterion` assembly (:129-193, :685-784) and `build_criterion`
   (targets from models/distillation.py): loss_predicted_region_embed_l1, its
   _only_last_layer twin, loss_predicted_region_embed_cos, loss_region_embed;
   and loss_contrast_object_text against the text bank (targets
-  text_features_clip and logit_scale).
+  text_features_clip and logit_scale); and stage 2's
+  loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi, the one
+  stage-2 loss the shipped stage-2 scripts set (targets weak_box_cate_label
+  and weak_confidence_weight, CLIP's weak labels).
 
-Every other registered loss belongs to stage 2 or to unwired model variants
-and is not ported yet: a weight above 1e-32 for any of them raises
-NotImplementedError at construction, naming it, so none is silently dropped.
+Every other registered loss belongs to stage 2's discovery-objectness
+variants or to unwired model variants and is not ported yet: a weight above
+1e-32 for any of them raises NotImplementedError at construction, naming
+it, so none is silently dropped.
 
 The forward's outputs carry a leading decoder-layer axis L, and the
 criterion works on all L layers at once, as the JAX package vmaps over
@@ -55,6 +59,7 @@ PORTED_LOSSES = (
     "loss_predicted_region_embed_l1_only_last_layer",
     "loss_predicted_region_embed_cos",
     "loss_contrast_object_text",
+    "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi",
 )
 # the rest of the JAX package's registry (its criterion.py:161-191), in order
 UNPORTED_LOSSES = (
@@ -62,7 +67,6 @@ UNPORTED_LOSSES = (
     "loss_sem_cls_softmax_skip_none_gt_sample_keep_discovery_objectness",
     "loss_sem_cls_softmax_discovery_novel_objectness",
     "loss_sem_cls_softmax_2d_box_iou_supervised_skip_none_gt_sample",
-    "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi",
     "loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi",
     "loss_image_seen_class",
     "loss_contrastive",
@@ -165,8 +169,9 @@ class Matcher:
 
 class SetCriterion:
     def __init__(self, matcher: Matcher, dataset_config, loss_weight_dict: dict,
-                 train_range_max: int = 10):
+                 train_range_max: int = 10, confidence_type: str = "non-confidence"):
         self.matcher = matcher
+        self.confidence_type = confidence_type
         self.dataset_config = dataset_config
         self.loss_weight_dict = dict(loss_weight_dict)
         # per-class CE weights: the background (last) class gets loss_no_object_weight
@@ -195,6 +200,8 @@ class SetCriterion:
             "loss_predicted_region_embed_l1_only_last_layer": self.loss_predicted_region_embed_l1,
             "loss_predicted_region_embed_cos": self.loss_predicted_region_embed_cos,
             "loss_contrast_object_text": self.loss_contrast_object_text,
+            "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi":
+                self.loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi,
         }
         self.last_assignments = None
 
@@ -324,6 +331,27 @@ class SetCriterion:
         nll = _cross_entropy(logits, gt_label) * wsel
         return _layer_sum(nll) / torch.clamp(_layer_sum(wsel), min=1e-32)
 
+    def loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi(self, outputs, targets,
+                                                                   assignments):
+        """Stage 2's discovery-driven classification: CE of the proposals'
+        embedding-to-text-bank logits against their seen class where matched
+        and CLIP's weak label elsewhere, weighted by the seen confidence or
+        the weak one (1 wherever above 1e-16 for --confidence_type
+        non-confidence), over the proposals of weight above 1e-32."""
+        text = targets["text_features_clip"].to(torch.float32)
+        logits = torch.matmul(_unit(outputs["text_correlation_embedding"]), text.t())
+        logits = logits * targets["logit_scale"]
+        inds = assignments["per_prop_gt_inds"]
+        seen_label = _gather_per_prop(targets["gt_box_seen_sem_cls_label"].long(), inds)
+        seen_confi = _gather_per_prop(targets["gt_box_seen_sem_cls_confi"], inds)
+        matched = assignments["proposal_matched_mask"] > 0
+        gt_label = torch.where(matched, seen_label, targets["weak_box_cate_label"].long())
+        confi = torch.where(matched, seen_confi, targets["weak_confidence_weight"])
+        if self.confidence_type == "non-confidence":
+            confi = torch.where(confi > 1e-16, torch.ones_like(confi), confi)
+        nll = _cross_entropy(logits, gt_label)
+        return _layer_sum(nll * confi) / (_layer_sum((confi > 1e-32).to(nll.dtype)) + 1e-32)
+
     # ---------------- assembly ----------------
 
     def __call__(self, outputs_stacked: dict, targets: dict):
@@ -400,4 +428,5 @@ def build_criterion(args, dataset_config):
     for name in PORTED_LOSSES + UNPORTED_LOSSES:
         loss_weight_dict.setdefault(name + "_weight", getattr(args, name + "_weight", 0.0))
     return SetCriterion(matcher, dataset_config, loss_weight_dict,
-                        train_range_max=getattr(args, "train_range_max", 10))
+                        train_range_max=getattr(args, "train_range_max", 10),
+                        confidence_type=getattr(args, "confidence_type", "non-confidence"))

@@ -5,9 +5,11 @@ Counterpart of coda_neurips2023_tpu/engine.py:
     from that forward (stage 1's distillation targets, `extra_targets_fn`),
     the criterion, backward, the optimizer update with a runtime learning
     rate, and the BatchNorm statistics (updated by the forward itself);
-  * `train_one_epoch` (:247-347): the epoch loop, with the losses kept on the
-    device and checked for finiteness every `log_every` steps, aborting as
-    the reference does;
+  * `train_one_epoch` (:247-347): the epoch loop, each host batch copied to
+    the device with its epochs and learning rate, dropout drawn from a
+    generator seeded by the run's seed and the step count, the losses kept
+    on the device and checked for finiteness every `log_every` steps,
+    aborting as the reference does, and stage 2's discovery after a step;
   * `make_eval_step` (:176-225): the detector's eval forward, the chosen
     decoder layer's outputs, and class scores either from the distillation
     head against a text bank or, with `clip_crop_fn`, from CLIP crops of the
@@ -16,12 +18,13 @@ Counterpart of coda_neurips2023_tpu/engine.py:
     stepped, its outputs copied back and metered into the host AP
     calculator, one batch deep (below).  One process; the multi-GPU gather
     comes with DDP (ROADMAP Queue 1 item 8).
-Checkpoints are saved with the training loop, later.
+Checkpoints are saved by the caller (main.do_train, utils/io.py).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 import time
 from typing import Callable, Optional
@@ -33,6 +36,7 @@ from coda_neurips2023_tpu_torch.datasets.loader import to_device
 from coda_neurips2023_tpu_torch.models.model_3detr import get_class_scores
 from coda_neurips2023_tpu_torch.utils import ap_calculator
 from coda_neurips2023_tpu_torch.utils.device import resolve_device
+from coda_neurips2023_tpu_torch.utils.misc import SmoothedValue
 
 # keys of the batch the criterion reads as targets
 TARGET_KEYS = (
@@ -91,10 +95,10 @@ def make_eval_step(
     foreground softmax.  `eval_layer_id` picks the decoder layer (-1: the
     last).
     """
-    model.eval()
 
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
+        model.eval()  # each call: a training loop puts the model back in training mode
         last = last_layer(model(batch), eval_layer_id)
         if clip_crop_fn is not None:
             last["sem_cls_prob"] = clip_crop_fn(last, batch)
@@ -163,44 +167,117 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     return train_step
 
 
-def train_one_epoch(train_step, batches, generator=None, curr_epoch: int = 0,
-                    log_every: int = 10, lr_fn: Optional[Callable] = None, log=print):
-    """Run `train_step` over `batches` (dicts on the device).
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of training step `step` of a run seeded `seed`: a
+    function of the two alone, as the JAX step folds its step count into its
+    key (engine.py:154), so a resumed run draws what an uninterrupted one
+    draws."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
 
-    `lr_fn(it)` gives each iteration's learning rate (else the step's own
-    schedule).  Losses stay on the device; every `log_every` iterations, and
-    at the end, they are read back, and a non-finite one stops the run with
-    exit code 1 (the reference's per-step abort, at most log_every - 1 steps
-    late).  Returns the last step's metrics.
+
+def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 10,
+                    lr_fn: Optional[Callable] = None, log=print, *,
+                    device=None, optimizer=None, seed: Optional[int] = None,
+                    all_epoch: Optional[int] = None, logger=None,
+                    discovery_fn: Optional[Callable] = None,
+                    profile_dir: Optional[str] = None):
+    """The epoch loop (the JAX package's train_one_epoch, engine.py:247-347):
+    `train_step` over `batches`; returns the last step's metrics.
+
+    Each host batch (numpy arrays, as datasets.loader gives them) goes to
+    `device` through `loader.to_device` (None: the batches are used as
+    given); its list fields and gt_ori_box_num stay on the host, for the
+    pseudo-label writer.  Each batch carries `curr_epoch` (the epoch as reset
+    by stage 2's periodic reset, which the crop selection's gate reads) and
+    `all_epoch` (the monotone epoch, which the keep-box gate reads; curr_epoch
+    when None), and, with `lr_fn(it)`, the iteration's learning rate (else
+    the step's own schedule).  With `seed` and `optimizer`, each step's
+    dropout and crop draws come from step_generator(seed, optimizer.count)
+    (else the step gets no generator).  With `discovery_fn`, the step returns the last
+    decoder layer's outputs too and discovery_fn(last_outputs, batch) mines
+    and writes pseudo labels.  With `profile_dir`, iterations 2-5 are traced
+    with torch.profiler into <profile_dir>/train_trace.json.
+
+    Losses stay on the device; every `log_every` iterations, and at the end,
+    they are read back, a non-finite one stops the run with exit code 1 (the
+    reference's per-step abort, at most log_every - 1 steps late), and the
+    status line and, with `logger`, the Train_details/ scalars (at the
+    optimizer's step count) are written.  Nothing else waits for the device.
     """
+    iter_time = SmoothedValue(window_size=10)
+    loss_avg = SmoothedValue(window_size=10)
     pending = []
-    total, seen = 0.0, 0
     metrics = {}
+    profiler = None
 
     def drain():
-        nonlocal total, seen
         values = [float(x) for x in pending]
         pending.clear()
         for v in values:
             if not math.isfinite(v):
                 log("Loss in not finite. Training will be stopped.")
                 sys.exit(1)
-            total += v
-            seen += 1
+            loss_avg.update(v)
 
-    t0 = time.perf_counter()
-    for it, batch in enumerate(batches):
+    cuda = device is not None and torch.device(device).type == "cuda"
+    for it, host_batch in enumerate(batches):
+        if profile_dir is not None and it == 2:
+            profiler = _start_profile(cuda)
+        if profiler is not None and it == 6:
+            _stop_profile(profiler, profile_dir)
+            profiler = None
+        t0 = time.perf_counter()
+        batch = dict(host_batch)
+        if device is not None:
+            host_only = {k: batch.pop(k) for k in ("gt_ori_box_num",) if k in batch}
+            batch = dict(to_device(batch, device), **host_only)
+        batch["curr_epoch"] = curr_epoch
+        batch["all_epoch"] = curr_epoch if all_epoch is None else all_epoch
         if lr_fn is not None:
-            batch = dict(batch, lr=lr_fn(it))
-        metrics = train_step(batch, generator)
+            batch["lr"] = float(lr_fn(it))
+        gen = None
+        if seed is not None and optimizer is not None:
+            gen = step_generator(seed, optimizer.count, device if device is not None else "cpu")
+        result = train_step(batch, gen)
+        if isinstance(result, tuple):
+            metrics, last_outputs = result
+            if discovery_fn is not None:
+                discovery_fn(last_outputs, batch)
+        else:
+            metrics = result
         pending.append(metrics["loss"])
+        iter_time.update(time.perf_counter() - t0)
         if it % log_every == 0:
             drain()
-            ms = (time.perf_counter() - t0) * 1e3 / (it + 1)
-            log(f"Epoch [{curr_epoch}] iter [{it}] loss {total / max(seen, 1):.4f} "
-                f"iter_time {ms:.0f}ms")
-    drain()
+            mem = ""
+            if cuda:
+                mem = f"; mem {torch.cuda.memory_allocated(device) / 2**30:.2f}GiB"
+            log(f"Epoch [{curr_epoch}] iter [{it}] loss {loss_avg.avg:.4f} "
+                f"iter_time {iter_time.avg * 1000:.0f}ms{mem}")
+            if logger is not None:
+                logger.log_scalars({k: float(v) for k, v in metrics.items()},
+                                   optimizer.count if optimizer is not None else it,
+                                   prefix="Train_details/")
+    if profiler is not None:
+        _stop_profile(profiler, profile_dir)
+    drain()  # the epoch's tail: the abort covers every step
     return metrics
+
+
+def _start_profile(cuda: bool):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profile(profiler, profile_dir: str) -> None:
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    profiler.export_chrome_trace(os.path.join(profile_dir, "train_trace.json"))
 
 
 def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=None,

@@ -1,37 +1,56 @@
-"""CLI entry point of the port: the eval of a detector (--test_only).
+"""CLI entry point of the port: training (do_train) and the eval of a
+detector (--test_only).
 
 Counterpart of coda_neurips2023_tpu/main.py, with the same flag set
 (`make_args_parser`, :25-320) and `reject_inert_flags` (:809), so the
 reference's scripts parse unchanged:
 
-    python -m coda_neurips2023_tpu_torch.main --test_only \
-        --model_name 3detr_predictedbox_distillation --dataset_name sunrgbd_image \
-        [--dataset_root_dir ... | --dataset_name synthetic] --test_ckpt model.pth \
-        --batchsize_per_gpu_test 32 ...
+    python -m coda_neurips2023_tpu_torch.main --dataset_name sunrgbd_anonymous_aligned_image \
+        --model_name 3detr_predictedbox_distillation ... --checkpoint_dir outputs/stage1
+    python -m coda_neurips2023_tpu_torch.main --test_only --test_ckpt model.pth ...
 
 `main` builds the dataset splits, the model and, for the CoDA model or
---if_with_clip, the frozen CLIP with its text banks (`build_everything`,
-:322-388: no optimizer, no mesh), then `test_model` (:663-704) runs the
-`real_test` split through `engine.evaluate` and prints the AP table of
-`APCalculator.metrics_to_str`, appending it to --log_file.  It runs on the
-card: `main(argv, device="cpu")` runs on the CPU instead (the device is a
-keyword of `main`, not a flag), and without a card the default raises.
+--if_with_clip, the frozen CLIP with its text banks, and for training the
+criterion, AdamW and its schedule (`build_everything`, :322-388; no mesh:
+one card, whatever --ngpus says, until DDP, ROADMAP Queue 1 item 8).  It
+runs on the card: `main(argv, device="cpu")` runs on the CPU instead (the
+device is a keyword of `main`, not a flag), and without a card the default
+raises.
 
-The model's weights come from --test_ckpt (a reference-format .pth,
-utils/io.py), else from a torch.Generator seeded with --seed
-(models.helpers.reset_parameters): a seeded draw of the port's own, not the
-JAX package's jax.random.PRNGKey draw, so the two packages' random models
-differ.
+Without --test_only, `do_train` (:390-646) trains as the JAX package does,
+in the same order and with the same file names: the resume from
+<checkpoint_dir>/checkpoint.pth, then --checkpoint_file, then --set_epoch;
+the epoch loop over `engine.train_one_epoch` with the learning rate of each
+iteration from the warm-up + cosine schedule, replayed from the start of
+every --reset_epoch_periodically cycle; stage 2's discovery on its save
+epochs (--online_nms_update_save_novel_label_clip_driven_with_cate_confidence);
+`checkpoint` every epoch and `checkpoint_{epoch:04d}` at
+--save_separate_checkpoint_every_epoch; the OV test eval (with
+`checkpoint_best` on its AP25), the `real_test` eval (eval_{epoch:04d}.lst)
+and the comparison-vocabulary eval (cmp_eval_{epoch:04d}.lst and .xlsx) at
+their cadences; `last_checkpoint`; and the final eval (final_eval.txt, .pkl
+and .xlsx).  Checkpoints are `.pth` files (utils/io.py).  With --test_only,
+`test_model` (:663-704) runs the `real_test` split through `engine.evaluate`
+and prints the AP table of `APCalculator.metrics_to_str`, appending it to
+--log_file.
+
+The model's weights start from a torch.Generator seeded with --seed
+(models.helpers.reset_parameters), then come from a checkpoint where one is
+given: a seeded draw of the port's own, not the JAX package's
+jax.random.PRNGKey draw, so the two packages' random models differ.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item that
-brings it: training (do_train: no --test_only), the secondary modes
-(--show_only, --save_novel_only, ...), --minitest_only (as in the JAX
-package, which has no such split either), the ScanNet datasets.
+brings it: the secondary modes (--show_only, --save_novel_only, ...),
+--minitest_only (as in the JAX package, which has no such split either), the
+ScanNet datasets, and in training --remat (activation checkpointing) and
+--if_two_phase_stage_step (not to port).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import pickle
 import sys
 
 
@@ -83,7 +102,7 @@ def make_args_parser():
     parser.add_argument(
         "--remat", default=False, action="store_true",
         help="per-transformer-layer activation checkpointing in training "
-             "(the JAX package's; training is not ported yet); not a reference flag",
+             "(the JAX package's; the port raises on it); not a reference flag",
     )
     parser.add_argument(
         "--if_two_phase_stage_step", default=False, action="store_true",
@@ -308,7 +327,7 @@ def make_args_parser():
     parser.add_argument("--save_separate_checkpoint_every_epoch", default=100, type=int)
     parser.add_argument("--log_file", default="log.lst", type=str)
     parser.add_argument("--profile_dir", default=None, type=str,
-                        help="capture a profiler trace of a few train iterations (training is not ported yet)")
+                        help="capture a torch.profiler trace of a few train iterations")
 
     ##### Distributed (one process until DDP, ROADMAP Queue 1 item 8) #####
     parser.add_argument("--ngpus", default=1, type=int)
@@ -378,10 +397,11 @@ _MODE_FLAGS = (
 )
 
 
-def build_everything(args, device="cuda"):
+def build_everything(args, device="cuda", train: bool = False):
     """The dataset splits, the model on `device` and, for the CoDA model or
     --if_with_clip, the StageContext (CLIP and its text banks), as the JAX
-    package's build_everything makes them for eval."""
+    package's build_everything makes them; with `train` also the criterion,
+    AdamW, its schedule and the iterations an epoch."""
     from coda_neurips2023_tpu_torch.datasets import build_dataset
     from coda_neurips2023_tpu_torch.models import build_model
     from coda_neurips2023_tpu_torch.stages import StageContext
@@ -396,6 +416,16 @@ def build_everything(args, device="cuda"):
             "--if_with_clip --if_input_image"
         )
     model, _ = build_model(args, dataset_config, device=device)
+    ctx = {}
+    if train:
+        from coda_neurips2023_tpu_torch.criterion import build_criterion
+        from coda_neurips2023_tpu_torch.optimizer import build_optimizer
+
+        # one card: iterations an epoch as len(train_loader) with drop_last
+        iters_per_epoch = max(max(len(datasets["train"]), 1) // args.batchsize_per_gpu, 1)
+        optimizer, schedule = build_optimizer(args, model, iters_per_epoch)
+        ctx.update(criterion=build_criterion(args, dataset_config), optimizer=optimizer,
+                   schedule=schedule, iters_per_epoch=iters_per_epoch)
     stage_ctx = None
     if args.model_name == "3detr_predictedbox_distillation" or args.if_with_clip:
         stage_ctx = StageContext(args, real_test_config, device=device)
@@ -412,7 +442,7 @@ def build_everything(args, device="cuda"):
                 f"(--test_num_semcls); check --test_range_max / "
                 f"--test_range_list / --asset_dir vocabulary"
             )
-    return {
+    ctx.update({
         "stage_ctx": stage_ctx,
         "datasets": datasets,
         "dataset_config": dataset_config,
@@ -420,7 +450,232 @@ def build_everything(args, device="cuda"):
         "real_cmp_config": real_cmp_config,
         "model": model,
         "device": device,
-    }
+    })
+    return ctx
+
+
+def _eval_step(args, ctx, bank: str = "test"):
+    """The eval step of the JAX package's do_train and test_model: CLIP crops
+    with --if_with_clip, else the text head against `bank` (or the sem head
+    without CLIP)."""
+    from coda_neurips2023_tpu_torch import engine
+
+    stage_ctx = ctx.get("stage_ctx")
+    if stage_ctx and args.if_with_clip:
+        return stage_ctx.make_clip_eval_step(ctx["model"], bank=bank)
+    return engine.make_eval_step(
+        ctx["model"],
+        eval_text_features=stage_ctx.text_banks[bank] if stage_ctx else None,
+        eval_logit_scale=stage_ctx.logit_scale if stage_ctx else 100.0,
+        eval_layer_id=args.eval_layer_id,
+    )
+
+
+def _evaluate(args, ctx, eval_step, split: str, config):
+    """`split` through `eval_step` into an APCalculator (batches of
+    --batchsize_per_gpu_test, the last padded)."""
+    from coda_neurips2023_tpu_torch import engine
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
+
+    loader = make_loader(
+        ctx["datasets"][split], args.batchsize_per_gpu_test, shuffle=False,
+        drop_last=False, pad_last=True, num_workers=max(args.dataset_num_workers_test, 1),
+    )
+    return engine.evaluate(eval_step, loader, config, device=ctx["device"],
+                           dataset_name=args.dataset_name)
+
+
+def do_train(args, ctx):
+    """The JAX package's do_train: the epoch loop, the checkpoint and eval
+    cadences, stage 2's periodic epoch reset and discovery, and the final
+    eval.  Returns the model."""
+    import torch
+
+    from coda_neurips2023_tpu_torch import engine
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.optimizer import make_lr_schedule
+    from coda_neurips2023_tpu_torch.utils import io
+    from coda_neurips2023_tpu_torch.utils.logger import Logger
+
+    if args.remat:
+        raise NotImplementedError("--remat (activation checkpointing) is not ported "
+                                  "(ROADMAP Queue 1 item 9)")
+    if args.if_two_phase_stage_step:
+        raise NotImplementedError("--if_two_phase_stage_step keeps XLA graphs small and is "
+                                  "not ported (ROADMAP, Not to port)")
+    if args.ngpus > 1:
+        print(f"note: one card; --ngpus {args.ngpus} is read as 1 until DDP "
+              "(ROADMAP Queue 1 item 8)")
+    model, criterion, optimizer = ctx["model"], ctx["criterion"], ctx["optimizer"]
+    device, datasets = ctx["device"], ctx["datasets"]
+    logger = Logger(args.checkpoint_dir)
+    train_loader = make_loader(
+        datasets["train"], args.batchsize_per_gpu, shuffle=True, seed=args.seed,
+        drop_last=True, num_workers=max(args.dataset_num_workers, 1),
+        use_processes=args.dataset_num_workers > 1,
+    )
+    with torch.no_grad():
+        reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
+    start_epoch = -1
+    if args.checkpoint_dir:
+        start_epoch, _ = io.resume_if_possible(args.checkpoint_dir, model, optimizer)
+    if args.checkpoint_file:
+        io.restore_params_only(args.checkpoint_file, model)
+    if args.set_epoch >= 0:
+        start_epoch = args.set_epoch - 1
+    start_epoch += 1
+    # The JAX package draws a sample batch from the loader to initialise its
+    # model (main.py:419), which moves the loader's epoch counter to 1: its
+    # epoch 0 shuffles with seed + 1.  The port's modules are built eagerly
+    # and need no sample, so it moves the counter itself, to take the same
+    # batches in the same order.  A resumed run continues the counter where
+    # the uninterrupted run would be (the JAX package restarts it at 1, so
+    # its resumed run does not repeat its uninterrupted one).
+    train_loader.epoch = start_epoch + 1
+
+    stage_ctx = ctx.get("stage_ctx")
+    run_discovery = (
+        stage_ctx is not None
+        and args.online_nms_update_save_novel_label_clip_driven_with_cate_confidence
+    )
+    if stage_ctx is not None and stage_ctx.needs_distillation():
+        train_step = stage_ctx.make_fused_train_step(
+            model, criterion, optimizer, return_last_outputs=run_discovery,
+            lr_schedule=ctx["schedule"],
+        )
+    else:
+        train_step = engine.make_train_step(
+            model, criterion, optimizer, lr_schedule=ctx["schedule"],
+            return_last_outputs=run_discovery,
+        )
+    discovery = stage_ctx.discovery_fn() if run_discovery else None
+    eval_step = _eval_step(args, ctx)
+    # the comparison-vocabulary eval (reference main.py:530-566)
+    cmp_eval_step = None
+    if stage_ctx and len(datasets.get("real_cmp_test", [])):
+        cmp_eval_step = _eval_step(args, ctx, bank="cmp")
+    best_ap25 = -1.0
+
+    # the per-iteration LR of the (reset) epoch: the warm-up + cosine
+    # schedule replays every reset_epoch_periodically epochs
+    ipe = ctx["iters_per_epoch"]
+    host_schedule = make_lr_schedule(args, ipe, host=True)
+
+    for epoch in range(start_epoch, args.max_epoch):
+        effective_epoch = epoch
+        if args.if_reset_epoch_periodically and args.reset_epoch_periodically > 0:
+            effective_epoch = epoch % args.reset_epoch_periodically
+
+        metrics = engine.train_one_epoch(
+            train_step, train_loader, curr_epoch=effective_epoch, log_every=args.log_every,
+            lr_fn=lambda it, _e=effective_epoch: host_schedule(_e * ipe + it),
+            device=device, optimizer=optimizer, seed=args.seed, all_epoch=epoch,
+            logger=logger, profile_dir=args.profile_dir if epoch == start_epoch else None,
+            discovery_fn=(
+                (lambda last, batch: stage_ctx.run_discovery_and_write(discovery, last, batch))
+                if run_discovery and stage_ctx.is_save_epoch(effective_epoch)
+                else None
+            ),
+        )
+        if metrics:
+            logger.log_scalars({k: float(v) for k, v in metrics.items()}, epoch, prefix="Train/")
+
+        if args.checkpoint_dir:
+            io.save_checkpoint(args.checkpoint_dir, model, optimizer, epoch)
+            if (
+                args.save_separate_checkpoint_every_epoch > 0
+                and epoch % args.save_separate_checkpoint_every_epoch == 0
+            ):
+                io.save_checkpoint(args.checkpoint_dir, model, optimizer, epoch,
+                                   filename=f"checkpoint_{epoch:04d}")
+
+        last_epoch = epoch == args.max_epoch - 1
+
+        # the OV test split, and checkpoint_best on its AP25
+        if ((epoch % args.eval_every_epoch == 0 and epoch > 0) or last_epoch) and len(
+            datasets["test"]
+        ):
+            ap = _evaluate(args, ctx, eval_step, "test", ctx["dataset_config"])
+            m = ap.compute_metrics()
+            print("==" * 10)
+            print(f"Evaluate Epoch [{epoch}/{args.max_epoch}]")
+            print(ap.metrics_to_str(m, per_class=True))
+            print("==" * 10)
+            ap25 = m[0.25].get("mAP", 0.0)
+            logger.log_scalars(ap.metrics_to_dict(m), epoch, prefix="Test/")
+            if ap25 > best_ap25 and args.checkpoint_dir:
+                best_ap25 = ap25
+                io.save_checkpoint(args.checkpoint_dir, model, optimizer, epoch, {"ap25": ap25},
+                                   "checkpoint_best")
+
+        # the closed-vocabulary real_test split
+        if ((epoch % args.real_eval_every_epoch == 0 and epoch > 0) or last_epoch) and len(
+            datasets["real_test"]
+        ):
+            ap = _evaluate(args, ctx, eval_step, "real_test", ctx["real_test_config"])
+            msg = ap.metrics_to_str(ap.compute_metrics(), per_class=False)
+            print(msg)
+            if args.checkpoint_dir:
+                with open(os.path.join(args.checkpoint_dir, "eval_%04d.lst" % epoch), "w") as f:
+                    f.write(msg)
+
+        # the comparison vocabulary, only when its cadence is at most max_epoch
+        # (the JAX package's deviation from the reference, main.py:562-566)
+        if (
+            cmp_eval_step is not None
+            and ((epoch % args.real_cmp_eval_every_epoch == 0 and epoch > 0) or last_epoch)
+            and args.real_cmp_eval_every_epoch <= args.max_epoch
+        ):
+            ap = _evaluate(args, ctx, cmp_eval_step, "real_cmp_test", ctx["real_cmp_config"])
+            m = ap.compute_metrics()
+            msg = ap.metrics_to_str(m)
+            print(msg)
+            if args.checkpoint_dir:
+                for thresh, suffix in ((0.25, "025"), (0.5, "05")):
+                    _export_metrics_excel(
+                        {thresh: m[thresh]},
+                        os.path.join(args.checkpoint_dir, f"cmp_eval_{epoch:04d}_{suffix}.xlsx"),
+                    )
+                with open(os.path.join(args.checkpoint_dir, "cmp_eval_%04d.lst" % epoch),
+                          "w") as f:
+                    f.write(msg)
+
+    if args.checkpoint_dir:
+        io.save_checkpoint(args.checkpoint_dir, model, optimizer, args.max_epoch - 1,
+                           filename="last_checkpoint")
+
+    # the final eval (reference main.py:578-623)
+    if len(datasets["real_test"]):
+        ap = _evaluate(args, ctx, eval_step, "real_test", ctx["real_test_config"])
+        metrics = ap.compute_metrics()
+        msg = ap.metrics_to_str(metrics)
+        print("==" * 10, "Final Eval Numbers", "==" * 10)
+        print(msg)
+        if args.checkpoint_dir:
+            with open(os.path.join(args.checkpoint_dir, "final_eval.txt"), "w") as f:
+                f.write(msg + "\n")
+            with open(os.path.join(args.checkpoint_dir, "final_eval.pkl"), "wb") as f:
+                pickle.dump(metrics, f)
+            _export_metrics_excel(metrics, os.path.join(args.checkpoint_dir, "final_eval.xlsx"))
+    logger.close()
+    return model
+
+
+def _export_metrics_excel(metrics: dict, path: str):
+    """A metric sheet of (iou_thresh, metric, value) rows (the reference's
+    pandas export, main.py:546-566).  pandas and openpyxl are optional: where
+    either is missing, it says so and writes nothing."""
+    try:
+        import pandas as pd
+
+        rows = []
+        for thresh, ret in metrics.items():
+            for k, v in ret.items():
+                rows.append({"iou_thresh": thresh, "metric": k, "value": float(v)})
+        pd.DataFrame(rows).to_excel(path, index=False)
+    except Exception as e:  # pandas or openpyxl may be absent
+        print(f"excel export skipped: {e}")
 
 
 def test_model(args, ctx):
@@ -443,16 +698,7 @@ def test_model(args, ctx):
         reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
     if args.test_ckpt:
         restore_params_only(args.test_ckpt, model)
-    stage_ctx = ctx.get("stage_ctx")
-    if stage_ctx and args.if_with_clip:
-        eval_step = stage_ctx.make_clip_eval_step(model)
-    else:
-        eval_step = engine.make_eval_step(
-            model,
-            eval_text_features=stage_ctx.text_banks["test"] if stage_ctx else None,
-            eval_logit_scale=stage_ctx.logit_scale if stage_ctx else 100.0,
-            eval_layer_id=args.eval_layer_id,
-        )
+    eval_step = _eval_step(args, ctx)
     ap = engine.evaluate(
         eval_step, loader, ctx["real_test_config"], device=device,
         dataset_name=args.dataset_name,
@@ -467,8 +713,9 @@ def test_model(args, ctx):
 
 
 def main(argv=None, device="cuda"):
-    """Parse `argv` (sys.argv[1:] when None) and run the eval on `device`;
-    returns test_model's metrics."""
+    """Parse `argv` (sys.argv[1:] when None) and run on `device`: the eval
+    with --test_only (returns test_model's metrics), else training (returns
+    the trained model)."""
     from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
     parser = make_args_parser()
@@ -487,12 +734,6 @@ def main(argv=None, device="cuda"):
             f"--{modes[0]}: the secondary modes (modes.py) are not ported yet "
             "(ROADMAP Queue 1 item 7)"
         )
-    if not args.test_only:
-        raise NotImplementedError(
-            "training (do_train: the epoch loop, checkpoint saving and the stage-2 "
-            "cycle) is not ported yet (ROADMAP Queue 1 items 3, 5 and 7); pass "
-            "--test_only to evaluate"
-        )
     if (
         args.model_name == "3detrmulticlasshead"
         and not args.if_with_clip
@@ -504,8 +745,10 @@ def main(argv=None, device="cuda"):
             "pass --if_with_clip or --test_num_semcls 1" % args.test_num_semcls
         )
     device = resolve_device(device)
-    ctx = build_everything(args, device=device)
-    return test_model(args, ctx)
+    ctx = build_everything(args, device=device, train=not args.test_only)
+    if args.test_only:
+        return test_model(args, ctx)
+    return do_train(args, ctx)
 
 
 if __name__ == "__main__":

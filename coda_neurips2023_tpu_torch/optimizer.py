@@ -18,9 +18,11 @@ optax chain, in its order:
     that are matrices in the flax tree (its ndim > 1 mask).
   * p += -lr * u, where lr is a runtime input of each step.
 
-The state (m, v and the step count) lives in the optimizer; the updates run
-as multi-tensor (`torch._foreach_*`) ops under no_grad, so a step launches a
-few dozen kernels, not a few per parameter.
+The state (m, v and the step count) lives in the optimizer, and
+`state_dict` / `load_state_dict` carry it by parameter name, so a resumed run
+goes on with the same moments and the same bias-correction step.  The
+updates run as multi-tensor (`torch._foreach_*`) ops under no_grad, so a
+step launches a few dozen kernels, not a few per parameter.
 """
 
 from __future__ import annotations
@@ -83,8 +85,12 @@ class AdamW:
     """The JAX package's optax chain over a list of parameters."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], weight_decay: float,
-                 clip_gradient: float = 0.0, decay_mask: List[bool] = None):
+                 clip_gradient: float = 0.0, decay_mask: List[bool] = None, *,
+                 names: List[str]):
         self.params = list(params)
+        self.names = list(names)
+        if len(self.names) != len(self.params):
+            raise ValueError("names needs one entry per parameter")
         self.weight_decay = float(weight_decay)
         self.clip_gradient = float(clip_gradient or 0.0)
         mask = [True] * len(self.params) if decay_mask is None else list(decay_mask)
@@ -94,6 +100,27 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def state_dict(self) -> dict:
+        """{"count": steps taken, "mu": {name: m}, "nu": {name: v}}; the
+        tensors are the optimizer's own (copy them to keep them)."""
+        return {"count": self.count, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` into this optimizer's moments, in place on
+        their device; the names must be this optimizer's."""
+        for key in ("mu", "nu"):
+            if set(state[key]) != set(self.names):
+                missing = sorted(set(self.names) - set(state[key]))
+                unexpected = sorted(set(state[key]) - set(self.names))
+                raise ValueError(f"optimizer state {key} does not match the parameters: "
+                                 f"missing={missing[:8]} unexpected={unexpected[:8]}")
+        for name, m, v in zip(self.names, self.mu, self.nu):
+            m.copy_(state["mu"][name])
+            v.copy_(state["nu"][name])
+        self.count = int(state["count"])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -150,5 +177,6 @@ def build_optimizer(args, model: torch.nn.Module, num_iters_per_epoch: int):
         # flax holds the attention input biases as (heads, head_dim): matrices there
         mask = [p.dim() > 1 or name.endswith("in_proj_bias") for name, p in named]
     opt = AdamW((p for _, p in named), args.weight_decay,
-                clip_gradient=getattr(args, "clip_gradient", 0.0), decay_mask=mask)
+                clip_gradient=getattr(args, "clip_gradient", 0.0), decay_mask=mask,
+                names=[name for name, _ in named])
     return opt, make_lr_schedule(args, num_iters_per_epoch)

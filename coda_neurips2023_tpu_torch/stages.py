@@ -1,5 +1,5 @@
-"""Stage wiring: the frozen CLIP, its text banks, the CLIP eval step and
-stage 1's training glue.
+"""Stage wiring: the frozen CLIP, its text banks, the CLIP eval step, stage
+1's training glue and stage 2's discovery glue.
 
 Counterpart of coda_neurips2023_tpu/stages.py :: StageContext: the part
 that builds CLIP and its text banks (:61-142); `make_clip_eval_step`
@@ -8,14 +8,16 @@ predicted box out of the scene's image and zero-shot classifies the crops
 with CLIP; and the training glue (:146-264, :357-414): the text bank the
 criterion reads, whether a run needs distillation targets, the targets
 function the train step calls on its own forward's last layer, and the
-fused stage-1 train step.
+fused stage-1 train step; and stage 2's discovery glue (:442-503): which
+epochs save pseudo labels, the discovery function over a step's last decoder
+layer (models/discovery.py) and the host writer behind it.
 
 The fused step is the reference's structure: one training forward; then,
 under no_grad, the distillation targets from that forward's detached last
 layer (so they see its dropout masks and BatchNorm update); then the
 criterion, the backward and the optimizer.  The JAX package's two-phase
 step (:416-438) runs the forward twice to keep each XLA graph small and is
-not ported.  Discovery (stage 2) is not ported yet.
+not ported.
 
 The crop selection is drawn from the step's generator
 (`models.distillation.select_distillation_boxes`); a batch that carries
@@ -36,10 +38,12 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from coda_neurips2023_tpu_torch.datasets.config import load_cmp_names, load_superset_names
 from coda_neurips2023_tpu_torch.engine import EVAL_KEYS, last_layer, make_train_step
+from coda_neurips2023_tpu_torch.models import discovery as discovery_mod
 from coda_neurips2023_tpu_torch.models.clip import CLIP, init_clip_parameters
 from coda_neurips2023_tpu_torch.models.distillation import (
     build_clip_distillation_targets,
@@ -114,6 +118,9 @@ class StageContext:
         )
         self.superset_prompts = banks.pop("superset_prompts", None)
         self.text_banks = {k: torch.from_numpy(v).to(self.device) for k, v in banks.items()}
+        # what the last run_discovery_and_write saw: discovery.GATES, the
+        # novel rows found and the rows written
+        self.last_discovery = None
 
     def to(self, device) -> "StageContext":
         """A copy of this context on `device`: its own copy of CLIP and the
@@ -245,6 +252,59 @@ class StageContext:
 
         return targets_step
 
+    # ------------------------------------------------------------ discovery glue
+
+    def is_save_epoch(self, curr_epoch: int) -> bool:
+        """Whether discovery runs in this (reset) epoch."""
+        a = self.args
+        return bool(
+            a.online_nms_update_save_novel_label_clip_driven_with_cate_confidence
+            and a.online_nms_update_save_epoch > 0
+            and curr_epoch % a.online_nms_update_save_epoch == 0
+        )
+
+    def discovery_fn(self):
+        """discovery(last_outputs, batch) -> discover_novel_boxes' dict on the
+        batch's device, against the superset bank with --if_clip_superset,
+        the test bank otherwise."""
+        args = self.args
+        bank = self.text_banks["superset"] if args.if_clip_superset else self.text_banks["test"]
+
+        def fn(last_outputs, batch):
+            return discovery_mod.discover_novel_boxes(
+                last_outputs, batch, self.clip_image_fn, bank, self.logit_scale,
+                train_range_max=args.train_range_max, save_objectness=args.save_objectness,
+                clip_driven_keep_thres=args.clip_driven_keep_thres, crop_size=self.crop_size,
+            )
+
+        return fn
+
+    def run_discovery_and_write(self, discovery, last_outputs, batch) -> int:
+        """Discovery on one training batch and the per-scan writer
+        (reference model_3detr.py:1506-1541); returns the novel rows found.
+        `batch` holds the step's tensors and, on the host, pseudo_box_path
+        (a list) and gt_ori_box_num.  The rows, the mask and the gate counts
+        come back to the host in one copy."""
+        if "input_image" not in batch or "pseudo_box_path" not in batch:
+            return 0
+        out = discovery(last_outputs, {k: v for k, v in batch.items()
+                                       if isinstance(v, torch.Tensor)})
+        info, mask, gates = out["save_box_info"], out["novel_mask"], out["gates"]
+        packed = torch.cat([info.reshape(-1), mask.reshape(-1).to(info.dtype),
+                            gates.to(info.dtype)]).cpu().numpy()
+        b, nq, width = info.shape
+        info = packed[: b * nq * width].reshape(b, nq, width)
+        mask = packed[b * nq * width: b * nq * (width + 1)].reshape(b, nq) > 0.5
+        written = discovery_mod.write_pseudo_labels(
+            info, mask, batch["pseudo_box_path"], np.asarray(batch["gt_ori_box_num"]),
+            accumulate=self.args.if_accumulate_former_pseudo_labels,
+        )
+        self.last_discovery = {
+            "gates": dict(zip(discovery_mod.GATES, packed[b * nq * (width + 1):].tolist())),
+            "rows": int(mask.sum()), "written": written,
+        }
+        return int(mask.sum())
+
     def make_clip_eval_step(self, model, bank: str = "test"):
         """Returns eval_step(batch) -> the six eval outputs, with sem_cls_prob
         from CLIP crops of the last decoder layer's boxes.
@@ -264,10 +324,9 @@ class StageContext:
                     f"novel slice is vocab rows 10:37); got {text.shape[0]}"
                 )
             text = text[10:37]
-        model.eval()
-
         @torch.inference_mode()
         def eval_step(batch: dict) -> dict:
+            model.eval()  # each call: a training loop puts the model back in training mode
             last = last_layer(model(batch), -1)
             if if_use_gt_box:
                 nq = last["objectness_prob"].shape[1]

@@ -545,7 +545,7 @@ def _args(extra=()):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ([], "Queue 1 items 3, 5 and 7"),
+    (["--dataset_name", "scannet_anonymous_aligned_image"], "Queue 1 item 4"),
     (["--test_only", "--show_only"], "Queue 1 item 7"),
     (["--test_only", "--cal_class_only"], "Queue 1 item 7"),
     (["--test_only", "--minitest_only"], "minitest"),

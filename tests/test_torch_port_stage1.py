@@ -320,9 +320,10 @@ def test_stage1_losses_match_jax(weights):
 
 def test_unported_stage2_losses_still_raise():
     with pytest.raises(NotImplementedError,
-                       match="loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi"):
-        build_criterion(_args(loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi_weight=1.0),
-                        SunrgbdAnonymousConfig())
+                       match="loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi"):
+        build_criterion(
+            _args(loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi_weight=1.0),
+            SunrgbdAnonymousConfig())
 
 
 # ---------------------------------------------------------------- (d) whole step
