@@ -114,6 +114,37 @@ result):
      written, checkpoint bytes and save ms, each eval's loop ms, the
      device's idle share over the epoch loop (1 - the steps' and discovery
      batches' device spans / the loop's wall time), peak memory.
+ 15. ScanNet on the card.  A fixture in ScanNet's on-disk layout is written
+     from a seed under build/phase15/ (SCANNET_TRAIN_SCANS train and
+     SCANNET_VAL_SCANS val scans of SCANNET_SCAN_POINTS points on the floor,
+     walls and boxes of 7 x 7 x 3 m rooms, raw ScanNet-200 ids from
+     scripts/coda_scannet_stage1.sh's lists, 4 x 4 poses and intrinsics).
+     (a) `main --test_only --test_ckpt` with test_release_models.sh's
+     scannet_stage1 row (60 classes, B=32) on the val scans, with phase 4's
+     weights (the angle heads cut to ScanNet's one bin) through a .pth, at
+     the CLI's 20000 points and at --num_points 40000, AP workers 8: scenes/s
+     loader to metrics, device ms a batch, host meter ms a batch, the idle
+     share; A-D launched per step as in phase 4 and no other kernel; the
+     first batch against the eval step on it within MXU_TOL; then kernel A
+     bit for bit against its plain version at 32 and 48 x 40000 -> 2048
+     (the cluster size it takes, and that the card runs that many clusters
+     at once) and kernel B at 32 x 40000 with 2048 centres, with kernel,
+     plain and bound ms.  (b) The ScanNet stage-1 training step through
+     StageContext.make_fused_train_step with coda_scannet_stage1.sh's flags
+     (--ngpus 1) at B=TRAIN_BATCH x 20000 points, random ViT-B/16, the 4 x 4
+     pose projection, batches from the port's ScannetDetectionDataset with
+     images; where OpenCV is not installed, a subclass defined here
+     replaces only `_load_image` with a seeded 968 x 1296 frame: step ms,
+     crops/s, E launched CLIP_LAYERS times a step; then phase 11's check on
+     2 scenes (rects, targets within CLIP_TOL, loss and gradients).
+ 16. The secondary modes through `main` with phase 4's weights on the
+     synthetic split (one batch of 32, the flagship at full width):
+     --show_only, --show_box_points, --save_novel_with_class_only (its
+     pseudo-label dir made), --save_seen_feat_only (with images) and
+     --cal_class_only: files written, ms and kernels launched; each mode's
+     first MODE_CPU_SCENES scenes again on the CPU: the same files, their
+     numbers within MODE_TOL, the confusion matrix equal.  --crop_only needs
+     OpenCV and is held on the CPU by tests/test_torch_port_modes.py.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -148,7 +179,9 @@ the stage-1 step's 8 scenes); the
 attention entry also carries the
 decoder shape's kernel, plain, library and bound times, the vit_attention
 entry those at 256 crops (stage1_*), the fps entry its cluster size and
-barrier floor at the main shape.  The last line is
+barrier floor at the main shape, and A and B their ScanNet rows
+(scannet_b32, scannet_b48), with scannet_cli_launches and
+scannet_stage1_launches beside train_cli_launches.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -885,14 +918,18 @@ def clip_cpu_phase(torch, ctx, detector, batch):
 def train_objects(torch, cfg, dropout: bool, device, seed, flags=None):
     """The baseline detector (or, with STAGE1_ARGS as `flags`, the CoDA
     detector), its criterion and optimizer on `device`, built as a training
-    run builds them.  The random weights are drawn on the card from `seed`,
-    so every device gets the same ones."""
+    run builds them; `flags` may also be a whole parsed namespace (a
+    script's).  The random weights are drawn on the card from `seed`, so
+    every device gets the same ones."""
     from coda_neurips2023_tpu_torch.criterion import build_criterion
     from coda_neurips2023_tpu_torch.models import build_model
     from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
     from coda_neurips2023_tpu_torch.optimizer import build_optimizer
 
-    args = types.SimpleNamespace(**{**FLAGSHIP_ARGS, **TRAIN_ARGS, **(flags or {})})
+    if isinstance(flags, types.SimpleNamespace) or hasattr(flags, "_get_kwargs"):
+        args = copy.copy(flags)
+    else:
+        args = types.SimpleNamespace(**{**FLAGSHIP_ARGS, **TRAIN_ARGS, **(flags or {})})
     if not dropout:
         args.mlp_dropout = args.enc_dropout = args.dec_dropout = 0.0
     model, _ = build_model(args, cfg, device=DEVICE)
@@ -1008,21 +1045,27 @@ def fused_step_keeping_targets(ctx, store, *args, **kw):
         del ctx.extra_targets_fn
 
 
-def stage1_phase(torch, cfg, batches):
-    """Phase 10: the stage-1 distillation training step at full width, G on."""
+def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_query_tile",
+                 title=None):
+    """Phase 10: the stage-1 distillation training step at full width, G on;
+    phase 15 runs it with ScanNet's script flags (`stage_args`, a parsed
+    namespace), the text banks of `bank_cfg` and kernel `bq`."""
     from coda_neurips2023_tpu_torch import _kernels
     from coda_neurips2023_tpu_torch.stages import StageContext
 
-    print(f"phase 10: stage-1 training step (3detr_predictedbox_distillation), {TRAIN_STEPS} steps "
-          f"of {TRAIN_BATCH} x {NUM_POINTS} points with {IMAGE_HW[0]} x {IMAGE_HW[1]} images, "
-          f"{N_SEL} crops a scene, CODA_BQ_ALGO=adaptive")
+    print(title or (
+        f"phase 10: stage-1 training step (3detr_predictedbox_distillation), {TRAIN_STEPS} steps "
+        f"of {TRAIN_BATCH} x {NUM_POINTS} points with {IMAGE_HW[0]} x {IMAGE_HW[1]} images, "
+        f"{N_SEL} crops a scene, CODA_BQ_ALGO=adaptive"))
+    flags = stage_args or STAGE1_ARGS
     t0 = time.perf_counter()
-    ctx = StageContext(types.SimpleNamespace(**STAGE1_ARGS), cfg, device=DEVICE,
+    ctx = StageContext(flags if stage_args else types.SimpleNamespace(**STAGE1_ARGS),
+                       bank_cfg or cfg, device=DEVICE,
                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
     print(f"  CLIP and the text bank {tuple(ctx.train_text_features.shape)} in "
           f"{time.perf_counter() - t0:.2f} s (once, outside the timed steps)")
     model, criterion, optimizer, schedule = train_objects(torch, cfg, True, DEVICE, SEED + 8,
-                                                          STAGE1_ARGS)
+                                                          flags)
     targets = {}
     step = fused_step_keeping_targets(ctx, targets, model, criterion, optimizer,
                                       lr_schedule=schedule)
@@ -1055,13 +1098,13 @@ def stage1_phase(torch, cfg, batches):
     if not all(p.isfinite().all() for p in model.parameters()):
         fail("parameters not finite after the stage-1 steps")
     print(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
-    for name in ("fps", "ball_query_tile", "gather", "attention", "vit_attention"):
+    for name in ("fps", bq, "gather", "attention", "vit_attention"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the stage-1 path")
-    for name in ("ball_query", "ball_query_group"):
+    for name in {"ball_query", "ball_query_group", "ball_query_tile"} - {bq}:
         if launches[name] != 0:
-            fail(f"kernel {name} was launched on the stage-1 path under CODA_BQ_ALGO=adaptive")
-    check_grid_launches(launches, "ball_query_tile", TRAIN_STEPS, "stage-1")
+            fail(f"kernel {name} was launched on the stage-1 path in {bq}'s place")
+    check_grid_launches(launches, bq, TRAIN_STEPS, "stage-1")
     if launches["vit_attention"] != TRAIN_STEPS * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{TRAIN_STEPS * CLIP_LAYERS} (one tower call of every step's crops)")
@@ -1080,13 +1123,16 @@ def safe_selection(torch, last, batch, gen):
     how many such boxes each scene has."""
     from coda_neurips2023_tpu_torch.ops.projection import (
         project_upright_depth_to_image,
+        project_world_to_image_scannet,
         unaugment_corners,
     )
 
     un = unaugment_corners(last["box_corners_xyz"], batch["scale_array"], batch["rot_array"],
-                           batch["flip_array"])
+                           batch["flip_array"], batch.get("zx_flip_array"))
     b, q = un.shape[:2]
-    uv, _ = project_upright_depth_to_image(un.reshape(b, q * 8, 3), batch["K"], batch["Rtilt"])
+    project = (project_world_to_image_scannet if batch["K"].shape[-1] == 4
+               else project_upright_depth_to_image)
+    uv, _ = project(un.reshape(b, q * 8, 3), batch["K"], batch["Rtilt"])
     hi = torch.stack([batch["ori_width"], batch["ori_height"]], -1).double()[:, None, None, :] - 1
     uv = torch.minimum(uv.reshape(b, q, 8, 2).double().clamp(min=0), hi)
     ext = torch.cat([uv.amin(2), uv.amax(2)], -1)  # the rect before truncation
@@ -1097,15 +1143,17 @@ def safe_selection(torch, last, batch, gen):
     return torch.argsort(key, dim=1)[:, :N_SEL], (~risky).sum(1).tolist()
 
 
-def stage1_cpu_phase(torch, cfg, ctx, batch):
-    """Phase 11: the stage-1 step, dropout 0, GPU vs CPU, same weights and crops."""
+def stage1_cpu_phase(torch, cfg, ctx, batch, stage_args=None, title=None):
+    """Phase 11: the stage-1 step, dropout 0, GPU vs CPU, same weights and
+    crops; phase 15 runs it with ScanNet's `stage_args`."""
     from coda_neurips2023_tpu_torch.engine import last_layer
     from coda_neurips2023_tpu_torch.models.distillation import crop_rects
 
-    print("phase 11: the stage-1 step on 2 scenes, GPU vs CPU (plain PyTorch), dropout 0")
+    print(title or "phase 11: the stage-1 step on 2 scenes, GPU vs CPU (plain PyTorch), dropout 0")
+    flags = stage_args or STAGE1_ARGS
     small = {k: v[:2] for k, v in batch.items()}
     model, criterion, optimizer, schedule = train_objects(torch, cfg, False, DEVICE, SEED + 10,
-                                                          STAGE1_ARGS)
+                                                          flags)
     with torch.no_grad():  # the boxes the step will crop, from a copy's training forward
         last = last_layer(copy.deepcopy(model)(small))
     sel, n_safe = safe_selection(torch, last, small, torch.Generator().manual_seed(SEED + 11))
@@ -1114,7 +1162,7 @@ def stage1_cpu_phase(torch, cfg, ctx, batch):
     for name, device, c in (("gpu", DEVICE, ctx), ("cpu", "cpu", ctx.to("cpu"))):
         if name == "cpu":
             model, criterion, optimizer, schedule = train_objects(torch, cfg, False, "cpu",
-                                                                  SEED + 10, STAGE1_ARGS)
+                                                                  SEED + 10, flags)
         targets = {}
         step = fused_step_keeping_targets(c, targets, model, criterion, optimizer,
                                           return_last_outputs=True, lr_schedule=schedule)
@@ -1237,7 +1285,7 @@ def cli_run(torch, argv, workers):
     return metrics, launches, dict(engine.EVAL_STATS), dict(ap_calculator.METER), seconds
 
 
-def check_cli_metrics(metrics, scans, stats, meter, what):
+def check_cli_metrics(metrics, scans, stats, meter, what, ncls_expected=EVAL_CLASSES):
     if stats["scans"] != scans or meter["scans"] != scans:
         fail(f"{what}: metered {stats['scans']} scans (parsed {meter['scans']}), expected {scans}")
     if meter["native_nms_scans"] != scans:
@@ -1246,7 +1294,7 @@ def check_cli_metrics(metrics, scans, stats, meter, what):
         fail(f"{what}: metric thresholds {sorted(metrics)}")
     for thresh, ret in metrics.items():
         ncls = sum(1 for k in ret if k.endswith(" Average Precision"))
-        if ncls not in (1, EVAL_CLASSES) or set(ret) != expected_metric_keys(ncls):
+        if ncls not in (1, ncls_expected) or set(ret) != expected_metric_keys(ncls):
             fail(f"{what}: IoU {thresh} keys differ from the JAX package's: {sorted(ret)[:12]}")
         bad = [k for k, v in ret.items() if not math.isfinite(float(v))]
         if bad:
@@ -1757,6 +1805,476 @@ def train_cli_phase(torch, root, smi):
     return total
 
 
+# phase 15: ScanNet on the card.  The fixture: scans in ScanNet's on-disk
+# layout (datasets/scannet.py), written from a seed under build/phase15/
+SCANNET_TRAIN_SCANS = 16
+SCANNET_VAL_SCANS = 64  # the eval split: 2 batches of 32
+SCANNET_SCAN_POINTS = 50000  # points a scan on disk, as ScanNet's frames
+SCANNET_ROOM = (7.0, 7.0, 3.0)  # metres
+SCANNET_IMAGE_HW = (968, 1296)  # ScanNet's colour frame, the scripts' --image_size_*
+SCANNET_CLASSES = 60
+SCANNET_EVAL_POINTS = (None, 40000)  # the CLI's default (20000), then the dataset class's own
+SCANNET_FPS_BATCHES = (32, 48)  # test_release_models.sh's and coda_baseline_scannet.sh's test batch
+SCANNET_CLI_WORKERS = 8
+# the scannet_stage1 row of test_release_models.sh on the fixture
+SCANNET_CLI_ARGS = [
+    "--test_only", "--dataset_name", "scannet_anonymous_aligned_image",
+    "--model_name", "3detr_predictedbox_distillation", "--calib_dir", "", "--image_dir", "",
+    "--test_num_semcls", "60", "--enc_dim", "256", "--dec_dim", "512", "--nqueries", "128",
+    "--num_semcls", "2", "--batchsize_per_gpu_test", "32", "--if_use_v1",
+    "--test_range_max", "60", "--seed", str(SEED),
+]
+# the angle heads' last layers: one bin on ScanNet, 12 on SUN RGB-D
+ANGLE_HEAD_OUT = ("mlp_heads.angle_cls_head.layers.8", "mlp_heads.angle_residual_head.layers.8")
+# phase 16: the modes through main on the synthetic split of MODE_SCENES // 4
+# scenes (one batch of 32), with phase 4's weights
+MODE_SCENES = 4 * BATCH
+MODE_CPU_SCENES = 2  # the first batch's scenes the CPU runs each mode on
+MODE_TOL = 1e-3  # GPU vs CPU: the files' numbers, as MODEL_TOL
+MODES = (
+    ("show_only", [], "show"),
+    ("show_box_points", [], "box_points"),
+    ("save_novel_with_class_only",
+     ["--online_nms_update_save_novel_label_clip_driven_with_cate_confidence",
+      "--if_input_image"], None),
+    ("save_seen_feat_only", ["--if_input_image"], "seen_feats"),
+    ("cal_class_only", [], None),
+)
+
+
+def script_lists(root, name):
+    """A script's flags (script_argv, the data paths dropped) with its
+    $TEST_RANGE_LIST expanded from the line that sets it."""
+    import shlex
+
+    text = open(os.path.join(root, "scripts", name)).read()
+    line = next(l for l in text.splitlines() if l.startswith("TEST_RANGE_LIST="))
+    values = shlex.split(line.split("=", 1)[1])[0].split()
+    out = []
+    for tok in script_argv(root, name, {"--ngpus": "1"}):
+        out += values if tok == "$TEST_RANGE_LIST" else [tok]
+    return out
+
+
+def write_scannet_fixture(root, args, seed):
+    """ScanNet's layout under `root`: scannet_frames_train (the scripts'
+    --dataset_root_dir) and the derived scannet_frames_val, each scan a
+    {scene}_{seq}_pc.npy of SCANNET_SCAN_POINTS x 6 (xyz on the floor, the
+    walls and the boxes' faces of a SCANNET_ROOM room, rgb), _bbox.npy
+    (centre, half extents, angle 0, a raw ScanNet-200 id from the script's
+    lists or one in neither), {scene}/pose/{seq}.txt (a 4 x 4
+    camera-to-world pose looking into the room) and
+    {scene}/intrinsic/intrinsic_color.txt (4 x 4).  Returns the train dir."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    novel = [c for c in args.test_range_list if c not in args.train_range_list]
+    ids = np.array(list(args.train_range_list) + novel[:60] + [1, 3])
+    lx, ly, lz = SCANNET_ROOM
+    h, w = SCANNET_IMAGE_HW
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = 1170.0
+    k[0, 2], k[1, 2] = w / 2 - 0.5, h / 2 - 0.5
+    for split, n in (("train", SCANNET_TRAIN_SCANS), ("val", SCANNET_VAL_SCANS)):
+        d = os.path.join(root, f"scannet_frames_{split}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            scene, seq = f"scene{i:04d}_{split == 'val':02d}", str(100 * i)
+            nb = int(rng.integers(4, 25))
+            boxes = np.zeros((nb, 8))
+            boxes[:, 3:6] = rng.uniform(0.15, 0.9, (nb, 3))
+            boxes[:, 0] = rng.uniform(-lx / 2 + 1, lx / 2 - 1, nb)
+            boxes[:, 1] = rng.uniform(-ly / 2 + 1, ly / 2 - 1, nb)
+            boxes[:, 2] = boxes[:, 5] + rng.uniform(0, 0.8, nb)
+            boxes[:, 7] = rng.choice(ids, nb)
+            m = SCANNET_SCAN_POINTS
+            which = rng.choice(3, m, p=(0.35, 0.3, 0.35))  # floor, walls, boxes
+            pts = np.stack([rng.uniform(-lx / 2, lx / 2, m), rng.uniform(-ly / 2, ly / 2, m),
+                            rng.uniform(0, lz, m)], 1)
+            pts[which == 0, 2] = 0.0
+            wall = which == 1
+            side = rng.integers(0, 4, m)
+            pts[wall & (side == 0), 0] = -lx / 2
+            pts[wall & (side == 1), 0] = lx / 2
+            pts[wall & (side == 2), 1] = -ly / 2
+            pts[wall & (side == 3), 1] = ly / 2
+            on_box = np.flatnonzero(which == 2)
+            b = rng.integers(0, nb, on_box.size)
+            u = rng.uniform(-1, 1, (on_box.size, 3))
+            face = rng.integers(0, 3, on_box.size)
+            u[np.arange(on_box.size), face] = rng.choice([-1.0, 1.0], on_box.size)
+            pts[on_box] = boxes[b, 0:3] + u * boxes[b, 3:6]
+            pc = np.concatenate([pts, rng.uniform(0, 255, (m, 3))], 1).astype(np.float32)
+            np.save(os.path.join(d, f"{scene}_{seq}_pc.npy"), pc)
+            np.save(os.path.join(d, f"{scene}_{seq}_bbox.npy"), boxes)
+            a = rng.uniform(-0.3, 0.3)
+            pose = np.eye(4)
+            pose[:3, :3] = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                                     [0, 0, 1]]) @ np.array([[1.0, 0, 0], [0, 0, 1], [0, -1, 0]])
+            pose[:3, 3] = [rng.uniform(-0.5, 0.5), -ly / 2 - 1.0, 1.5]
+            for sub, fname, mat in (("pose", f"{seq}.txt", pose),
+                                    ("intrinsic", "intrinsic_color.txt", k)):
+                os.makedirs(os.path.join(d, scene, sub), exist_ok=True)
+                np.savetxt(os.path.join(d, scene, sub, fname), mat, fmt="%.6f")
+    return os.path.join(root, "scannet_frames_train")
+
+
+def seeded_image_scannet():
+    """The port's ScannetDetectionDataset with `_load_image` alone replaced:
+    a seeded SCANNET_IMAGE_HW BGR frame (by the scan's name) turned to RGB,
+    in place of the .jpg that OpenCV would decode, so that a GPU machine
+    without cv2 runs the phase all the same.
+    Everything else is the package's."""
+    import zlib
+
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch.datasets.scannet import ScannetDetectionDataset
+
+    class SeededImageScannet(ScannetDetectionDataset):
+        def _load_image(self, data_name):
+            rng = np.random.default_rng(zlib.crc32(data_name.encode()))
+            bgr = rng.integers(0, 256, (*SCANNET_IMAGE_HW, 3), dtype=np.uint8)
+            name = os.path.join(self.data_path, data_name) + ".jpg"
+            return np.ascontiguousarray(bgr[..., ::-1]), name, SCANNET_IMAGE_HW, (0, 0)
+
+    return SeededImageScannet
+
+
+def scannet_kernel_rows(torch, train_dir, results):
+    """Kernels A and B against their plain versions on ScanNet scans at
+    40000 points: A at 32 and 48 scenes (2048 centres, the cluster size its
+    policy takes and whether the card runs that many clusters at once), B at
+    32 scenes (r 0.2, k 64 on A's centres); kernel and plain ms, the bound."""
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch.datasets.config import ScannetAnonymousConfig
+    from coda_neurips2023_tpu_torch.datasets.scannet import ScannetDetectionDataset
+    from coda_neurips2023_tpu_torch.ops import grouping, sampling
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    ds = ScannetDetectionDataset(ScannetAnonymousConfig(), "val", root_dir=train_dir,
+                                 num_points=SCANNET_POINTS, seed=SEED)
+    n = max(SCANNET_FPS_BATCHES)
+    xyz = np.stack([ds[i % len(ds)]["point_clouds"][:, :3] for i in range(n)])
+    xyz = torch.from_numpy(xyz).cuda().contiguous()
+    sm = multi_processor_count(xyz.device)
+    for b in SCANNET_FPS_BATCHES:
+        x = xyz[:b].contiguous()
+        cs = sampling.fps_cluster_size(b, SCANNET_POINTS, sm,
+                                       lambda c: sampling.resident_clusters(x.device, c))
+        resident = sampling.resident_clusters(x.device, cs)
+        got = sampling.furthest_point_sample(x, 2048)
+        want = sampling.furthest_point_sample_plain(x, 2048)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fps B={b} N={SCANNET_POINTS}: kernel differs from the plain version")
+        if resident < b:
+            fail(f"fps B={b} N={SCANNET_POINTS}: the card runs {resident} clusters of {cs} at "
+                 f"once, fewer than the {b} scenes")
+        ms = time_ms(torch, lambda: sampling.furthest_point_sample(x, 2048))
+        plain = time_ms(torch, lambda: sampling.furthest_point_sample_plain(x, 2048), reps=3)
+        bnd = bound(FPS_OPS * b * 2047 * SCANNET_POINTS, 12 * b * SCANNET_POINTS + 4 * b * 2048)
+        print(f"  fps              B={b} N={SCANNET_POINTS} -> 2048, cluster of {cs} "
+              f"({resident} such clusters run at once) max_abs_err=0.0 kernel_ms={ms!r} "
+              f"plain_ms={plain!r} bound_ms={bnd[0]!r} ({bnd[1]})")
+        results["fps"][f"scannet_b{b}"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                               bound_by=bnd[1], cluster_size=cs,
+                                               resident_clusters=resident)
+        if b == 32:
+            centres = sampling.gather_points(x, got)
+    b = 32
+    x = xyz[:b].contiguous()
+    got = grouping.ball_query(0.2, 64, x, centres)
+    want = grouping.ball_query_plain(0.2, 64, x, centres)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"ball_query B={b} N={SCANNET_POINTS}: kernel differs from the plain version")
+    ms = time_ms(torch, lambda: grouping.ball_query(0.2, 64, x, centres))
+    plain = time_ms(torch, lambda: grouping.ball_query_plain(0.2, 64, x, centres), reps=3)
+    bnd, _ = ball_query_bound(torch, 0.2, 64, x, centres)
+    cap = grouping.grid_cap(SCANNET_POINTS)
+    print(f"  ball_query       B={b} N={SCANNET_POINTS} M=2048 r=0.2 k=64 (cells capped at "
+          f"{cap}) max_abs_err=0.0 kernel_ms={ms!r} plain_ms={plain!r} bound_ms={bnd[0]!r} "
+          f"({bnd[1]})")
+    results["ball_query"][f"scannet_b{b}"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                                  bound_by=bnd[1])
+
+
+def scannet_eval_phase(torch, root, ckpt4, launches4, results):
+    """Phase 15 (a): the eval entry point on ScanNet fixture scans."""
+    from coda_neurips2023_tpu_torch import _kernels, engine
+    from coda_neurips2023_tpu_torch.datasets.config import ScannetAnonymousConfig
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.main import make_args_parser
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+
+    out_dir = _kernels.BUILD_DIR.parent / "phase15"
+    args = make_args_parser().parse_args(script_lists(root, "coda_scannet_stage1.sh"))
+    t0 = time.perf_counter()
+    train_dir = write_scannet_fixture(str(out_dir), args, SEED)
+    print(f"phase 15: ScanNet fixture ({SCANNET_TRAIN_SCANS} train and {SCANNET_VAL_SCANS} val "
+          f"scans of {SCANNET_SCAN_POINTS} points, 4 x 4 poses) written in "
+          f"{time.perf_counter() - t0:.2f} s under {out_dir}")
+    # phase 4's weights with the angle heads cut to ScanNet's one bin
+    sd = torch.load(ckpt4, map_location="cpu")["model"]
+    for prefix in ANGLE_HEAD_OUT:
+        for suffix in (".weight", ".bias"):
+            sd[prefix + suffix] = sd[prefix + suffix][:1].clone()
+    ckpt = out_dir / "model.pth"
+    torch.save({"model": sd}, ckpt)
+    model = CoDA3DETR(ScannetAnonymousConfig(), device="cuda")
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    scenes_per_step = -(-SCANNET_VAL_SCANS // BATCH)
+    per_step = {name: launches4[name] // STEPS for name in ("fps", "ball_query", "gather",
+                                                            "attention")}
+    for points in SCANNET_EVAL_POINTS:
+        what = f"--num_points {points}" if points else "the CLI's --num_points (20000)"
+        print(f"  (a) main --test_only, the scannet_stage1 row of test_release_models.sh, "
+              f"{SCANNET_VAL_SCANS} val scans at {what}, B={BATCH}, {SCANNET_CLASSES} classes")
+        argv = SCANNET_CLI_ARGS + ["--dataset_root_dir", train_dir, "--test_ckpt", str(ckpt),
+                                   "--log_file", str(out_dir / f"eval_{points or 20000}.lst")]
+        if points:
+            argv += ["--num_points", str(points)]
+        with recording_eval_step(engine, {}) as store:
+            metrics, launches, stats, meter, seconds = cli_run(torch, argv, SCANNET_CLI_WORKERS)
+        check_cli_metrics(metrics, SCANNET_VAL_SCANS, stats, meter, what, SCANNET_CLASSES)
+        batch, got = store["first"]
+        n_pts = batch["point_clouds"].shape[1]
+        if n_pts != (points or NUM_POINTS):
+            fail(f"ScanNet eval at {what} read {n_pts} points a scan")
+        print(f"    launches: {launches}")
+        for name, n in per_step.items():
+            if launches[name] != n * scenes_per_step:
+                fail(f"{name} launched {launches[name]} times in {scenes_per_step} ScanNet "
+                     f"steps, phase 4 {n} a step")
+        others = {k: v for k, v in launches.items() if k not in per_step and v}
+        if others:
+            fail(f"kernels off the detector eval path launched: {others}")
+        results.setdefault("scannet_cli_launches", {})[points or NUM_POINTS] = launches
+        want = make_eval_step(model, eval_text_features=store["bank"],
+                              eval_logit_scale=100.0)(batch)
+        err = max((got[k] - want[k]).abs().max().item() for k in want)
+        print(f"    first batch ({tuple(batch['point_clouds'].shape)}) vs the eval step on it: "
+              f"max_abs_err={err!r}")
+        if not err <= MXU_TOL:
+            fail(f"ScanNet CLI's first batch differs from the eval step by {err!r} > {MXU_TOL}")
+        report_loop(stats, meter, seconds, SCANNET_CLI_WORKERS)
+    os.environ.pop("CODA_AP_WORKERS", None)
+    print(f"  (a) kernels A and B at ScanNet's {SCANNET_POINTS} points, against their plain "
+          "versions")
+    with torch.inference_mode():
+        scannet_kernel_rows(torch, train_dir, results)
+    return train_dir, args
+
+
+def scannet_stage1_phase(torch, train_dir, args):
+    """Phase 15 (b): the ScanNet stage-1 training step, and GPU vs CPU."""
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch.datasets import build_dataset
+    from coda_neurips2023_tpu_torch.datasets.loader import collate
+
+    args.dataset_root_dir = train_dir
+    _, cfg, real_cfg, _ = build_dataset(args)
+    print("phase 15 (b): the ScanNet stage-1 step: scripts/coda_scannet_stage1.sh's flags "
+          f"(--ngpus 1), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {args.num_points} points with "
+          f"{SCANNET_IMAGE_HW[0]} x {SCANNET_IMAGE_HW[1]} images, {args.distillation_box_num} "
+          "crops a scene, the 4 x 4 pose projection, the default ball query (kernel B)")
+    print("  no OpenCV needed: the batches come from ScannetDetectionDataset with "
+          "_load_image alone replaced by a seeded 968 x 1296 frame (chip_smoke.py)")
+    ds = seeded_image_scannet()(
+        cfg, "train", root_dir=train_dir, num_points=args.num_points, use_color=args.use_color,
+        augment=True, if_input_image=True, if_image_augment=args.if_image_augment,
+        anonymous=True, confidence_type_in_datalayer=args.confidence_type_in_datalayer,
+        pseudo_setting=args.pseudo_setting, seed=SEED)
+    t0 = time.perf_counter()
+    batches = []
+    for i in range(TRAIN_STEPS + 1):
+        host = collate([ds[(i * TRAIN_BATCH + j) % len(ds)] for j in range(TRAIN_BATCH)])
+        batches.append({k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                        for k, v in host.items() if not isinstance(v, list)})
+    print(f"  {len(batches)} batches from the dataset in {time.perf_counter() - t0:.2f} s; "
+          f"K {tuple(batches[0]['K'].shape)}, Rtilt (the pose) {tuple(batches[0]['Rtilt'].shape)}, "
+          f"XZ flips {int((batches[0]['zx_flip_array'] < 0).sum())} of {TRAIN_BATCH}")
+    launches, ctx = stage1_phase(
+        torch, cfg, batches, stage_args=args, bank_cfg=real_cfg, bq="ball_query",
+        title="  the stage-1 step (3detr_predictedbox_distillation at the script's widths)")
+    stage1_cpu_phase(torch, cfg, ctx, batches[0], stage_args=args,
+                     title="  the ScanNet stage-1 step on 2 scenes, GPU vs CPU (plain PyTorch), "
+                           "dropout 0")
+    return launches
+
+
+def mode_files(directory, scans):
+    """{name: path} of a mode's files for the scan indices `scans`."""
+    if directory is None or not os.path.isdir(directory):
+        return {}
+    keys = [f"{s:06d}" for s in scans]
+    return {f: os.path.join(directory, f) for f in sorted(os.listdir(directory))
+            if any(k in f for k in keys)}
+
+
+def only_face_points(got, want, row):
+    """Whether the points one device's in-hull test kept and the other's did
+    not all lie within MODE_TOL of the faces of the box `row` (centre, size,
+    heading, objectness): the two devices' boxes differ by about 1e-5 m, so
+    a point on a face may fall on either side.  The heading's sign is the
+    one that puts every kept point inside the box."""
+    import numpy as np
+
+    diff = np.array(sorted({tuple(p) for p in got} ^ {tuple(p) for p in want}), np.float64)
+    centre, half, angle = row[:3], row[3:6] / 2, row[6]
+    for sign in (1.0, -1.0):
+        c, s = np.cos(sign * angle), np.sin(sign * angle)
+
+        def local(p):
+            d = np.asarray(p, np.float64).reshape(-1, 3) - centre
+            return np.stack([c * d[:, 0] - s * d[:, 1], s * d[:, 0] + c * d[:, 1], d[:, 2]], 1)
+
+        if (np.abs(local(want)) <= half + MODE_TOL).all():
+            excess = np.abs(local(diff)) - half  # > 0 outside a face's plane
+            return bool((excess.max(1) <= MODE_TOL).all()
+                        and (np.abs(excess).min(1) <= MODE_TOL).all())
+    return False
+
+
+def compare_mode_files(got, want, what):
+    """The GPU's files for the CPU's scenes: the same names, numbers within
+    MODE_TOL (text numbers, .npy arrays); a box's points (`_pred_pc.npy`)
+    the same but for points on its faces (only_face_points)."""
+    import re
+
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        fail(f"{what}: the GPU wrote {sorted(got)[:6]}, the CPU {sorted(want)[:6]}")
+    number = re.compile(r"-?\d+\.\d+")
+    worst, face_points = 0.0, 0
+    for name in want:
+        if name.endswith("_pred_pc.npy"):
+            g, w = np.load(got[name]), np.load(want[name])
+            if g.shape != w.shape or not np.array_equal(g, w):
+                row = np.load(want[name].replace("_pred_pc.npy", "_pred_box.npy"))[0]
+                if not only_face_points(g, w, row):
+                    fail(f"{what}: {name} holds other points on the GPU ({len(g)}) than on "
+                         f"the CPU ({len(w)}), not only points on the box's faces")
+                face_points += abs(len(g) - len(w))
+            continue
+        if name.endswith(".npy"):
+            g, w = np.load(got[name]), np.load(want[name])
+        else:
+            gt, wt = open(got[name]).read(), open(want[name]).read()
+            if number.sub("#", gt) != number.sub("#", wt):
+                fail(f"{what}: {name} differs beyond its numbers")
+            g = np.array(number.findall(gt), np.float64)
+            w = np.array(number.findall(wt), np.float64)
+        if g.shape != w.shape:
+            fail(f"{what}: {name} shape {g.shape} on the GPU, {w.shape} on the CPU")
+        if g.size:
+            worst = max(worst, float(np.abs(g - w).max()))
+    if not worst <= MODE_TOL:
+        fail(f"{what}: the GPU's files differ from the CPU's by {worst!r} > {MODE_TOL}")
+    if face_points:
+        print(f"    {face_points} point(s) on a box's face kept by one device only")
+    return worst
+
+
+def modes_phase(torch, ckpt4):
+    """Phase 16: the secondary modes through main on the card, and each
+    mode's first scenes on the CPU."""
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch import _kernels, modes
+    from coda_neurips2023_tpu_torch.datasets import build_dataset
+    from coda_neurips2023_tpu_torch.datasets.config import SunrgbdAnonymousConfig
+    from coda_neurips2023_tpu_torch.datasets.loader import collate
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.main import make_args_parser
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.stages import StageContext
+    from coda_neurips2023_tpu_torch.utils.io import restore_params_only
+
+    scenes = MODE_SCENES // 4
+    out_dir = _kernels.BUILD_DIR.parent / "phase16"
+    print(f"phase 16: the secondary modes through main --test_ckpt (phase 4's weights) on "
+          f"{scenes} synthetic scenes, B={BATCH}, the flagship at full width; each mode's first "
+          f"{MODE_CPU_SCENES} scenes also on the CPU")
+    print("  --crop_only writes PNGs with OpenCV, which a GPU machine may lack: the CPU tests "
+          "(tests/test_torch_port_modes.py) hold it")
+    base = [a for a in CLI_ARGS if a != "--test_only"]
+    for mode, extra, sub in MODES:
+        run_dir = out_dir / mode
+        argv = ["--test_only", f"--{mode}", *extra, *base, "--synthetic_num_scenes",
+                str(MODE_SCENES), "--test_ckpt", str(ckpt4), "--checkpoint_dir", str(run_dir)]
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = cli_main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        files = sorted(os.listdir(run_dir / sub)) if sub else []
+        shown = result.sum() if mode == "cal_class_only" else result
+        print(f"  --{mode}: {ms!r} ms (main, the split's build included); returned "
+              f"{'a confusion matrix of ' if mode == 'cal_class_only' else ''}{shown!r}; "
+              f"{len(files)} files {files[:4]}{' ...' if len(files) > 4 else ''}; "
+              f"launches {launches}")
+        # the seen features crop the ground truth's boxes: no detector forward
+        needed = {"save_seen_feat_only": ("vit_attention",),
+                  "save_novel_with_class_only": ("fps", "ball_query", "gather", "attention",
+                                                 "vit_attention")}
+        for name in needed.get(mode, ("fps", "ball_query", "gather", "attention")):
+            if launches.get(name, 0) <= 0:
+                fail(f"--{mode}: kernel {name} was not launched")
+        if sub and not files:
+            fail(f"--{mode} wrote no file")
+
+        # the same mode on the CPU, on the first scenes of the first batch
+        args = make_args_parser().parse_args(argv)
+        datasets, _, real_cfg, _ = build_dataset(args)
+        host = collate([datasets["test"][i] for i in range(MODE_CPU_SCENES)])
+        cpu_model = restore_params_only(str(ckpt4), CoDA3DETR(SunrgbdAnonymousConfig(),
+                                                              device="cpu"))
+        cpu_dir = out_dir / f"{mode}_cpu"
+        if mode == "show_only":
+            got = modes.show_boxes(cpu_model, [host], str(cpu_dir), device="cpu")
+        elif mode == "show_box_points":
+            got = modes.save_box_points(cpu_model, [host], str(cpu_dir), device="cpu")
+        elif mode == "cal_class_only":
+            gpu_model = restore_params_only(str(ckpt4), CoDA3DETR(SunrgbdAnonymousConfig(),
+                                                                  device="cuda"))
+            bank = StageContext(args, real_cfg, device="cuda").text_banks["test"]
+            want = modes.calculate_class_confusion(
+                make_eval_step(gpu_model, eval_text_features=bank), [host], args.test_num_semcls,
+                device="cuda")
+            got = modes.calculate_class_confusion(
+                make_eval_step(cpu_model, eval_text_features=bank.cpu()), [host],
+                args.test_num_semcls, device="cpu")
+            if not np.array_equal(got, want):
+                fail(f"--{mode}: the confusion of the first {MODE_CPU_SCENES} scenes differs "
+                     "between GPU and CPU")
+            print(f"    CPU, first {MODE_CPU_SCENES} scenes: the confusion matrix equal to the "
+                  f"GPU's ({int(got.sum())} boxes counted)")
+            continue
+        else:
+            ctx = StageContext(args, real_cfg, device="cuda").to("cpu")
+            if mode == "save_seen_feat_only":
+                got = modes.save_seen_feats(cpu_model, [host], ctx, str(cpu_dir), device="cpu")
+            else:
+                got = modes.save_novel_boxes(cpu_model, [host], ctx, device="cpu")
+                print(f"    CPU, first {MODE_CPU_SCENES} scenes: {got} novel rows (the test "
+                      "split has no pseudo-label paths, so neither writes a file)")
+                continue
+        scans = [int(s) for s in host["scan_idx"]]
+        worst = compare_mode_files(mode_files(run_dir / sub, scans), mode_files(cpu_dir, scans),
+                                   f"--{mode}")
+        print(f"    CPU, first {MODE_CPU_SCENES} scenes: {got} written, the same files as the "
+              f"GPU's, numbers max_abs_err={worst!r}")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -1939,6 +2457,13 @@ def main():
     cli_launches = cli_phase(torch, model, launches4)
     del model
     train_cli_launches = train_cli_phase(torch, root, smi)
+    ckpt4 = _kernels.BUILD_DIR.parent / "phase13" / "model.pth"
+    t0 = time.perf_counter()
+    train_dir, scannet_args = scannet_eval_phase(torch, root, ckpt4, launches4, results)
+    launches15 = scannet_stage1_phase(torch, train_dir, scannet_args)
+    t1 = time.perf_counter()
+    modes_phase(torch, ckpt4)
+    print(f"phase 15 took {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s")
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -1952,6 +2477,8 @@ def main():
             "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
             **({"cli_launches": cli_launches[name]} if name in CLI_KERNELS else {}),
             "train_cli_launches": train_cli_launches[name],
+            "scannet_cli_launches": results["scannet_cli_launches"][NUM_POINTS].get(name, 0),
+            "scannet_stage1_launches": launches15[name],
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()

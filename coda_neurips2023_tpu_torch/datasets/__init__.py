@@ -1,13 +1,16 @@
 """Dataset registry and split construction (host numpy pipelines).
 
-Counterpart of coda_neurips2023_tpu/datasets/__init__.py :: build_dataset
-(:102-196), for the SUN RGB-D family and the data-free synthetic scenes.  It
-makes the reference's four splits: train and test on the OV-anonymous
-config, `real_test` on the named eval config (46 classes for SUN RGB-D),
-`real_cmp_test` on the OV-3DETR comparison vocabulary.  Without
---dataset_root_dir (or with --dataset_name synthetic) the splits are
-synthetic scenes of the same contract (datasets/synthetic.py).  The ScanNet
-family is not ported yet and raises.
+Counterpart of coda_neurips2023_tpu/datasets/__init__.py :: build_dataset,
+for the SUN RGB-D and ScanNet families and the data-free synthetic scenes.
+It makes the reference's four splits: train and test on the OV-anonymous
+config, `real_test` on the named eval config (46 classes for SUN RGB-D, 60
+for ScanNet), `real_cmp_test` on the OV-3DETR comparison vocabulary.
+Without --dataset_root_dir (or with --dataset_name synthetic) the splits are
+synthetic scenes of the same contract (datasets/synthetic.py); a ScanNet
+name then keeps ScanNet's configs (axis-aligned boxes, the raw-id
+vocabulary).  ScanNet's splits read `getattr(args, "num_points", 40000)`:
+the CLI's --num_points defaults to 20000, so the scripts, which do not set
+it, load 20,000 points a scan.
 """
 
 from __future__ import annotations
@@ -15,10 +18,14 @@ from __future__ import annotations
 import os
 
 from coda_neurips2023_tpu_torch.datasets.config import (
+    Scannet50ImageConfig,
+    ScannetAnonymousConfig,
+    ScannetCmpImageConfig,
     SunrgbdAnonymousConfig,
     SunrgbdCmpImageConfig,
     SunrgbdImageConfig,
 )
+from coda_neurips2023_tpu_torch.datasets.scannet import ScannetDetectionDataset
 from coda_neurips2023_tpu_torch.datasets.sunrgbd import SunrgbdDetectionDataset
 from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset
 
@@ -56,22 +63,51 @@ def _sunrgbd_cfg(args, anonymous=True, num_semcls=None, cmp_vocab=False):
     return SunrgbdImageConfig(**kw)
 
 
+def _scannet_cfg(args, anonymous=True, num_semcls=None, cmp_vocab=False):
+    """ScanNet's anonymous training config, its named eval config, or with
+    `cmp_vocab` the 19-class comparison config.  The raw ScanNet-200 id
+    lists come from --train_range_list/--test_range_list (-1 when unset)."""
+    ranges = dict(
+        asset_dir=getattr(args, "asset_dir", None),
+        train_range=(args.train_range_min, args.train_range_max),
+        test_range=(args.test_range_min, args.test_range_max),
+    )
+    if cmp_vocab:
+        return ScannetCmpImageConfig(**ranges)
+    tlist = getattr(args, "train_range_list", -1)
+    elist = getattr(args, "test_range_list", -1)
+    has_lists = isinstance(tlist, (list, tuple)) and isinstance(elist, (list, tuple))
+    lists = dict(
+        train_range_list=list(tlist) if has_lists else None,
+        test_range_list=list(elist) if has_lists else None,
+    )
+    if anonymous:
+        return ScannetAnonymousConfig(**ranges, **lists)
+    return Scannet50ImageConfig(
+        num_semcls=num_semcls if num_semcls is not None else args.test_num_semcls,
+        reset_scannet_num=getattr(args, "reset_scannet_num", 50),
+        **ranges,
+        **lists,
+    )
+
+
 def build_dataset(args):
     """Returns (datasets {train, test, real_test, real_cmp_test},
     dataset_config, real_test_config, real_cmp_config)."""
     name = args.dataset_name
     if name not in DATASET_NAMES:
         raise ValueError(f"unknown dataset {name}")
-    if name.startswith("scannet"):
-        raise NotImplementedError(
-            f"--dataset_name {name}: the ScanNet family (its configs, dataset and "
-            "projection) is not ported yet (ROADMAP Queue 1 item 4)"
-        )
+    scannet = name.startswith("scannet")
 
     if name == "synthetic" or args.dataset_root_dir is None:
-        cmp_cfg = _sunrgbd_cfg(args, cmp_vocab=True)
-        cfg = cmp_cfg if name == "sunrgbd_cmp_image" else _sunrgbd_cfg(args, anonymous=True)
-        real_cfg = _sunrgbd_cfg(args, anonymous=False)
+        if scannet:
+            cmp_cfg = _scannet_cfg(args, cmp_vocab=True)
+            cfg = cmp_cfg if name == "scannet_cmp_image" else _scannet_cfg(args, anonymous=True)
+            real_cfg = _scannet_cfg(args, anonymous=False)
+        else:
+            cmp_cfg = _sunrgbd_cfg(args, cmp_vocab=True)
+            cfg = cmp_cfg if name == "sunrgbd_cmp_image" else _sunrgbd_cfg(args, anonymous=True)
+            real_cfg = _sunrgbd_cfg(args, anonymous=False)
 
         def mk(config, **kw):
             return SyntheticDetectionDataset(
@@ -103,6 +139,37 @@ def build_dataset(args):
             "real_cmp_test": mk(cmp_cfg, num_scenes=n_eval, seed=args.seed + 3),
         }
         return datasets, cfg, real_cfg, cmp_cfg
+
+    if scannet:
+        cmp_cfg = _scannet_cfg(args, cmp_vocab=True)
+        cmp_primary = name == "scannet_cmp_image"
+        anon_cfg = cmp_cfg if cmp_primary else _scannet_cfg(args, anonymous=True)
+        real_cfg = _scannet_cfg(args, anonymous=False)
+        common = dict(
+            root_dir=args.dataset_root_dir,
+            num_points=getattr(args, "num_points", 40000),
+            use_color=args.use_color,
+            if_input_image=args.if_input_image,
+            confidence_type_in_datalayer=args.confidence_type_in_datalayer,
+            pseudo_setting=args.pseudo_setting,
+        )
+        datasets = {
+            "train": ScannetDetectionDataset(
+                anon_cfg, "train", augment=True, anonymous=not cmp_primary,
+                use_pseudo_labels="with_novel_cate_confi" in name,
+                if_image_augment=args.if_image_augment, **common,
+            ),
+            "test": ScannetDetectionDataset(
+                anon_cfg, "val", augment=False, anonymous=not cmp_primary, **common
+            ),
+            "real_test": ScannetDetectionDataset(
+                real_cfg, "val", augment=False, anonymous=False, **common
+            ),
+            "real_cmp_test": ScannetDetectionDataset(
+                cmp_cfg, "val", augment=False, anonymous=False, **common
+            ),
+        }
+        return datasets, anon_cfg, real_cfg, cmp_cfg
 
     cmp_cfg = _sunrgbd_cfg(args, anonymous=False, cmp_vocab=True)
     cmp_primary = name == "sunrgbd_cmp_image"

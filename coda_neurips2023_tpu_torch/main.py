@@ -35,15 +35,21 @@ and prints the AP table of `APCalculator.metrics_to_str`, appending it to
 --log_file.
 
 The model's weights start from a torch.Generator seeded with --seed
-(models.helpers.reset_parameters), then come from a checkpoint where one is
-given: a seeded draw of the port's own, not the JAX package's
-jax.random.PRNGKey draw, so the two packages' random models differ.
+(models.helpers.reset_parameters: each parameter from its flax
+counterpart's initializer), then come from a checkpoint where one is given:
+the same distributions as the JAX package's init, but a seeded draw of the
+port's own, not the jax.random.PRNGKey draw, so the two packages' random
+models differ.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP item that
-brings it: the secondary modes (--show_only, --save_novel_only, ...),
---minitest_only (as in the JAX package, which has no such split either), the
-ScanNet datasets, and in training --remat (activation checkpointing) and
---if_two_phase_stage_step (not to port).
+A mode flag (--show_only, --show_box_points, --save_novel_only,
+--save_novel_with_class_only, --save_seen_feat_only, --crop_only,
+--cal_class_only) runs `run_mode` (:707-771) on the `test` split instead:
+the modes of modes.py, from --test_ckpt.  Its loader pads the tail and the
+modes honour "pad_mask", where the JAX package's drops the tail scenes.
+
+Raising: --minitest_only (as in the JAX package, which has no such split
+either), and in training --remat (activation checkpointing, ROADMAP Queue 1
+item 9) and --if_two_phase_stage_step (not to port).
 """
 
 from __future__ import annotations
@@ -390,7 +396,7 @@ def reject_inert_flags(parser, args):
         )
 
 
-# the JAX package's run_mode entries (main.py:707-806)
+# the flags that select run_mode
 _MODE_FLAGS = (
     "show_only", "show_box_points", "save_novel_only", "save_novel_with_class_only",
     "save_seen_feat_only", "crop_only", "cal_class_only",
@@ -694,6 +700,10 @@ def test_model(args, ctx):
         ctx["datasets"]["real_test"], args.batchsize_per_gpu_test,
         shuffle=False, drop_last=False, pad_last=True,
     )
+    # The JAX package draws a sample batch to initialise its model, which
+    # moves the loader's epoch counter to 1 and so the task seeds of every
+    # batch (the subsample of a real scan); the port takes the same batches.
+    loader.epoch = 1
     with torch.no_grad():
         reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
     if args.test_ckpt:
@@ -712,10 +722,64 @@ def test_model(args, ctx):
     return metrics
 
 
+def run_mode(args, ctx):
+    """The JAX package's run_mode: the selected secondary mode over the
+    `test` split, from the seeded init and --test_ckpt.  Returns what the
+    mode returns (a count, or the confusion matrix)."""
+    import torch
+
+    from coda_neurips2023_tpu_torch import engine, modes
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.utils.io import restore_params_only
+
+    model, device = ctx["model"], ctx["device"]
+    # every scene: the JAX package's loader drops the tail (reference quirk)
+    loader = make_loader(ctx["datasets"]["test"], args.batchsize_per_gpu_test,
+                         shuffle=False, drop_last=False, pad_last=True)
+    loader.epoch = 1  # the JAX package's sample batch moves it there, as in test_model
+    with torch.no_grad():
+        reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
+    if args.test_ckpt:
+        restore_params_only(args.test_ckpt, model)
+    out_dir = args.checkpoint_dir or "outputs/modes"
+    stage_ctx = ctx.get("stage_ctx")
+
+    if args.show_only:
+        return modes.show_boxes(model, loader, args.show_dir or os.path.join(out_dir, "show"),
+                                after_nms=args.if_after_nms, device=device)
+    if args.show_box_points:
+        return modes.save_box_points(
+            model, loader, args.show_dir or os.path.join(out_dir, "box_points"), device=device)
+    if args.save_novel_only or args.save_novel_with_class_only:
+        return modes.save_novel_boxes(model, loader, stage_ctx,
+                                      with_class=args.save_novel_with_class_only, device=device)
+    if args.save_seen_feat_only:
+        return modes.save_seen_feats(
+            model, loader, stage_ctx, args.save_seen_dir or os.path.join(out_dir, "seen_feats"),
+            device=device)
+    if args.crop_only:
+        return modes.crop_boxes(model, loader, stage_ctx,
+                                args.crop_dir or os.path.join(out_dir, "crops"), device=device)
+    if args.cal_class_only:
+        eval_step = engine.make_eval_step(
+            model,
+            eval_text_features=stage_ctx.text_banks["test"] if stage_ctx else None,
+            eval_logit_scale=stage_ctx.logit_scale if stage_ctx else 100.0,
+            eval_layer_id=args.eval_layer_id,
+        )
+        confusion = modes.calculate_class_confusion(eval_step, loader, args.test_num_semcls,
+                                                    device=device)
+        print("class confusion (rows GT, cols pred):")
+        print(confusion)
+        return confusion
+    raise ValueError("no mode selected")
+
+
 def main(argv=None, device="cuda"):
-    """Parse `argv` (sys.argv[1:] when None) and run on `device`: the eval
-    with --test_only (returns test_model's metrics), else training (returns
-    the trained model)."""
+    """Parse `argv` (sys.argv[1:] when None) and run on `device`: a mode
+    flag's run_mode, the eval with --test_only (returns test_model's
+    metrics), else training (returns the trained model)."""
     from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
     parser = make_args_parser()
@@ -728,12 +792,6 @@ def main(argv=None, device="cuda"):
             "--minitest_only: the reference's minitest split is not wired "
             "(its build_dataset never creates it); use --test_only"
         )
-    modes = [name for name in _MODE_FLAGS if getattr(args, name)]
-    if modes:
-        raise NotImplementedError(
-            f"--{modes[0]}: the secondary modes (modes.py) are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
-        )
     if (
         args.model_name == "3detrmulticlasshead"
         and not args.if_with_clip
@@ -745,7 +803,10 @@ def main(argv=None, device="cuda"):
             "pass --if_with_clip or --test_num_semcls 1" % args.test_num_semcls
         )
     device = resolve_device(device)
-    ctx = build_everything(args, device=device, train=not args.test_only)
+    mode = any(getattr(args, name) for name in _MODE_FLAGS)
+    ctx = build_everything(args, device=device, train=not (args.test_only or mode))
+    if mode:
+        return run_mode(args, ctx)
     if args.test_only:
         return test_model(args, ctx)
     return do_train(args, ctx)

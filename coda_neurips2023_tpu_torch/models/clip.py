@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from coda_neurips2023_tpu_torch.models.helpers import LayerNorm, reset_parameters
+from coda_neurips2023_tpu_torch.models.helpers import LayerNorm
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
 
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -186,6 +186,12 @@ def init_clip_parameters(model: CLIP, generator: torch.Generator) -> CLIP:
     """Random CLIP weights from `generator`: matrices and embeddings
     ~ N(0, 1/fan), biases ~ N(0, 0.02^2), LayerNorm scales 1,
     logit_scale log(1/0.07) as OpenAI initialises it."""
-    reset_parameters(model, generator)
+    for name, p in model.named_parameters():
+        if p.dim() >= 2:
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+        elif name.endswith("weight"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
     model.logit_scale.fill_(math.log(1 / 0.07))
     return model

@@ -32,11 +32,14 @@ ACT = {"relu": nn.ReLU}
 
 class Dense(nn.Module):
     """Channels-last linear map holding a reference Linear/Conv weight:
-    (out, in) followed by `kernel_dims` unit dimensions."""
+    (out, in) followed by `kernel_dims` unit dimensions.  `weight_init`
+    names the flax kernel initializer `reset_parameters` draws it from:
+    "lecun_normal" (flax's nn.Dense default) or "xavier_uniform"."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
-                 kernel_dims: int = 0, device=None):
+                 kernel_dims: int = 0, device=None, weight_init: str = "lecun_normal"):
         super().__init__()
+        self.weight_init = weight_init
         self.weight = nn.Parameter(
             torch.empty((out_dim, in_dim) + (1,) * kernel_dims, device=device)
         )
@@ -158,20 +161,59 @@ class GenericMLP(nn.Module):
         return x
 
 
+# flax's truncated_normal variance scaling divides the standard deviation by
+# the standard deviation of a unit normal cut at +-2
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax `lecun_normal`: a normal of std sqrt(1/fan_in) / 0.8796, cut at
+    +-2 of that std."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def xavier_uniform_(p: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    """flax `xavier_uniform`: U(-b, b), b = sqrt(6 / (fan_in + fan_out))."""
+    bound = (6.0 / (fan_in + fan_out)) ** 0.5
+    return p.uniform_(-bound, bound, generator=generator)
+
+
 @torch.no_grad()
 def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights drawn from `generator` (on the module's device).
+    """Random detector weights drawn from `generator` (on the module's
+    device), each from the initializer of its flax counterpart in the JAX
+    package, with flax's fans of the flax kernel:
 
-    Matrices ~ N(0, 1/fan_in), biases ~ N(0, 0.02^2), norm scales 1, running
-    statistics (0, 1), `gauss_B` ~ N(0, 1) as the JAX package initialises it.
+      * a `Dense` kernel (flax (in, out)): `lecun_normal`, fan_in = in, or
+        with weight_init "xavier_uniform" (the transformer's linear1,
+        linear2 and out_proj) `xavier_uniform`, fans in and out;
+      * an attention's `in_proj_weight` (3C, C_in): flax MHA's query, key
+        and value DenseGeneral kernels (C_in, H, D), which flax initialises
+        as (C_in, H * D): `xavier_uniform` with fans C_in and C each;
+      * biases and norm shifts 0, norm scales 1; BatchNorm statistics
+        (0, 1); the fourier embedding's `gauss_B` ~ N(0, 1), gauss_scale 1.
+
+    The JAX package's fused masked-attention layer, which it takes only on a
+    TPU at 1024 tokens or more, initialises its unflattened (C_in, H, D)
+    kernel instead (fans H * C_in and D * C_in); on any other backend it
+    takes flax's MHA, whose fans are the ones above.
     """
+    dense_init = {id(m.weight): m.weight_init for m in module.modules() if isinstance(m, Dense)}
     for name, p in module.named_parameters():
-        if p.dim() >= 2:
-            p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+        if name.endswith("in_proj_weight"):
+            xavier_uniform_(p, p.shape[1], p.shape[0] // 3, generator)
+        elif p.dim() >= 2:
+            fan_in, fan_out = p[0].numel(), p.shape[0]
+            if dense_init.get(id(p)) == "xavier_uniform":
+                xavier_uniform_(p, fan_in, fan_out, generator)
+            else:
+                lecun_normal_(p, fan_in, generator)
         elif name.endswith("weight"):
             p.fill_(1.0)
         else:
-            p.normal_(0.0, 0.02, generator=generator)
+            p.zero_()
     for name, b in module.named_buffers():
         if name.endswith("running_mean") or name.endswith("num_batches_tracked"):
             b.zero_()

@@ -61,7 +61,8 @@ class CoDA3DETR(nn.Module):
     ):
         super().__init__()
         if enc_type != "vanilla":
-            raise NotImplementedError(f"enc_type {enc_type!r} is not ported yet")
+            raise NotImplementedError(f"enc_type {enc_type!r} is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
         self.dataset_config = dataset_config
         self.nqueries = nqueries
         self.pre_encoder = PointnetSAModuleVotes(

@@ -42,7 +42,7 @@ class MultiheadAttention(nn.Module):
         self.nhead = nhead
         self.in_proj_weight = nn.Parameter(torch.empty((3 * d_model, d_model), device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model, device=device))
-        self.out_proj = Dense(d_model, d_model, device=device)
+        self.out_proj = Dense(d_model, d_model, device=device, weight_init="xavier_uniform")
 
     def forward(self, query, key, value, use_kernel: bool = True, dropout: float = 0.0,
                 generator=None) -> torch.Tensor:
@@ -75,8 +75,10 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
-        self.linear1 = Dense(d_model, dim_feedforward, device=device)
-        self.linear2 = Dense(dim_feedforward, d_model, device=device)
+        self.linear1 = Dense(d_model, dim_feedforward, device=device,
+                             weight_init="xavier_uniform")
+        self.linear2 = Dense(dim_feedforward, d_model, device=device,
+                             weight_init="xavier_uniform")
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.activation = ACT[activation]()
@@ -120,8 +122,10 @@ class TransformerDecoderLayer(nn.Module):
         self.dropout = dropout
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
         self.multihead_attn = MultiheadAttention(d_model, nhead, device=device)
-        self.linear1 = Dense(d_model, dim_feedforward, device=device)
-        self.linear2 = Dense(dim_feedforward, d_model, device=device)
+        self.linear1 = Dense(d_model, dim_feedforward, device=device,
+                             weight_init="xavier_uniform")
+        self.linear2 = Dense(dim_feedforward, d_model, device=device,
+                             weight_init="xavier_uniform")
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)

@@ -1,15 +1,15 @@
-"""SUN RGB-D camera projection and crop rects of predicted boxes (PyTorch).
+"""Camera projection and crop rects of predicted boxes (PyTorch).
 
-Counterpart of coda_neurips2023_tpu/ops/projection.py:25-110 on the
-SUN RGB-D path:
+Counterpart of coda_neurips2023_tpu/ops/projection.py:
 
-  upright-depth -> camera:  flip_axis_to_camera(Rtilt^T @ pc)
-  camera -> image:          uv_h = pc_cam @ K^T;  u,v = uv_h[:2] / depth
+  SUN RGB-D, upright-depth -> camera:  flip_axis_to_camera(Rtilt^T @ pc)
+            camera -> image:           uv_h = pc_cam @ K^T;  u,v = uv_h[:2] / depth
+  ScanNet,  world -> camera:           inverse of the 4x4 camera pose
+            camera -> image:           the 3x3 block of the 4x4 colour intrinsics
 
 plus the un-augmentation of predicted corners and their integer crop rects
-in padded-image coordinates.  Rects are cast to int32 by truncation, as
-`astype(jnp.int32)` does.  ScanNet's 4x4 pose/intrinsics projection is not
-ported yet.
+in padded-image coordinates, which pick the projection by the calibration's
+shape.  Rects are cast to int32 by truncation, as `astype(jnp.int32)` does.
 """
 
 from __future__ import annotations
@@ -25,6 +25,19 @@ def project_upright_depth_to_image(pc, k_mat, rtilt):
     pc_cam = torch.einsum("...ij,...nj->...ni", rtilt.transpose(-1, -2), pc)
     pc_cam = flip_axis_to_camera(pc_cam)
     uvh = torch.einsum("...ni,...ji->...nj", pc_cam, k_mat)
+    depth = uvh[..., 2]
+    uv = uvh[..., :2] / (depth[..., None] + 1e-32)
+    return uv, depth
+
+
+def project_world_to_image_scannet(pc, k_mat, pose):
+    """pc (..., N, 3) world points; k_mat, pose (..., 4, 4), the colour
+    intrinsics and the camera-to-world pose -> (uv (..., N, 2), depth
+    (..., N))."""
+    inv_pose = torch.linalg.inv(pose)
+    pc_h = torch.cat([pc, torch.ones_like(pc[..., :1])], dim=-1)
+    pc_cam = torch.einsum("...ij,...nj->...ni", inv_pose, pc_h)[..., :3]
+    uvh = torch.einsum("...ij,...nj->...ni", k_mat[..., :3, :3], pc_cam)
     depth = uvh[..., 2]
     uv = uvh[..., :2] / (depth[..., None] + 1e-32)
     return uv, depth
@@ -46,12 +59,13 @@ def unaugment_corners(corners_xyz, scale_array, rot_array, flip_array, zx_flip_a
 def corners_to_image_rects(corners_xyz, k_mat, rtilt, ori_width, ori_height, x_offset,
                            y_offset, image_flip_array, flip_length):
     """Un-augmented corners (B, Q, 8, 3) -> (rects (B, Q, 4) int32
-    [xmin, ymin, xmax, ymax], min_depth (B, Q)); per-scene calibration
-    K, Rtilt (B, 3, 3) and image geometry (B,)."""
+    [xmin, ymin, xmax, ymax], min_depth (B, Q)); per-scene calibration,
+    K and Rtilt (B, 3, 3) for SUN RGB-D or the intrinsics and pose (B, 4, 4)
+    for ScanNet, and image geometry (B,)."""
     b, q = corners_xyz.shape[:2]
-    if k_mat.shape[-1] == 4:
-        raise NotImplementedError("ScanNet's pose/intrinsics projection is not ported yet")
-    uv, depth = project_upright_depth_to_image(corners_xyz.reshape(b, q * 8, 3), k_mat, rtilt)
+    project = project_world_to_image_scannet if k_mat.shape[-1] == 4 else \
+        project_upright_depth_to_image
+    uv, depth = project(corners_xyz.reshape(b, q * 8, 3), k_mat, rtilt)
     uv = uv.reshape(b, q, 8, 2)
     depth = depth.reshape(b, q, 8)
 

@@ -29,7 +29,8 @@ PORT = REPO / "coda_neurips2023_tpu_torch"
 PORT_ASSETS = PORT / "datasets" / "assets"
 JAX_ASSETS = Path(jax_config.DEFAULT_ASSET_DIR)
 FILES = ("bpe_simple_vocab_16e6.txt.gz", "all_classes_trainval_v1.npy", "ov_3detr.npy",
-         "ov_3detr_scannet.npy", "lvis_1204.npy")
+         "ov_3detr_scannet.npy", "lvis_1204.npy", "scannet_200_classname_no_wall_floor.npy",
+         "scannet_200_class2id.npy")
 PROMPT = "a photo of a night stand, and a sofa_chair!"
 
 

@@ -545,21 +545,49 @@ def _args(extra=()):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dataset_name", "scannet_anonymous_aligned_image"], "Queue 1 item 4"),
-    (["--test_only", "--show_only"], "Queue 1 item 7"),
-    (["--test_only", "--cal_class_only"], "Queue 1 item 7"),
+    (["--enc_type", "masked"], "Queue 1 item 9"),
     (["--test_only", "--minitest_only"], "minitest"),
-], ids=["training", "show_only", "cal_class_only", "minitest"])
+], ids=["training", "minitest"])
 def test_main_raises_on_what_is_not_ported(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(_args(extra), device="cpu")
 
 
-def test_scannet_raises_naming_the_roadmap_item():
+@pytest.mark.parametrize("mode", ["show_only", "cal_class_only"])
+def test_main_runs_the_mode(tmp_path, monkeypatch, mode):
+    """The two modes this test once expected to raise now run through main
+    (the CoDA model, its text bank from a seeded tiny CLIP): --show_only
+    writes each test scene's files, --cal_class_only returns a
+    (test_num_semcls, test_num_semcls) count matrix."""
+    from coda_neurips2023_tpu_torch.models import clip as tclip
+
+    stages_cls = stages.StageContext
+
+    def tiny_ctx(args, cfg, device="cuda"):
+        clip = tclip.init_clip_parameters(tclip.CLIP(**TINY_CLIP), torch.Generator().manual_seed(0))
+        return stages_cls(args, cfg, clip_model=clip, crop_size=16, device=device)
+
+    monkeypatch.setattr(stages, "StageContext", tiny_ctx)
+    got = tmain.main(_args(["--test_only", f"--{mode}", "--checkpoint_dir", str(tmp_path)]),
+                     device="cpu")
+    if mode == "show_only":
+        assert got == 2  # synthetic_num_scenes 8 -> a test split of 2
+        files = os.listdir(tmp_path / "show")
+        assert {"000000_pc.ply", "000001_pc.ply", "000000_gt_boxes.obj"} <= set(files)
+    else:
+        assert got.shape == (46, 46) and got.dtype == np.int64
+
+
+def test_scannet_build_dataset_runs(tmp_path):
+    """ScanNet's names build their four splits (data-free without
+    --dataset_root_dir) on ScanNet's configs."""
     args = tmain.make_args_parser().parse_args(
-        ["--dataset_name", "scannet_anonymous_aligned_image"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_dataset(args)
+        ["--dataset_name", "scannet_anonymous_aligned_image", "--synthetic_num_scenes", "8",
+         "--num_points", "256"])
+    datasets, cfg, real_cfg, cmp_cfg = build_dataset(args)
+    assert sorted(datasets) == ["real_cmp_test", "real_test", "test", "train"]
+    assert cfg.num_angle_bin == 1 and type(real_cfg).__name__ == "Scannet50ImageConfig"
+    assert cmp_cfg.num_semcls == 19 and len(datasets["train"]) == 8
 
 
 def test_main_needs_a_card_unless_cpu(monkeypatch, tmp_path):
@@ -577,7 +605,8 @@ def test_new_modules_never_import_jax():
         "import importlib, sys\n"
         "for name in ('main', 'native', 'utils.ap_calculator', 'utils.eval_det', 'utils.nms',\n"
         "             'utils.io', 'utils.logger', 'utils.misc', 'datasets', 'datasets.loader',\n"
-        "             'datasets.sunrgbd', 'datasets.augment', 'engine'):\n"
+        "             'datasets.sunrgbd', 'datasets.scannet', 'datasets.augment', 'engine',\n"
+        "             'modes', 'utils.ply'):\n"
         "    importlib.import_module('coda_neurips2023_tpu_torch.' + name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cv2',\n"
         "                                                          'coda_neurips2023_tpu'))\n"
