@@ -145,6 +145,33 @@ result):
      first MODE_CPU_SCENES scenes again on the CPU: the same files, their
      numbers within MODE_TOL, the confusion matrix equal.  --crop_only needs
      OpenCV and is held on the CPU by tests/test_torch_port_modes.py.
+ 17. Data parallelism (parallel/ddp.py).  (a) The launcher's rank function
+     starts DDP_WORLD ranks on the one card over gloo (a harness call: NCCL
+     refuses two ranks on one card), each running `main` with
+     scripts/coda_sunrgbd_stage1.sh's flags at full width, --ngpus 2
+     --batchsize_per_gpu DDP_PER_RANK (global 8), DDP_STEPS steps on
+     synthetic scenes, dropout 0 and each scene's crops pinned to its first
+     --distillation_box_num proposals; beside them one process runs the same
+     flags at --ngpus 1 and the global batch, from the same seed.  Held:
+     every rank's host rows are its block of one process's batch, bit for
+     bit; the ranks' all-reduced losses are equal and within DDP_TOL of one
+     process's each step; the weights and BatchNorm statistics after the
+     steps within DDP_TOL of their norm, and bit-equal across the ranks; A-E
+     launched on every rank's every step (E once a layer); one set of files,
+     rank 0's, with one process's names.  Then the ranks run --test_only on
+     phase 13's scenes (a padded tail) from phase 4's weights at
+     --batchsize_per_gpu_test BATCH / 2: rank 0 meters every scan; each
+     batch it meters (the ranks' rows gathered in rank order, the padding
+     dropped) has the ground truth of phase 13's one-process batch, bit for
+     bit, and its outputs within MXU_TOL; the metrics are phase 13's within
+     DDP_METRIC_TOL (with random weights they are all 0, so the batches are
+     the check).  Printed beside the card's name and power limit, marked as
+     gloo over one card's shared SMs (not a scaling number): each rank's
+     step ms, the bytes and ms of its gradient all-reduce a step, its peak
+     memory.  (b) `main --test_only --ngpus 8` (the scripts' value, at a
+     free --dist_url) runs min(8, cards) ranks and says how many; with two
+     or more cards (a)'s checks run again over NCCL, one card a rank, and
+     with one card the script says that this part did not run.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -180,8 +207,9 @@ attention entry also carries the
 decoder shape's kernel, plain, library and bound times, the vit_attention
 entry those at 256 crops (stage1_*), the fps entry its cluster size and
 barrier floor at the main shape, and A and B their ScanNet rows
-(scannet_b32, scannet_b48), with scannet_cli_launches and
-scannet_stage1_launches beside train_cli_launches.  The last line is
+(scannet_b32, scannet_b48), with scannet_cli_launches,
+scannet_stage1_launches and ddp_launches (rank 0's over phase 17 (a)'s
+steps) beside train_cli_launches.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1242,8 +1270,9 @@ def expected_metric_keys(ncls):
 
 @contextlib.contextmanager
 def recording_eval_step(engine, store):
-    """engine.make_eval_step wrapped so that the text bank it is given and its
-    step's first batch and outputs land in `store`."""
+    """engine.make_eval_step wrapped so that the text bank it is given, its
+    step's first batch and outputs, and every batch it steps land in
+    `store`."""
     make = engine.make_eval_step
 
     def wrapped(model, eval_text_features=None, **kw):
@@ -1254,6 +1283,7 @@ def recording_eval_step(engine, store):
             out = step(batch)
             if "first" not in store:
                 store["first"] = (dict(batch), {k: v.clone() for k, v in out.items()})
+            store.setdefault("batches", []).append(dict(batch))
             return out
 
         return recorded
@@ -1263,6 +1293,31 @@ def recording_eval_step(engine, store):
         yield store
     finally:
         engine.make_eval_step = make
+
+
+@contextlib.contextmanager
+def recording_meter(store):
+    """APCalculator.step_meter wrapped so that each batch the eval loop
+    meters (the rows it kept: their outputs and ground truth) lands in the
+    list `store`: the EVAL_KEYS outputs as arrays, the ground truth as a
+    digest."""
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch import engine
+    from coda_neurips2023_tpu_torch.utils.ap_calculator import APCalculator
+
+    step_meter = APCalculator.step_meter
+
+    def wrapped(self, outputs, targets):
+        host = outputs.get("outputs", outputs)
+        store.append(({k: np.array(host[k]) for k in engine.EVAL_KEYS}, batch_digest(targets)))
+        return step_meter(self, outputs, targets)
+
+    APCalculator.step_meter = wrapped
+    try:
+        yield store
+    finally:
+        APCalculator.step_meter = step_meter
 
 
 def cli_run(torch, argv, workers):
@@ -1327,7 +1382,10 @@ def report_loop(stats, meter, seconds, workers):
 
 
 def cli_phase(torch, model, launches4):
-    """Phase 13: the eval entry point end to end on the card."""
+    """Phase 13: the eval entry point end to end on the card.  Returns the
+    launches, and of the first run a dict of its metrics, its metered
+    batches (recording_meter), the batches its step took and its text bank
+    (recording_eval_step)."""
     from coda_neurips2023_tpu_torch import _kernels, engine
     from coda_neurips2023_tpu_torch.engine import make_eval_step
 
@@ -1341,11 +1399,14 @@ def cli_phase(torch, model, launches4):
     argv = CLI_ARGS + ["--synthetic_num_scenes", str(CLI_SCENES), "--test_ckpt", str(ckpt),
                        "--log_file", str(out_dir / "eval.lst")]
     steps = -(-scans // BATCH)
-    cli_launches = {}
+    cli_launches, first = {}, None
     for workers in CLI_WORKERS:
-        with recording_eval_step(engine, {}) as store:
+        with recording_eval_step(engine, {}) as store, recording_meter([]) as metered:
             metrics, launches, stats, meter, seconds = cli_run(torch, argv, workers)
         check_cli_metrics(metrics, scans, stats, meter, f"CODA_AP_WORKERS={workers}")
+        if first is None:
+            first = dict(metrics=metrics, metered=metered, batches=store["batches"],
+                         bank=store["bank"])
         print(f"    launches: {launches}")
         for name in ("fps", "ball_query", "gather", "attention"):
             if launches[name] != launches4[name] // STEPS * steps:
@@ -1383,7 +1444,7 @@ def cli_phase(torch, model, launches4):
     cli_launches["vit_attention"] = launches["vit_attention"]
     report_loop(stats, meter, seconds, CLI_WORKERS[0])
     os.environ.pop("CODA_AP_WORKERS", None)
-    return cli_launches
+    return cli_launches, first
 
 
 # phase 14: the training entry point (scripts/coda_sunrgbd_stage{1,2}.sh) on
@@ -2275,6 +2336,347 @@ def modes_phase(torch, ckpt4):
               f"GPU's, numbers max_abs_err={worst!r}")
 
 
+# phase 17: data parallelism (parallel/ddp.py).  (a) DDP_WORLD ranks on the
+# one card over gloo (NCCL takes one card a rank) with
+# scripts/coda_sunrgbd_stage1.sh's flags at batchsize_per_gpu DDP_PER_RANK,
+# against one process at the global batch; (b) the CLI at the scripts'
+# --ngpus 8, and (a) over NCCL where two or more cards are visible
+DDP_WORLD = 2
+DDP_PER_RANK = 4
+DDP_STEPS = 4
+DDP_TOL = 1e-3  # phase 11's STEP_TOL for the losses; the weights as a share of their norm
+DDP_METRIC_TOL = 5e-3  # tests/test_torch_port_eval.py's METRIC_TOL
+DDP_KERNELS = ("fps", "ball_query", "gather", "attention", "vit_attention")
+
+
+def batch_digest(batch):
+    """A digest of a host batch's arrays and list fields."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1()
+    for k in sorted(batch):
+        v = batch[k]
+        h.update(k.encode())
+        h.update(repr(v).encode() if isinstance(v, list) else np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def state_digest(model):
+    import hashlib
+
+    h = hashlib.sha1()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def ddp_probe(torch, record, split=1):
+    """While installed: the crop selection pinned to each scene's first
+    --distillation_box_num proposals (runs over any number of ranks crop the
+    same boxes), and for every training step of this process, in `record`:
+    its host batch's scans and the digests of its `split` row blocks, its
+    loss, its device span, its kernel launches, and the gradient
+    all-reduce's bytes and ms (synchronized on both sides)."""
+    from coda_neurips2023_tpu_torch import _kernels, engine, stages
+    from coda_neurips2023_tpu_torch.parallel import ddp
+
+    saved = (engine.train_one_epoch, stages.StageContext.select_boxes, ddp.all_reduce_gradients)
+    train_one_epoch, _, all_reduce = saved
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def one_epoch(train_step, batches, **kw):
+        def host(batches):
+            for b in batches:
+                record["rows"].append((b["scan_idx"].tolist(),
+                                       [batch_digest(ddp.rows(b, r, split)) for r in range(split)]))
+                yield b
+
+        def step(batch, generator):
+            before = dict(_kernels.LAUNCHES)
+            start = event()
+            out = train_step(batch, generator)
+            end = event()
+            metrics = out[0] if isinstance(out, tuple) else out
+            record["steps"].append(dict(events=(start, end), loss=metrics["loss"], launches={
+                k: v - before[k] for k, v in _kernels.LAUNCHES.items()}))
+            return out
+
+        return train_one_epoch(step, host(batches), **kw)
+
+    def pinned(self, last, batch, generator=None):
+        b = last["objectness_prob"].shape[0]
+        n = self.args.distillation_box_num
+        return torch.arange(n, device=last["objectness_prob"].device).expand(b, n)
+
+    def timed(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = all_reduce(params)
+        torch.cuda.synchronize()
+        record["allreduce"].append((n, (time.perf_counter() - t0) * 1e3))
+        return n
+
+    engine.train_one_epoch, stages.StageContext.select_boxes, ddp.all_reduce_gradients = (
+        one_epoch, pinned, timed)
+    try:
+        yield record
+    finally:
+        engine.train_one_epoch, stages.StageContext.select_boxes, ddp.all_reduce_gradients = saved
+
+
+def finish_record(torch, record):
+    torch.cuda.synchronize()
+    steps = record.pop("steps")
+    record["losses"] = [float(s["loss"]) for s in steps]
+    record["step_ms"] = [s["events"][0].elapsed_time(s["events"][1]) for s in steps]
+    record["launches"] = [s["launches"] for s in steps]
+    return record
+
+
+def ddp_rank(out_dir, train_argv, eval_argv):
+    """One rank of phase 17: the training CLI under ddp_probe, then the eval
+    CLI under recording_meter (only rank 0 meters); writes what it saw to
+    <out_dir>/rank<r>.pkl and returns the eval's metrics (rank 0's; None on
+    the others)."""
+    import pickle
+
+    import torch
+
+    from coda_neurips2023_tpu_torch import engine
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
+
+    record = {"rows": [], "steps": [], "allreduce": []}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with ddp_probe(torch, record):
+        model = cli_main(train_argv)
+    record["train_s"] = time.perf_counter() - t0
+    record["digest"] = state_digest(model)
+    del model
+    finish_record(torch, record)
+    t0 = time.perf_counter()
+    with recording_meter([]) as metered:
+        metrics = cli_main(eval_argv)
+    record.update(metered=metered, eval_s=time.perf_counter() - t0, scans=engine.EVAL_STATS["scans"],
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(out_dir, f"rank{pdist.get_rank()}.pkl"), "wb") as f:
+        pickle.dump(record, f)
+    return metrics
+
+
+def ddp_checks(torch, root, smi, world, backend, devices, ckpt13, eval13, tag):
+    """Phase 17's run of `world` ranks on `devices` over `backend` against
+    one process at the same global batch, then their eval against phase
+    13's (`eval13`, cli_phase's): each batch rank 0 metered (the ranks' rows
+    gathered in rank order, the padding dropped) against the same batch of
+    phase 13's one process, its ground truth bit for bit, and its outputs
+    within MXU_TOL of phase 13's model and bank stepping that global batch
+    a rank's rows at a time (a step's fp32 rounding follows its batch: kernel
+    D's key splits and the GEMMs' tiling); returns rank 0's launches over
+    its training steps."""
+    import pickle
+    import shutil
+
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.datasets.config import SunrgbdAnonymousConfig
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.parallel import ddp
+    from coda_neurips2023_tpu_torch.utils.io import restore_params_only
+
+    out_dir = _kernels.BUILD_DIR.parent / "phase17" / tag
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    scenes = DDP_STEPS * DDP_PER_RANK * world
+
+    def train_argv(ranks, per_rank, name):
+        return script_argv(root, "coda_sunrgbd_stage1.sh", {
+            "--ngpus": str(ranks), "--max_epoch": "1", "--batchsize_per_gpu": str(per_rank)}) + [
+            "--synthetic_num_scenes", str(scenes), "--batchsize_per_gpu_test", str(per_rank),
+            "--enc_dropout", "0", "--dec_dropout", "0", "--mlp_dropout", "0",
+            "--checkpoint_dir", str(out_dir / name)]
+
+    per_rank_test = max(BATCH // world, 1)
+    eval_argv = list(CLI_ARGS) + [
+        "--synthetic_num_scenes", str(CLI_SCENES), "--test_ckpt", str(ckpt13),
+        "--log_file", str(out_dir / "eval.lst"), "--ngpus", str(world)]
+    eval_argv[eval_argv.index("--batchsize_per_gpu_test") + 1] = str(per_rank_test)
+    print(f"phase 17 ({tag}): {world} ranks on {sorted(set(devices))} over {backend}: "
+          f"scripts/coda_sunrgbd_stage1.sh's flags, the flagship at full width, "
+          f"--batchsize_per_gpu {DDP_PER_RANK} (global {DDP_PER_RANK * world}), {DDP_STEPS} steps "
+          f"on {scenes} synthetic scenes, dropout 0, the crops pinned; then --test_only on "
+          f"phase 13's {CLI_SCENES // 4} scenes at --batchsize_per_gpu_test {per_rank_test}")
+    torch.cuda.empty_cache()
+    os.environ["CODA_AP_WORKERS"] = str(CLI_WORKERS[0])
+    t0 = time.perf_counter()
+    url = ddp.free_url()
+    metrics = ddp.launch(ddp_rank, world, str(out_dir), train_argv(world, DDP_PER_RANK, "ranks"),
+                         eval_argv, devices=devices, backend=backend, dist_url=url)
+    launch_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    one = {"rows": [], "steps": [], "allreduce": []}
+    t0 = time.perf_counter()
+    with ddp_probe(torch, one, split=world):
+        cli_main(train_argv(1, DDP_PER_RANK * world, "one"))
+    one_s = time.perf_counter() - t0
+    finish_record(torch, one)
+    os.environ.pop("CODA_AP_WORKERS", None)
+
+    for r, rec in enumerate(ranks):
+        if len(rec["rows"]) != DDP_STEPS or len(one["rows"]) != DDP_STEPS:
+            fail(f"rank {r} took {len(rec['rows'])} steps, one process {len(one['rows'])}, "
+                 f"expected {DDP_STEPS}")
+        for k, ((scans, digest), (all_scans, digests)) in enumerate(zip(rec["rows"], one["rows"])):
+            b = len(scans)
+            if scans != all_scans[r * b:(r + 1) * b] or digest[0] != digests[r]:
+                fail(f"step {k}: rank {r}'s rows are not rows {r * b}..{(r + 1) * b - 1} of one "
+                     f"process's batch (scans {scans} against {all_scans})")
+        for k, launched in enumerate(rec["launches"]):
+            missing = [n for n in DDP_KERNELS if launched[n] <= 0]
+            if missing or launched["vit_attention"] != CLIP_LAYERS:
+                fail(f"rank {r} step {k}: kernels {missing} not launched, vit_attention "
+                     f"{launched['vit_attention']} times ({launched})")
+    print(f"  every rank's rows are its block of one process's batch, bit for bit; A-E launched "
+          f"on every rank's every step")
+    losses = [rec["losses"] for rec in ranks]
+    if any(l != losses[0] for l in losses):
+        fail(f"the ranks' all-reduced losses differ: {losses}")
+    err = max(abs(a - b) for a, b in zip(losses[0], one["losses"]))
+    print(f"  losses, {world} ranks {losses[0]!r}; one process {one['losses']!r}; max |diff| {err!r}")
+    if not err <= DDP_TOL:
+        fail(f"{world} ranks' losses differ from one process's by {err!r} > {DDP_TOL}")
+    digests = {rec["digest"] for rec in ranks}
+    if len(digests) != 1:
+        fail("the ranks' parameters and buffers differ after the steps")
+    got, want = (torch.load(out_dir / d / "last_checkpoint.pth", weights_only=True)["model"]
+                 for d in ("ranks", "one"))
+    names = [k for k in want if not k.endswith("num_batches_tracked")]
+    diff = math.sqrt(sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in names))
+    norm = math.sqrt(sum(float((want[k].double() ** 2).sum()) for k in names))
+    print(f"  weights and BatchNorm statistics after {DDP_STEPS} steps: |diff| / |one| "
+          f"{diff / norm!r}; the ranks' states bit-equal")
+    if not diff / norm <= DDP_TOL:
+        fail(f"{world} ranks' weights differ from one process's by {diff / norm!r} of their norm")
+    files = {name: sorted(n for n in os.listdir(out_dir / name) if not n.startswith("events.out"))
+             for name in ("ranks", "one")}
+    if files["ranks"] != files["one"]:
+        fail(f"{world} ranks wrote {files['ranks']}, one process {files['one']}")
+    print(f"  one set of files, rank 0's: {files['ranks']}")
+    rec0 = ranks[0]
+    if rec0["scans"] != CLI_SCENES // 4:
+        fail(f"the {world}-rank eval metered {rec0['scans']} scans, not {CLI_SCENES // 4}")
+    metered13 = eval13["metered"]
+    if any(rec["metered"] for rec in ranks[1:]) or len(rec0["metered"]) != len(metered13):
+        fail(f"the ranks metered {[len(rec['metered']) for rec in ranks]} batches, phase 13's "
+             f"one process {len(metered13)}")
+    model = restore_params_only(str(ckpt13), CoDA3DETR(SunrgbdAnonymousConfig(), device="cuda"))
+    step = make_eval_step(model, eval_text_features=eval13["bank"], eval_logit_scale=100.0)
+    rows_err, whole_err = 0.0, 0.0
+    for k, ((got, got_truth), (whole, want_truth), batch) in enumerate(
+            zip(rec0["metered"], metered13, eval13["batches"])):
+        if got_truth != want_truth or any(got[n].shape != whole[n].shape for n in whole):
+            fail(f"eval batch {k}: rank 0 metered other rows (or another order, or other "
+                 f"padding) than phase 13's one process: {got['box_corners'].shape} against "
+                 f"{whole['box_corners'].shape}")
+        # a padded batch holds its real rows first, as many as phase 13 metered
+        real = len(whole["box_corners"])
+        blocks = [step({n: v[r * per_rank_test:(r + 1) * per_rank_test] for n, v in batch.items()})
+                  for r in range(world)]
+        want = {n: torch.cat([b[n] for b in blocks])[:real].cpu().numpy() for n in whole}
+        rows_err = max([rows_err] + [float(abs(got[n] - want[n]).max()) for n in want])
+        whole_err = max([whole_err] + [float(abs(got[n] - whole[n]).max()) for n in whole])
+    del model, step
+    print(f"  --test_only over {world} ranks: rank 0 metered {len(metered13)} batches, the ranks' "
+          f"rows gathered in rank order and the padding dropped: the ground truth phase 13's "
+          f"batches' bit for bit; the outputs within max_abs_err={rows_err!r} of phase 13's "
+          f"model stepping its batches {per_rank_test} rows at a time ({whole_err!r} of its "
+          f"one process at {BATCH})")
+    if not rows_err <= MXU_TOL:
+        fail(f"the {world}-rank eval's outputs differ from one process's by {rows_err!r} > "
+             f"{MXU_TOL}")
+    metrics13 = eval13["metrics"]
+    worst = max(abs(float(metrics[t][k]) - float(metrics13[t][k]))
+                for t in metrics13 for k in metrics13[t])
+    print(f"  --test_only over {world} ranks: {rec0['scans']} scans metered by rank 0, metrics "
+          f"vs phase 13's one process max |diff| {worst!r}; mAP@0.25 {float(metrics[0.25]['mAP'])!r}")
+    if set(metrics) != set(metrics13) or not worst <= DDP_METRIC_TOL:
+        fail(f"the {world}-rank eval's metrics differ from phase 13's by {worst!r}")
+    note = ("gloo over one card's shared SMs: not a scaling number" if backend == "gloo"
+            else f"NCCL, one card a rank")
+    for r, rec in enumerate(ranks):
+        ar = rec["allreduce"]
+        print(f"  rank {r} [{smi}] ({note}): step ms {[round(x, 3) for x in rec['step_ms']]}; "
+              f"gradient all-reduce {ar[0][0]} bytes a step, ms {[round(ms, 3) for _, ms in ar]}; "
+              f"train CLI {rec['train_s']:.1f} s, eval CLI {rec['eval_s']:.1f} s; peak memory "
+              f"allocated {rec['peak_gb']!r} GB")
+    print(f"  one process at batch {DDP_PER_RANK * world} [{smi}]: step ms "
+          f"{[round(x, 3) for x in one['step_ms']]}; train CLI {one_s:.1f} s; the {world}-rank "
+          f"launch {launch_s:.1f} s")
+    return {n: sum(l[n] for l in rec0["launches"]) for n in rec0["launches"][0]}
+
+
+class _Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def ddp_phase(torch, root, smi, ckpt13, eval13):
+    """Phase 17: (a) two ranks on the one card; (b) the CLI at --ngpus 8 and,
+    with two or more cards, (a) over NCCL.  Returns (a)'s launches of rank 0."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+    from coda_neurips2023_tpu_torch.parallel import ddp
+
+    t_phase = time.perf_counter()
+    launches = ddp_checks(torch, root, smi, DDP_WORLD, "gloo", ["cuda:0"] * DDP_WORLD, ckpt13,
+                          eval13, "a")
+    cards = torch.cuda.device_count()
+    world = min(8, cards)
+    argv = list(CLI_ARGS) + ["--synthetic_num_scenes", str(4 * BATCH), "--test_ckpt", str(ckpt13),
+                             "--log_file", str(_kernels.BUILD_DIR.parent / "phase17" / "b.lst"),
+                             "--ngpus", "8", "--dist_url", ddp.free_url()]
+    argv[argv.index("--batchsize_per_gpu_test") + 1] = str(max(BATCH // world, 1))
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        metrics = cli_main(argv)
+    said = f"data parallel: {world} rank(s) (--ngpus 8, {cards} cards)"
+    if said not in "".join(tee.text) or set(metrics) != {0.25, 0.5}:
+        fail(f"main --ngpus 8 with {cards} card(s) did not say {said!r} or gave no metrics")
+    print(f"phase 17 (b): main --test_only --ngpus 8 (the scripts' value) with {cards} card(s) "
+          f"visible ran {world} rank(s)")
+    if cards >= 2:
+        ddp_checks(torch, root, smi, world, "nccl", [f"cuda:{r}" for r in range(world)], ckpt13,
+                   eval13, "b")
+    else:
+        print("  (a)'s checks over NCCL did not run: one card is visible, and NCCL takes one "
+              "card a rank (it refuses two ranks on one card); this run is no pass of NCCL")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return launches
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -2454,7 +2856,7 @@ def main():
 
     model = model.to("cuda")
     mxu_phase(torch, model, text, phase4_batch, phase4_out)
-    cli_launches = cli_phase(torch, model, launches4)
+    cli_launches, eval13 = cli_phase(torch, model, launches4)
     del model
     train_cli_launches = train_cli_phase(torch, root, smi)
     ckpt4 = _kernels.BUILD_DIR.parent / "phase13" / "model.pth"
@@ -2464,6 +2866,7 @@ def main():
     t1 = time.perf_counter()
     modes_phase(torch, ckpt4)
     print(f"phase 15 took {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s")
+    ddp_launches = ddp_phase(torch, root, smi, ckpt4, eval13)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -2479,6 +2882,7 @@ def main():
             "train_cli_launches": train_cli_launches[name],
             "scannet_cli_launches": results["scannet_cli_launches"][NUM_POINTS].get(name, 0),
             "scannet_stage1_launches": launches15[name],
+            "ddp_launches": ddp_launches[name],
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()

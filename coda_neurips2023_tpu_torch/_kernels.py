@@ -5,7 +5,9 @@ they are compiled by ``nvcc`` for ``sm_90a``, one process a source, all at
 once, and linked into one shared library,
 ``build/torch_kernels/libcoda_torch_kernels.so`` at the root of the checkout,
 and loaded with ``ctypes``.  The build runs again whenever a hash of the
-sources and flags changes.  A failed build or load raises: there is no
+sources and flags changes, under the inter-process file lock of
+``native.build_lock``: ranks that start at once run one nvcc build between
+them, and the others load its library.  A failed build or load raises: there is no
 fallback to the plain PyTorch versions.
 
 Each C entry point takes device pointers, sizes and PyTorch's current stream,
@@ -27,6 +29,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from coda_neurips2023_tpu_torch.native import build_lock, is_current
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -102,10 +106,15 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into LIBRARY unless a build of the same sources exists."""
     digest = _source_hash()
-    stamp = LIBRARY.with_suffix(".so.sha256")
-    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
+    if is_current(LIBRARY, digest):
         return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(BUILD_DIR):
+        if not is_current(LIBRARY, digest):  # another process may have built it meanwhile
+            _compile(digest)
+    return LIBRARY
+
+
+def _compile(digest: str) -> None:
     with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so", delete=False) as tmp:
         tmp_path = tmp.name
     nvcc = _nvcc()
@@ -134,8 +143,7 @@ def build() -> Path:
             + outputs[cmds.index(failed[0])][-4000:]
         )
     os.replace(tmp_path, LIBRARY)
-    stamp.write_text(digest)
-    return LIBRARY
+    LIBRARY.with_suffix(".so.sha256").write_text(digest)
 
 
 def library() -> ctypes.CDLL:

@@ -29,10 +29,21 @@ host round trip (`ops.hungarian`), and each loss comes out as an (L,)
 vector; the aux layers' keys get the `_k` suffix (k = 0 .. L-2), the last
 layer's none.  A loss the JAX package applies to the last layer only
 (_LAST_LAYER_ONLY) is masked to it over the layer axis and has no aux keys.
-Losses are
-normalized as the JAX package does with one replica: matched sums by the
-global ground-truth count, the skip-none-gt softmax by (scenes with objects
-x proposals).
+
+Losses are normalized as the JAX package normalizes them over its global
+batch: matched sums by the global ground-truth count, weighted means by the
+global weight sum, batch means over the global batch.  Over several ranks
+(parallel/ddp.py) each rank holds B rows of that batch, and each loss is
+the rank's share of the JAX package's global scalar: its local sum over the
+global normalizer (a no_grad all-reduce, `parallel.dist.global_sum`), so the
+shares sum to the global loss, the gradients are summed over the ranks, and
+the loss dict a train step logs is the all-reduced sum.  The one exception
+is the JAX package's per-replica normalizer of
+loss_sem_cls_softmax_skip_none_gt_sample (`per_replica_norm`, its
+criterion.py:221-243, on by default): the global batch's rows fall into
+per_replica_norm contiguous groups, each normalized by its own count of
+scenes with objects, and the groups' losses are averaged; a rank's groups
+are its own rows, so that count stays rank-local.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch.nn.functional as F
 
 from coda_neurips2023_tpu_torch.ops.giou import generalized_box3d_iou
 from coda_neurips2023_tpu_torch.ops.hungarian import matcher_assignments
+from coda_neurips2023_tpu_torch.parallel.dist import get_world_size, global_sum
 
 PORTED_LOSSES = (
     "loss_sem_cls",
@@ -169,8 +181,12 @@ class Matcher:
 
 class SetCriterion:
     def __init__(self, matcher: Matcher, dataset_config, loss_weight_dict: dict,
-                 train_range_max: int = 10, confidence_type: str = "non-confidence"):
+                 train_range_max: int = 10, confidence_type: str = "non-confidence",
+                 per_replica_norm: int = 0):
         self.matcher = matcher
+        # > 1: loss_sem_cls_softmax_skip_none_gt_sample normalized per group of
+        # the global batch's rows, as the JAX package's SetCriterion
+        self.per_replica_norm = int(per_replica_norm)
         self.confidence_type = confidence_type
         self.dataset_config = dataset_config
         self.loss_weight_dict = dict(loss_weight_dict)
@@ -230,27 +246,39 @@ class SetCriterion:
     def loss_cardinality(self, outputs, targets, assignments):
         pred_logits = outputs["sem_cls_logits"]
         pred_objects = torch.sum(pred_logits.argmax(-1) != pred_logits.shape[-1] - 1, dim=-1)
-        return torch.mean(torch.abs(pred_objects.float() - targets["nactual_gt"].float()), dim=-1)
+        err = torch.abs(pred_objects.float() - targets["nactual_gt"].float())
+        return torch.mean(err, dim=-1) / get_world_size()
 
     def loss_sem_cls_softmax(self, outputs, targets, assignments):
         gt_label = self._matched_labels(outputs, targets, assignments)
         w = self._class_weights(gt_label.device)
         nll = _cross_entropy(outputs["sem_cls_logits"], gt_label, w)
-        return _layer_sum(nll) / torch.clamp(_layer_sum(w[gt_label]), min=1e-32)
+        return _layer_sum(nll) / torch.clamp(global_sum(_layer_sum(w[gt_label])), min=1e-32)
 
     def loss_sem_cls_softmax_skip_none_gt_sample(self, outputs, targets, assignments):
         gt_label = self._matched_labels(outputs, targets, assignments)
         w = self._class_weights(gt_label.device)
         nll = _cross_entropy(outputs["sem_cls_logits"], gt_label, w)  # (L, B, nq)
         has_obj = (targets["nactual_gt"] > 0).to(nll.dtype)
-        per_sample = torch.sum(nll, dim=-1) * has_obj
-        return torch.sum(per_sample, dim=-1) / (torch.sum(has_obj) * nll.shape[-1] + 1e-32)
+        per_sample = torch.sum(nll, dim=-1) * has_obj  # (L, B)
+        world, r, b = get_world_size(), self.per_replica_norm, has_obj.shape[0]
+        if r > 1 and (b * world) % r == 0:
+            # the JAX package's groups of the global batch: this rank's rows
+            # hold r / world of them, and the global loss is their mean
+            if r % world:
+                raise ValueError(f"per_replica_norm {r} groups straddle the {world} ranks' rows")
+            groups = r // world
+            sums = per_sample.reshape(per_sample.shape[0], groups, -1).sum(-1)
+            cnts = has_obj.reshape(groups, -1).sum(-1)
+            return torch.sum(sums / (cnts * nll.shape[-1] + 1e-32), dim=-1) / r
+        cnt = global_sum(torch.sum(has_obj))
+        return torch.sum(per_sample, dim=-1) / (cnt * nll.shape[-1] + 1e-32)
 
     def loss_sem_cls(self, outputs, targets, assignments):
         pred_logits = outputs["sem_cls_logits"]
         gt_label = self._matched_labels(outputs, targets, assignments)
         onehot = F.one_hot(gt_label, pred_logits.shape[-1]).to(pred_logits.dtype)
-        return sigmoid_focal_loss(pred_logits, onehot).flatten(1).mean(1)
+        return sigmoid_focal_loss(pred_logits, onehot).flatten(1).mean(1) / get_world_size()
 
     def loss_angle(self, outputs, targets, assignments):
         num_bin = self.dataset_config.num_angle_bin
@@ -290,7 +318,7 @@ class SetCriterion:
         gt_emb = targets["gt_text_correlation_embedding"]  # (B, nq, 512)
         mask = targets["gt_text_correlation_embedding_mask"]  # (B, nq, 1)
         pred = outputs["text_correlation_embedding"]  # (L, B, nq, 512)
-        ave_weight = torch.sum(mask) * pred.shape[-1]
+        ave_weight = global_sum(torch.sum(mask)) * pred.shape[-1]
         return _layer_sum(torch.abs(pred * mask - gt_emb * mask)) / torch.clamp(ave_weight, min=1e-32)
 
     def loss_predicted_region_embed_cos(self, outputs, targets, assignments):
@@ -301,7 +329,8 @@ class SetCriterion:
         num = torch.sum(gt_emb * pred, dim=-1)
         den = torch.clamp(torch.linalg.vector_norm(gt_emb, dim=-1)
                           * torch.linalg.vector_norm(pred, dim=-1), min=1e-16)
-        return _layer_sum((1.0 - num / den) * mask) / torch.clamp(torch.sum(mask), min=1e-32)
+        return _layer_sum((1.0 - num / den) * mask) / torch.clamp(global_sum(torch.sum(mask)),
+                                                                  min=1e-32)
 
     def loss_region_embed(self, outputs, targets, assignments):
         """Matched-pair embedding L1 over (B x 512), as the JAX package
@@ -310,7 +339,7 @@ class SetCriterion:
                                   assignments["per_prop_gt_inds"])
         pred = outputs["text_correlation_embedding"]
         w = assignments["proposal_matched_mask"][..., None]
-        ave = pred.shape[1] * pred.shape[3]
+        ave = pred.shape[1] * get_world_size() * pred.shape[3]  # the global batch x 512
         return _layer_sum(torch.abs(pred * w / ave - gt_emb * w / ave))
 
     def loss_contrast_object_text(self, outputs, targets, assignments):
@@ -329,7 +358,7 @@ class SetCriterion:
         w = self._class_weights(gt_label.device, "seen")
         wsel = w[torch.clamp(gt_label, 0, w.shape[0] - 1)]
         nll = _cross_entropy(logits, gt_label) * wsel
-        return _layer_sum(nll) / torch.clamp(_layer_sum(wsel), min=1e-32)
+        return _layer_sum(nll) / torch.clamp(global_sum(_layer_sum(wsel)), min=1e-32)
 
     def loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi(self, outputs, targets,
                                                                    assignments):
@@ -350,7 +379,8 @@ class SetCriterion:
         if self.confidence_type == "non-confidence":
             confi = torch.where(confi > 1e-16, torch.ones_like(confi), confi)
         nll = _cross_entropy(logits, gt_label)
-        return _layer_sum(nll * confi) / (_layer_sum((confi > 1e-32).to(nll.dtype)) + 1e-32)
+        count = global_sum(_layer_sum((confi > 1e-32).to(nll.dtype)))
+        return _layer_sum(nll * confi) / (count + 1e-32)
 
     # ---------------- assembly ----------------
 
@@ -361,7 +391,7 @@ class SetCriterion:
         targets = dict(targets)
         nactual_gt = torch.sum(targets["gt_box_present"], dim=1).long()
         targets["nactual_gt"] = nactual_gt
-        targets["num_boxes"] = torch.clamp(torch.sum(nactual_gt).float(), min=1.0)
+        targets["num_boxes"] = torch.clamp(global_sum(torch.sum(nactual_gt).float()), min=1.0)
 
         num_layers = outputs_stacked["sem_cls_logits"].shape[0]
         outputs = {
@@ -409,9 +439,11 @@ class SetCriterion:
         return total.sum(), losses
 
 
-def build_criterion(args, dataset_config):
-    """The JAX package's build_criterion (weights from the same flags), with
-    one replica."""
+def build_criterion(args, dataset_config, num_replicas: int = 1):
+    """The JAX package's build_criterion (weights from the same flags);
+    `num_replicas` (R, the ranks) sets per_replica_norm under
+    --if_per_replica_loss_norm (the default) unless
+    --if_global_batch_loss_norm."""
     matcher = Matcher(
         cost_class=args.matcher_cls_cost,
         cost_giou=args.matcher_giou_cost,
@@ -427,6 +459,9 @@ def build_criterion(args, dataset_config):
     }
     for name in PORTED_LOSSES + UNPORTED_LOSSES:
         loss_weight_dict.setdefault(name + "_weight", getattr(args, name + "_weight", 0.0))
+    per_replica = (getattr(args, "if_per_replica_loss_norm", True)
+                   and not getattr(args, "if_global_batch_loss_norm", False))
     return SetCriterion(matcher, dataset_config, loss_weight_dict,
                         train_range_max=getattr(args, "train_range_max", 10),
-                        confidence_type=getattr(args, "confidence_type", "non-confidence"))
+                        confidence_type=getattr(args, "confidence_type", "non-confidence"),
+                        per_replica_norm=num_replicas if per_replica else 0)

@@ -2,9 +2,10 @@
 the copy of a batch to the card.
 
 Counterpart of coda_neurips2023_tpu/datasets/loader.py, copied: `collate`,
-`Loader` and `make_loader`.  One loader feeds the whole batch (there is no
-per-rank sampler until multi-GPU, ROADMAP Queue 1 item 8).  String fields
-stay lists on the host.
+`Loader` and `make_loader`.  One loader builds the whole global batch, as
+the JAX package's single controller does; over several ranks `shard`
+wraps it in a `RankLoader`, which gives each rank its rows (below).  String
+fields stay lists on the host.
 
 Two worker backends:
   * threads (the default): numpy releases the GIL for the heavy ops;
@@ -17,6 +18,18 @@ are the same whatever the scheduling or backend.  `pad_last` pads the last
 short batch by repeating its last sample and marks the real rows in
 "pad_mask", so every batch has one shape and every sample is evaluated.
 `prefetch` bounds the batches in flight.
+
+`RankLoader` is the data-parallel loader (parallel/ddp.py): rank r takes
+rows [r*B, (r+1)*B) of each global batch, bit for bit the rows of the batch
+the JAX package's loader builds at batchsize_per_gpu x R.  A rank cannot
+build its rows alone: `_build_batch` draws every sample of a batch in turn
+from one generator seeded by the batch's task seed, so rank r's rows depend
+on the draws of rows 0 .. r*B - 1.  So rank 0 runs the global batch's loader
+(its workers do each sample's work once, as the JAX package's) and hands
+every other rank its rows through shared memory (`ddp.send_rows`): rank 0's
+host pays one copy of the other ranks' rows a batch, and no rank builds a
+sample twice.  The epoch counter, the task seeds and len() are the global
+loader's.
 
 `to_device` is the one piece with no JAX counterpart: it copies a batch's
 arrays to the device, from pinned host memory and non-blocking on a card.
@@ -186,6 +199,48 @@ def make_loader(dataset, batch_size, shuffle=False, seed=0, drop_last=True,
                 num_workers=4, pad_last=False, use_processes=False, prefetch=None):
     return Loader(dataset, batch_size, shuffle, seed, drop_last, num_workers,
                   pad_last=pad_last, use_processes=use_processes, prefetch=prefetch)
+
+
+class RankLoader:
+    """This rank's rows of each batch of `loader`, a loader of the global
+    batch (world x the per-rank batch): rank 0 iterates `loader` and sends
+    each other rank its rows; the others receive theirs, len(loader) times."""
+
+    def __init__(self, loader):
+        from coda_neurips2023_tpu_torch.parallel import dist as pdist
+
+        self.loader = loader
+        self.rank, self.world = pdist.get_rank(), pdist.get_world_size()
+
+    @property
+    def epoch(self):
+        return self.loader.epoch
+
+    @epoch.setter
+    def epoch(self, value):
+        self.loader.epoch = value
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[dict]:
+        from coda_neurips2023_tpu_torch.parallel import ddp
+
+        if self.rank != 0:
+            for _ in range(len(self.loader)):
+                yield ddp.receive_rows()
+            return
+        for batch in self.loader:
+            for r in range(1, self.world):
+                ddp.send_rows(r, ddp.rows(batch, r, self.world))
+            yield ddp.rows(batch, 0, self.world)
+
+
+def shard(loader):
+    """`loader` itself in one process; over several ranks, a RankLoader of it."""
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
+
+    return RankLoader(loader) if pdist.is_distributed() else loader
 
 
 def to_device(batch: dict, device) -> dict:

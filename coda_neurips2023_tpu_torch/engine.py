@@ -4,7 +4,9 @@ Counterpart of coda_neurips2023_tpu/engine.py:
   * `make_train_step` (:90-173): forward in training mode, targets computed
     from that forward (stage 1's distillation targets, `extra_targets_fn`),
     the criterion, backward, the optimizer update with a runtime learning
-    rate, and the BatchNorm statistics (updated by the forward itself);
+    rate, and the BatchNorm statistics (updated by the forward itself); over
+    several ranks the gradients are summed over them between the backward
+    and the optimizer (the JAX package's sharded jit does it in XLA);
   * `train_one_epoch` (:247-347): the epoch loop, each host batch copied to
     the device with its epochs and learning rate, dropout drawn from a
     generator seeded by the run's seed and the step count, the losses kept
@@ -16,8 +18,9 @@ Counterpart of coda_neurips2023_tpu/engine.py:
     predicted boxes;
   * `evaluate` (:350-449): the eval loop, each batch copied to the device,
     stepped, its outputs copied back and metered into the host AP
-    calculator, one batch deep (below).  One process; the multi-GPU gather
-    comes with DDP (ROADMAP Queue 1 item 8).
+    calculator, one batch deep (below); over several ranks each rank steps
+    its rows and rank 0 meters the global batch (the JAX package's
+    multi-host gather, :385-424).
 Checkpoints are saved by the caller (main.do_train, utils/io.py).
 """
 
@@ -34,6 +37,8 @@ import torch
 
 from coda_neurips2023_tpu_torch.datasets.loader import to_device
 from coda_neurips2023_tpu_torch.models.model_3detr import get_class_scores
+from coda_neurips2023_tpu_torch.parallel import ddp
+from coda_neurips2023_tpu_torch.parallel import dist as pdist
 from coda_neurips2023_tpu_torch.utils import ap_calculator
 from coda_neurips2023_tpu_torch.utils.device import resolve_device
 from coda_neurips2023_tpu_torch.utils.misc import SmoothedValue
@@ -132,7 +137,15 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     the total loss, the lr and every loss term, as 0-d tensors on the device
     (nothing syncs but the matcher's one host round trip).  The phases run
     inside `torch.profiler.record_function` ranges ("train:forward",
-    "train:targets", "train:criterion", "train:backward", "train:optimizer").
+    "train:targets", "train:criterion", "train:backward", "train:allreduce",
+    "train:optimizer").
+
+    Over several ranks (parallel/ddp.py) the batch is this rank's rows, the
+    criterion gives this rank's share of the global loss, the gradients are
+    summed over the ranks in one flat all-reduce before the optimizer (whose
+    clip by global norm so sees the global gradient), and the loss and its
+    terms in `metrics` are summed over the ranks: the global loss, alike on
+    every rank.
     """
     record = torch.profiler.record_function
 
@@ -155,11 +168,15 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
             loss, loss_dict = criterion(outputs, targets)
         with record("train:backward"):
             loss.backward()
+        with record("train:allreduce"):
+            ddp.all_reduce_gradients(optimizer.params)
         with record("train:optimizer"):
             optimizer.step(lr)
         lr = torch.as_tensor(lr, dtype=torch.float32)
-        metrics = {"loss": loss.detach(), "lr": lr,
-                   **{k: v.detach() for k, v in loss_dict.items()}}
+        losses = pdist.reduce_dict({"loss": loss.detach(),
+                                    **{k: v.detach() for k, v in loss_dict.items()}},
+                                   average=False)
+        metrics = {"loss": losses.pop("loss"), "lr": lr, **losses}
         if return_last_outputs:
             return metrics, {k: outputs[k][-1].detach() for k in DISCOVERY_OUTPUT_KEYS}
         return metrics
@@ -167,12 +184,16 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     return train_step
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The generator of training step `step` of a run seeded `seed`: a
     function of the two alone, as the JAX step folds its step count into its
     key (engine.py:154), so a resumed run draws what an uninterrupted one
-    draws."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2, np.uint32)
+    draws.  Rank r > 0 of a data-parallel run folds r in too, so each rank's
+    rows draw their own dropout masks and crops (the JAX package draws one
+    mask over the global batch from its key; R ranks draw other masks than
+    one rank does)."""
+    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
 
 
@@ -193,8 +214,8 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
     `all_epoch` (the monotone epoch, which the keep-box gate reads; curr_epoch
     when None), and, with `lr_fn(it)`, the iteration's learning rate (else
     the step's own schedule).  With `seed` and `optimizer`, each step's
-    dropout and crop draws come from step_generator(seed, optimizer.count)
-    (else the step gets no generator).  With `discovery_fn`, the step returns the last
+    dropout and crop draws come from step_generator(seed, optimizer.count,
+    rank) (else the step gets no generator).  With `discovery_fn`, the step returns the last
     decoder layer's outputs too and discovery_fn(last_outputs, batch) mines
     and writes pseudo labels.  With `profile_dir`, iterations 2-5 are traced
     with torch.profiler into <profile_dir>/train_trace.json.
@@ -204,9 +225,14 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
     reference's per-step abort, at most log_every - 1 steps late), and the
     status line and, with `logger`, the Train_details/ scalars (at the
     optimizer's step count) are written.  Nothing else waits for the device.
+    Over several ranks the losses read back are the all-reduced ones, so
+    every rank aborts at the same step, and only rank 0 prints.
     """
     iter_time = SmoothedValue(window_size=10)
     loss_avg = SmoothedValue(window_size=10)
+    rank = pdist.get_rank()
+    if rank:
+        log = lambda *a, **k: None  # noqa: E731
     pending = []
     metrics = {}
     profiler = None
@@ -238,7 +264,8 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
             batch["lr"] = float(lr_fn(it))
         gen = None
         if seed is not None and optimizer is not None:
-            gen = step_generator(seed, optimizer.count, device if device is not None else "cpu")
+            gen = step_generator(seed, optimizer.count, device if device is not None else "cpu",
+                                 rank)
         result = train_step(batch, gen)
         if isinstance(result, tuple):
             metrics, last_outputs = result
@@ -298,9 +325,18 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
     padded tail) drops the repeated rows before metering.  The AP pool's
     workers are started first, so their start-up overlaps the first batch.
     Fills EVAL_STATS.
+
+    Over several ranks `batches` gives this rank's rows (datasets.loader
+    .RankLoader): each rank steps its rows, and each batch's outputs, meter
+    keys and pad_mask are all-gathered in rank order over the host group
+    (parallel.dist.all_gather_dict); rank 0 keeps the real rows by the
+    boolean mask (each rank's padding sits inside the concatenation, as in
+    the JAX package's multi-host gather) and meters them.  Returns the APCalculator on rank 0
+    and None on the others, which wait at a barrier for rank 0's last meter.
     """
     device = resolve_device(device)
     cuda = device.type == "cuda"
+    primary = pdist.is_primary()
     ap = ap_calculator.APCalculator(
         dataset_config=dataset_config,
         ap_iou_thresh=[0.25, 0.5],
@@ -333,6 +369,18 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
             done.synchronize()
             host = {k: v.numpy() for k, v in host.items()}
         t1 = time.perf_counter()
+        if pdist.is_distributed():
+            n = len(host[EVAL_KEYS[0]])
+            rows = pdist.all_gather_dict({
+                **host, **targets,
+                "pad_mask": np.ones(n, bool) if pad_mask is None else np.asarray(pad_mask, bool)})
+            if not primary:
+                wait_s.append(t1 - t0)
+                meter_s.append(time.perf_counter() - t1)
+                return
+            host = {k: rows[k] for k in host}
+            targets = {k: rows[k] for k in targets}
+            pad_mask = rows["pad_mask"]
         if pad_mask is not None and not np.all(pad_mask):
             mask = np.asarray(pad_mask, bool)
             host = {k: v[mask] for k, v in host.items()}
@@ -342,7 +390,8 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
         meter_s.append(time.perf_counter() - t1)
 
     t_start = time.perf_counter()
-    ap_calculator.start_pool()
+    if primary:
+        ap_calculator.start_pool()
     pending = None
     batches = iter(batches)
     while True:
@@ -360,11 +409,14 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
                    batch.get("pad_mask"))
     if pending is not None:
         meter(*pending)
+    pdist.barrier()
     EVAL_STATS.clear()
     EVAL_STATS.update(
         batches=len(meter_s), scans=ap.scan_cnt, wall_s=time.perf_counter() - t_start,
         load_s=load_s, device_ms=[start.elapsed_time(done) for start, done in events],
         meter_s=meter_s, wait_s=wait_s,
     )
+    if not primary:
+        return None
     print(f"evaluated {ap.scan_cnt} scans")
     return ap

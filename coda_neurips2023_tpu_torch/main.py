@@ -11,11 +11,24 @@ reference's scripts parse unchanged:
 
 `main` builds the dataset splits, the model and, for the CoDA model or
 --if_with_clip, the frozen CLIP with its text banks, and for training the
-criterion, AdamW and its schedule (`build_everything`, :322-388; no mesh:
-one card, whatever --ngpus says, until DDP, ROADMAP Queue 1 item 8).  It
-runs on the card: `main(argv, device="cpu")` runs on the CPU instead (the
-device is a keyword of `main`, not a flag), and without a card the default
-raises.
+criterion, AdamW and its schedule (`build_everything`, :322-388).  It runs
+on the card: `main(argv, device="cpu")` runs on the CPU instead (the device
+is a keyword of `main`, not a flag), and without a card the default raises.
+
+--ngpus R runs data-parallel over R = min(--ngpus, cards) ranks, one
+process a card (parallel/ddp.py), as the JAX package shards its global
+batch over min(--ngpus, devices) chips (:347): the same global batch of
+batchsize_per_gpu x R rows (each rank its contiguous rows, datasets/loader.py
+:: RankLoader), iterations an epoch and schedule of that batch, BatchNorm
+statistics and loss normalizers over it, the per-replica normalizer of
+loss_sem_cls_softmax_skip_none_gt_sample with R replicas, and the gradients
+summed over the ranks.  The ranks meet over NCCL at --dist_url; host objects
+go over a gloo group beside it; a failure to start NCCL raises.  Rank 0
+alone writes checkpoints, logs and eval files and meters the evals; every
+rank restores the same files.  R = 1 is one process, as before.  On the CPU
+`main(argv, device="cpu")` is one process unless the caller passes
+`cpu_devices=N` (a keyword, not a flag, like the JAX tests' 8 virtual CPU
+devices): then R = min(--ngpus, N) processes over gloo.
 
 Without --test_only, `do_train` (:390-646) trains as the JAX package does,
 in the same order and with the same file names: the resume from
@@ -58,6 +71,7 @@ import argparse
 import os
 import pickle
 import sys
+from typing import NamedTuple
 
 
 def make_args_parser():
@@ -335,7 +349,7 @@ def make_args_parser():
     parser.add_argument("--profile_dir", default=None, type=str,
                         help="capture a torch.profiler trace of a few train iterations")
 
-    ##### Distributed (one process until DDP, ROADMAP Queue 1 item 8) #####
+    ##### Distributed: R = min(--ngpus, cards) ranks (parallel/ddp.py) #####
     parser.add_argument("--ngpus", default=1, type=int)
     parser.add_argument("--dist_url", default="tcp://localhost:12345", type=str)
 
@@ -403,11 +417,12 @@ _MODE_FLAGS = (
 )
 
 
-def build_everything(args, device="cuda", train: bool = False):
+def build_everything(args, device="cuda", train: bool = False, world: int = 1):
     """The dataset splits, the model on `device` and, for the CoDA model or
     --if_with_clip, the StageContext (CLIP and its text banks), as the JAX
-    package's build_everything makes them; with `train` also the criterion,
-    AdamW, its schedule and the iterations an epoch."""
+    package's build_everything makes them; with `train` also the criterion
+    (R = `world` replicas), AdamW, its schedule and the iterations an epoch
+    of the global batch batchsize_per_gpu x R."""
     from coda_neurips2023_tpu_torch.datasets import build_dataset
     from coda_neurips2023_tpu_torch.models import build_model
     from coda_neurips2023_tpu_torch.stages import StageContext
@@ -427,11 +442,11 @@ def build_everything(args, device="cuda", train: bool = False):
         from coda_neurips2023_tpu_torch.criterion import build_criterion
         from coda_neurips2023_tpu_torch.optimizer import build_optimizer
 
-        # one card: iterations an epoch as len(train_loader) with drop_last
-        iters_per_epoch = max(max(len(datasets["train"]), 1) // args.batchsize_per_gpu, 1)
+        # iterations an epoch as len(train_loader) of the global batch, with drop_last
+        iters_per_epoch = max(max(len(datasets["train"]), 1) // (args.batchsize_per_gpu * world), 1)
         optimizer, schedule = build_optimizer(args, model, iters_per_epoch)
-        ctx.update(criterion=build_criterion(args, dataset_config), optimizer=optimizer,
-                   schedule=schedule, iters_per_epoch=iters_per_epoch)
+        ctx.update(criterion=build_criterion(args, dataset_config, num_replicas=world),
+                   optimizer=optimizer, schedule=schedule, iters_per_epoch=iters_per_epoch)
     stage_ctx = None
     if args.model_name == "3detr_predictedbox_distillation" or args.if_with_clip:
         stage_ctx = StageContext(args, real_test_config, device=device)
@@ -456,6 +471,7 @@ def build_everything(args, device="cuda", train: bool = False):
         "real_cmp_config": real_cmp_config,
         "model": model,
         "device": device,
+        "world": world,
     })
     return ctx
 
@@ -477,16 +493,20 @@ def _eval_step(args, ctx, bank: str = "test"):
     )
 
 
-def _evaluate(args, ctx, eval_step, split: str, config):
-    """`split` through `eval_step` into an APCalculator (batches of
-    --batchsize_per_gpu_test, the last padded)."""
-    from coda_neurips2023_tpu_torch import engine
-    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
+def _eval_loader(args, ctx, split: str, **kw):
+    """This rank's rows of `split` in global batches of
+    --batchsize_per_gpu_test x R, the last padded."""
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader, shard
 
-    loader = make_loader(
-        ctx["datasets"][split], args.batchsize_per_gpu_test, shuffle=False,
-        drop_last=False, pad_last=True, num_workers=max(args.dataset_num_workers_test, 1),
-    )
+    return shard(make_loader(ctx["datasets"][split], args.batchsize_per_gpu_test * ctx["world"],
+                             shuffle=False, drop_last=False, pad_last=True, **kw))
+
+
+def _evaluate(args, ctx, eval_step, split: str, config):
+    """`split` through `eval_step` into an APCalculator (None on ranks > 0)."""
+    from coda_neurips2023_tpu_torch import engine
+
+    loader = _eval_loader(args, ctx, split, num_workers=max(args.dataset_num_workers_test, 1))
     return engine.evaluate(eval_step, loader, config, device=ctx["device"],
                            dataset_name=args.dataset_name)
 
@@ -498,9 +518,11 @@ def do_train(args, ctx):
     import torch
 
     from coda_neurips2023_tpu_torch import engine
-    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader, shard
     from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
     from coda_neurips2023_tpu_torch.optimizer import make_lr_schedule
+    from coda_neurips2023_tpu_torch.parallel import ddp
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
     from coda_neurips2023_tpu_torch.utils import io
     from coda_neurips2023_tpu_torch.utils.logger import Logger
 
@@ -510,24 +532,23 @@ def do_train(args, ctx):
     if args.if_two_phase_stage_step:
         raise NotImplementedError("--if_two_phase_stage_step keeps XLA graphs small and is "
                                   "not ported (ROADMAP, Not to port)")
-    if args.ngpus > 1:
-        print(f"note: one card; --ngpus {args.ngpus} is read as 1 until DDP "
-              "(ROADMAP Queue 1 item 8)")
     model, criterion, optimizer = ctx["model"], ctx["criterion"], ctx["optimizer"]
     device, datasets = ctx["device"], ctx["datasets"]
     logger = Logger(args.checkpoint_dir)
-    train_loader = make_loader(
-        datasets["train"], args.batchsize_per_gpu, shuffle=True, seed=args.seed,
+    train_loader = shard(make_loader(
+        datasets["train"], args.batchsize_per_gpu * ctx["world"], shuffle=True, seed=args.seed,
         drop_last=True, num_workers=max(args.dataset_num_workers, 1),
         use_processes=args.dataset_num_workers > 1,
-    )
+    ))
     with torch.no_grad():
         reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
     start_epoch = -1
+    pdist.barrier()  # every rank restores the same files
     if args.checkpoint_dir:
         start_epoch, _ = io.resume_if_possible(args.checkpoint_dir, model, optimizer)
     if args.checkpoint_file:
         io.restore_params_only(args.checkpoint_file, model)
+    ddp.broadcast_state(model)
     if args.set_epoch >= 0:
         start_epoch = args.set_epoch - 1
     start_epoch += 1
@@ -577,7 +598,8 @@ def do_train(args, ctx):
             train_step, train_loader, curr_epoch=effective_epoch, log_every=args.log_every,
             lr_fn=lambda it, _e=effective_epoch: host_schedule(_e * ipe + it),
             device=device, optimizer=optimizer, seed=args.seed, all_epoch=epoch,
-            logger=logger, profile_dir=args.profile_dir if epoch == start_epoch else None,
+            logger=logger,
+            profile_dir=args.profile_dir if epoch == start_epoch and pdist.is_primary() else None,
             discovery_fn=(
                 (lambda last, batch: stage_ctx.run_discovery_and_write(discovery, last, batch))
                 if run_discovery and stage_ctx.is_save_epoch(effective_epoch)
@@ -595,14 +617,19 @@ def do_train(args, ctx):
             ):
                 io.save_checkpoint(args.checkpoint_dir, model, optimizer, epoch,
                                    filename=f"checkpoint_{epoch:04d}")
+        # every rank's pseudo-label files and rank 0's checkpoint are written
+        # before the next epoch's loader reads them
+        pdist.barrier()
 
         last_epoch = epoch == args.max_epoch - 1
 
         # the OV test split, and checkpoint_best on its AP25
+        ap = None  # stays None on ranks > 0: rank 0 meters, prints and writes
         if ((epoch % args.eval_every_epoch == 0 and epoch > 0) or last_epoch) and len(
             datasets["test"]
         ):
             ap = _evaluate(args, ctx, eval_step, "test", ctx["dataset_config"])
+        if ap is not None:
             m = ap.compute_metrics()
             print("==" * 10)
             print(f"Evaluate Epoch [{epoch}/{args.max_epoch}]")
@@ -616,10 +643,12 @@ def do_train(args, ctx):
                                    "checkpoint_best")
 
         # the closed-vocabulary real_test split
+        ap = None
         if ((epoch % args.real_eval_every_epoch == 0 and epoch > 0) or last_epoch) and len(
             datasets["real_test"]
         ):
             ap = _evaluate(args, ctx, eval_step, "real_test", ctx["real_test_config"])
+        if ap is not None:
             msg = ap.metrics_to_str(ap.compute_metrics(), per_class=False)
             print(msg)
             if args.checkpoint_dir:
@@ -628,12 +657,14 @@ def do_train(args, ctx):
 
         # the comparison vocabulary, only when its cadence is at most max_epoch
         # (the JAX package's deviation from the reference, main.py:562-566)
+        ap = None
         if (
             cmp_eval_step is not None
             and ((epoch % args.real_cmp_eval_every_epoch == 0 and epoch > 0) or last_epoch)
             and args.real_cmp_eval_every_epoch <= args.max_epoch
         ):
             ap = _evaluate(args, ctx, cmp_eval_step, "real_cmp_test", ctx["real_cmp_config"])
+        if ap is not None:
             m = ap.compute_metrics()
             msg = ap.metrics_to_str(m)
             print(msg)
@@ -652,8 +683,10 @@ def do_train(args, ctx):
                            filename="last_checkpoint")
 
     # the final eval (reference main.py:578-623)
+    ap = None
     if len(datasets["real_test"]):
         ap = _evaluate(args, ctx, eval_step, "real_test", ctx["real_test_config"])
+    if ap is not None:
         metrics = ap.compute_metrics()
         msg = ap.metrics_to_str(metrics)
         print("==" * 10, "Final Eval Numbers", "==" * 10)
@@ -687,19 +720,15 @@ def _export_metrics_excel(metrics: dict, path: str):
 def test_model(args, ctx):
     """The JAX package's test_model: the real_test split through the eval
     step into the AP calculator; prints and returns the metrics
-    ({iou: {name: value}})."""
+    ({iou: {name: value}}; None on ranks > 0, where rank 0 meters)."""
     import torch
 
     from coda_neurips2023_tpu_torch import engine
-    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
     from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
     from coda_neurips2023_tpu_torch.utils.io import restore_params_only
 
     model, device = ctx["model"], ctx["device"]
-    loader = make_loader(
-        ctx["datasets"]["real_test"], args.batchsize_per_gpu_test,
-        shuffle=False, drop_last=False, pad_last=True,
-    )
+    loader = _eval_loader(args, ctx, "real_test")
     # The JAX package draws a sample batch to initialise its model, which
     # moves the loader's epoch counter to 1 and so the task seeds of every
     # batch (the subsample of a real scan); the port takes the same batches.
@@ -713,6 +742,8 @@ def test_model(args, ctx):
         eval_step, loader, ctx["real_test_config"], device=device,
         dataset_name=args.dataset_name,
     )
+    if ap is None:
+        return None
     metrics = ap.compute_metrics()
     msg = ap.metrics_to_str(metrics)
     print(msg)
@@ -725,18 +756,23 @@ def test_model(args, ctx):
 def run_mode(args, ctx):
     """The JAX package's run_mode: the selected secondary mode over the
     `test` split, from the seeded init and --test_ckpt.  Returns what the
-    mode returns (a count, or the confusion matrix)."""
+    mode returns (a count, or the confusion matrix), summed over the ranks:
+    each rank runs the mode on its rows and writes its own scenes' files."""
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
+
+    return pdist.sum_over_ranks(_run_mode(args, ctx))
+
+
+def _run_mode(args, ctx):
     import torch
 
     from coda_neurips2023_tpu_torch import engine, modes
-    from coda_neurips2023_tpu_torch.datasets.loader import make_loader
     from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
     from coda_neurips2023_tpu_torch.utils.io import restore_params_only
 
     model, device = ctx["model"], ctx["device"]
     # every scene: the JAX package's loader drops the tail (reference quirk)
-    loader = make_loader(ctx["datasets"]["test"], args.batchsize_per_gpu_test,
-                         shuffle=False, drop_last=False, pad_last=True)
+    loader = _eval_loader(args, ctx, "test")
     loader.epoch = 1  # the JAX package's sample batch moves it there, as in test_model
     with torch.no_grad():
         reset_parameters(model, torch.Generator(device=device).manual_seed(args.seed))
@@ -776,12 +812,23 @@ def run_mode(args, ctx):
     raise ValueError("no mode selected")
 
 
-def main(argv=None, device="cuda"):
+def main(argv=None, device="cuda", cpu_devices=None):
     """Parse `argv` (sys.argv[1:] when None) and run on `device`: a mode
     flag's run_mode, the eval with --test_only (returns test_model's
-    metrics), else training (returns the trained model)."""
+    metrics), else training (returns the trained model).
+
+    Over R = min(--ngpus, cards) > 1 ranks (on the CPU, min(--ngpus,
+    `cpu_devices`)) it builds the kernels and the host library once, starts
+    one process a rank (parallel/ddp.py) and returns rank 0's result (for
+    training, a model on `device` holding rank 0's trained weights, as at
+    R = 1).  Called inside a rank (a process group is up), it runs as that
+    rank on its device."""
+    import torch
+
+    from coda_neurips2023_tpu_torch.parallel import ddp
     from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = make_args_parser()
     args = parser.parse_args(argv)
     reject_inert_flags(parser, args)
@@ -803,13 +850,66 @@ def main(argv=None, device="cuda"):
             "pass --if_with_clip or --test_num_semcls 1" % args.test_num_semcls
         )
     device = resolve_device(device)
+    if torch.distributed.is_initialized():  # a rank of a launched run
+        device, world = ddp.local_device(), torch.distributed.get_world_size()
+    else:
+        world = ddp.world_size(args.ngpus, device, cpu_devices)
+        what = "cards" if device.type == "cuda" else "CPU devices"
+        available = torch.cuda.device_count() if device.type == "cuda" else cpu_devices or 1
+        print(f"data parallel: {world} rank(s) (--ngpus {args.ngpus}, {available} {what})")
+        if world > 1:
+            return _launch(args, argv, device, world)
     mode = any(getattr(args, name) for name in _MODE_FLAGS)
-    ctx = build_everything(args, device=device, train=not (args.test_only or mode))
+    ctx = build_everything(args, device=device, train=not (args.test_only or mode), world=world)
     if mode:
         return run_mode(args, ctx)
     if args.test_only:
         return test_model(args, ctx)
     return do_train(args, ctx)
+
+
+def _launch(args, argv, device, world: int):
+    """main(argv) in `world` ranks, one a device, after one build of the
+    kernels (on the card) and of the host library, so that no rank waits on
+    another's build; rank 0's trained weights come back into a model built
+    here on `device`."""
+    from coda_neurips2023_tpu_torch import native
+    from coda_neurips2023_tpu_torch.datasets import build_dataset
+    from coda_neurips2023_tpu_torch.models import build_model
+    from coda_neurips2023_tpu_torch.parallel import ddp
+
+    if device.type == "cuda":
+        from coda_neurips2023_tpu_torch import _kernels
+
+        _kernels.build()
+        devices = [f"cuda:{r}" for r in range(world)]
+    else:
+        devices = ["cpu"] * world
+    native.available()
+    result = ddp.launch(_rank_main, world, argv, device.type, devices=devices,
+                        backend=ddp.backend_for(device), dist_url=args.dist_url)
+    if not isinstance(result, _Trained):
+        return result
+    model, _ = build_model(args, build_dataset(args)[1], device=device)
+    model.load_state_dict(result.state)
+    return model.train(result.training)
+
+
+class _Trained(NamedTuple):
+    """A rank's trained model as it crosses to the launching process."""
+
+    state: dict  # the state dict, on the CPU
+    training: bool
+
+
+def _rank_main(argv, device_type):
+    import torch
+
+    result = main(argv, device=device_type)
+    if isinstance(result, torch.nn.Module):
+        return _Trained({k: v.detach().cpu() for k, v in result.state_dict().items()},
+                        result.training)
+    return result
 
 
 if __name__ == "__main__":

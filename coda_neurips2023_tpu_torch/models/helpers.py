@@ -12,7 +12,11 @@ BatchNorm and dropout follow flax in training mode (`train()`):
     max(E[x^2] - E[x]^2, 0), eps 1e-5; the running statistics move to
     0.9 * old + 0.1 * batch with that same variance (torch.nn.BatchNorm
     would store the unbiased one), under no_grad.  In eval mode it
-    normalizes with the running statistics.
+    normalizes with the running statistics.  Over several ranks
+    (parallel/ddp.py) the batch is the global batch, as under the JAX
+    package's sharded jit: the mean and E[x^2] come from a differentiable
+    all-reduce of (sum x, sum x^2, count), so the running statistics move
+    alike on every rank.
   * Dropout keeps an element with probability 1 - rate and scales it by
     1 / (1 - rate), drawing its mask from the explicit `torch.Generator`
     the forward is given (the default generator when None).
@@ -25,6 +29,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from coda_neurips2023_tpu_torch.parallel import dist as pdist
 
 EPS = 1e-5
 ACT = {"relu": nn.ReLU}
@@ -92,8 +98,13 @@ class BatchNorm(nn.Module):
             mul = torch.rsqrt(self.running_var + EPS) * self.weight
             return (x - self.running_mean) * mul + self.bias
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        if pdist.is_distributed():
+            count = x.new_full((1,), x.numel() // x.shape[-1])
+            sums = pdist.differentiable_global_sum(torch.cat([x.sum(axes), (x * x).sum(axes), count]))
+            mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
+        else:
+            mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

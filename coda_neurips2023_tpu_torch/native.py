@@ -9,8 +9,10 @@ The library is built with g++ at first use into
 ``build/torch_kernels/libcoda_native_host.so`` at the root of the checkout
 (the kernels' build directory, which git ignores), and built again when a
 hash of the source and flags changes.  The build writes a temporary file and
-renames it, so processes that build at once (AP workers, test workers) never
-load a half-written library.  The JAX package's ``native/libcoda_native.so``
+renames it, so no process loads a half-written library, and it runs under
+`build_lock`, an inter-process file lock in the build directory, so
+processes that need the library at once (ranks, AP workers, test workers)
+run one build between them and the others load its result.  The JAX package's ``native/libcoda_native.so``
 is never read or written.  Without g++ `available()` is False and the
 callers take their numpy versions.  This module imports numpy only, so the
 AP worker processes never import torch.
@@ -18,7 +20,9 @@ AP worker processes never import torch.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -38,26 +42,47 @@ _lib = None
 _failed = False
 
 
+@contextlib.contextmanager
+def build_lock(build_dir: Path):
+    """Hold an exclusive lock on <build_dir>/.build.lock (fcntl.flock): one
+    process at a time checks a build's stamp, compiles and renames its
+    output; the others wait here and then find the stamp current."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def is_current(library: Path, digest: str) -> bool:
+    """Whether `library` exists beside a stamp holding `digest`."""
+    stamp = library.with_suffix(".so.sha256")
+    return library.exists() and stamp.exists() and stamp.read_text() == digest
+
+
 def build() -> Path:
     """Compile SOURCE into LIBRARY unless a build of the same source exists."""
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()
-    stamp = LIBRARY.with_suffix(".so.sha256")
-    if LIBRARY.exists() and stamp.exists() and stamp.read_text() == digest:
+    if is_current(LIBRARY, digest):
         return LIBRARY
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    try:
-        subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", tmp], check=True,
-                       capture_output=True)
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    os.replace(tmp, LIBRARY)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".sha256")
-    with os.fdopen(fd, "w") as f:
-        f.write(digest)
-    os.replace(tmp, stamp)
+    with build_lock(BUILD_DIR):
+        if is_current(LIBRARY, digest):  # another process built it while this one waited
+            return LIBRARY
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+        os.close(fd)
+        try:
+            subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", tmp], check=True,
+                           capture_output=True)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+        os.replace(tmp, LIBRARY)
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".sha256")
+        with os.fdopen(fd, "w") as f:
+            f.write(digest)
+        os.replace(tmp, LIBRARY.with_suffix(".so.sha256"))
     return LIBRARY
 
 

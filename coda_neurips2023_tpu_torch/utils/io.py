@@ -44,7 +44,7 @@ import os
 
 import torch
 
-from coda_neurips2023_tpu_torch.utils.misc import is_primary
+from coda_neurips2023_tpu_torch.parallel.dist import is_primary
 
 # entries of a reference checkpoint that are not the detector's weights
 _NOT_DETECTOR_PREFIXES = ("clip_model.", "test_clip_model.")

@@ -12,7 +12,7 @@ import os
 import time
 from typing import Optional
 
-from coda_neurips2023_tpu_torch.utils.misc import is_primary
+from coda_neurips2023_tpu_torch.parallel.dist import is_primary
 
 
 class Logger:

@@ -1,8 +1,8 @@
 """Meters and process helpers.
 
 Counterpart of coda_neurips2023_tpu/utils/misc.py, copied (SmoothedValue,
-my_worker_init_fn), with `is_primary` (the JAX package's is in
-parallel/dist.py).
+my_worker_init_fn); `is_primary` is in parallel/dist.py, as the JAX
+package's is.
 """
 
 from __future__ import annotations
@@ -60,9 +60,3 @@ class SmoothedValue:
 def my_worker_init_fn(worker_id: int):
     """Deterministic per-worker numpy seeding (reference utils/misc.py)."""
     np.random.seed(np.random.get_state()[1][0] + worker_id)
-
-
-def is_primary() -> bool:
-    """Whether this process writes logs and checkpoints: always, in one
-    process; DDP (ROADMAP Queue 1 item 8) makes it rank 0's."""
-    return True
