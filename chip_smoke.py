@@ -172,6 +172,28 @@ result):
      free --dist_url) runs min(8, cards) ranks and says how many; with two
      or more cards (a)'s checks run again over NCCL, one card a rank, and
      with one card the script says that this part did not run.
+ 18. The bf16 paths.  (a) Kernels D-bf16 (the encoder's 32 x 4 x 2048 x
+     64, the decoder's 32 x 4 x 128 x 2048 x 128 with its key splits, a
+     radius case) and E-bf16 (128 and 256 crops x 12 x 197 x 64), each on
+     bf16 inputs against its plain bf16 version: within the bound of
+     bf16_attention_check (2^-7 sum_j p_j |v_j| plus one bf16 ulp of the
+     row), timed like phase 3 beside SDPA in bf16 and kernel D in fp32.
+     (b) The flagship detector with --compute_dtype bf16 from phase 4's
+     weights, its eval step on 32 x 20000 points (warm-up and STEPS timed):
+     A, B, C and D-bf16 launch and nothing else; enc_inds, enc_xyz and
+     query_xyz equal to the fp32 model's; the floats within BF16_MODEL_TOL
+     of the same model through the plain bf16 attention (with D-bf16's key
+     split), and their distance to the fp32 model printed.  (c)
+     --clip_dtype bf16: the CLIP-crop eval step of phase 6 (E-bf16 once a
+     row and layer, E not at all; sem_cls_prob's distance to the fp32
+     tower's on the same crops) and one stage-1 step of phase 10's flags
+     on 8 of the scenes (E-bf16 once a layer; a finite loss, the
+     distillation loss above 0).  (d) `main --test_only --compute_dtype
+     bf16` on phase 13's scenes and weights: metrics, launches (D-bf16, not
+     D), scenes/s and the idle share.  The kernels line carries D-bf16 and
+     E-bf16 as attention_bf16 and vit_attention_bf16, with their launches
+     in (b) and (c), the CLI's and the stage-1 step's, and the decoder,
+     radius and 256-crop shapes' times.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -800,7 +822,8 @@ def compare_attention_backward(torch):
         kq, kk, kv = (t.clone().requires_grad_() for t in leaves)
         pq, pk, pv = (t.clone().requires_grad_() for t in leaves)
         out_k = MaskedAttention.apply(kq, kk, kv, None, None, 0.0, dropout, seed)
-        out_p = masked_attention_plain(pq, pk, pv, None, None, 0.0, dropout, seed)
+        out_p = masked_attention_plain(pq, pk, pv, None, None, 0.0, dropout=dropout,
+                                       seed=seed)
         got = torch.autograd.grad(out_k, (kq, kk, kv), grad_out)
         want = torch.autograd.grad(out_p, (pq, pk, pv), grad_out)
         err = max((g - w).abs().max().item() for g, w in zip((out_k, *got), (out_p, *want)))
@@ -2677,6 +2700,410 @@ def ddp_phase(torch, root, smi, ckpt13, eval13):
     return launches
 
 
+# phase 18: the bf16 paths.  The card's dense bf16 tensor-core rate for the
+# bound of kernels D-bf16 and E-bf16 (NVIDIA's H100 SXM data sheet, 700 W)
+BF16_PEAK = 989e12  # FLOP/s
+BF16_KERNELS = {
+    "attention_bf16": ("coda_neurips2023_tpu_torch/csrc/attention_bf16.cu",
+                       "coda_neurips2023_tpu/ops/pallas_masked_attention.py:121"),
+    "vit_attention_bf16": ("coda_neurips2023_tpu_torch/csrc/vit_attention_bf16.cu",
+                           "coda_neurips2023_tpu/ops/pallas_vit_attention.py:109"),
+}
+# bf16 detector vs its plain bf16 path on the card, and the CLIP-crop scores
+# of the bf16 tower: both round the same products to bf16 but take their own
+# exp and sum in their own orders, so a p or an activation at a rounding
+# boundary lands on the neighbouring bf16 value and moves what follows
+# (the CPU tests measure 0.4-5% of an output's largest magnitude against the
+# JAX package's bf16 model); held to 3e-2 of each output's largest magnitude,
+# 6e-2 for the small sem logits
+BF16_MODEL_TOL = 3e-2
+BF16_SEM_LOGITS_TOL = 6e-2
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp (8 significant bits) at |x|, 0 at 0."""
+    mag = x.abs().float()
+    exp = torch.floor(torch.log2(torch.where(mag > 0, mag, torch.ones_like(mag))))
+    return torch.where(mag > 0, torch.exp2(exp - 7), torch.zeros_like(mag))
+
+
+def bf16_attention_check(torch, got, want, p_abs_v, label):
+    """A bf16 kernel against its plain version: both round p to bf16 at the
+    same place, so they differ where a p lies at a rounding boundary (its
+    exp2f and sum against torch's): at most one bf16 ulp of each p, at most
+    2^-7 of it, so 2^-7 sum_j p_j |v_j| before the output's rounding, which
+    adds one ulp of the row's largest magnitude.  Returns the max abs
+    error."""
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -7 * p_abs_v + bf16_ulp(torch, want.float().abs().amax(-1, keepdim=True))
+    own = (err > bf16_ulp(torch, torch.maximum(got.float().abs(), want.float().abs()))).sum()
+    if not (err <= bound).all():
+        fail(f"{label}: {int((err > bound).sum())} elements beyond the bf16 rounding bound "
+             f"(max_abs_err {err.max().item()!r})")
+    print(f"  {'':16s} {'':44s} bit-equal {(got == want).float().mean().item()!r}; "
+          f"{int(own)} elements over one ulp of their own magnitude")
+    return err.max().item()
+
+
+def bf16_bound(b, h, sq, skv, d):
+    """QK and PV (4D flops a query-key pair) at the dense bf16 rate, the
+    softmax's max, subtract, exp, sum, scale at the fp32 peak, and bf16 q,
+    k, v and output read or written once."""
+    pairs = b * h * sq * skv
+    ops_ms = (pairs * 4 * d / BF16_PEAK + pairs * 5 / FP32_PEAK) * 1e3
+    bytes_ms = 2 * b * h * (2 * sq * d + 2 * skv * d) / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def bf16_kernel_phase(torch, centres, results):
+    """Phase 18 (a): D-bf16 and E-bf16 against their plain bf16 versions at
+    the paths' shapes, timed beside SDPA in bf16."""
+    from coda_neurips2023_tpu_torch.ops import masked_attention as ma
+    from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, device=DEVICE, generator=gen).to(bf16)
+
+    def record(name, label, err, ms, plain_ms, bnd, library_ms, main, extra_prefix=None):
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if main:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                         library_ms=library_ms)
+        elif extra_prefix:
+            entry.update({f"{extra_prefix}_ms": ms, f"{extra_prefix}_plain_ms": plain_ms,
+                          f"{extra_prefix}_bound_ms": bnd[0],
+                          f"{extra_prefix}_library_ms": library_ms})
+        lib = f" library_ms={library_ms!r}" if library_ms is not None else ""
+        print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} bound_ms={bnd[0]!r} ({bnd[1]}){lib}")
+
+    b = centres.shape[0]
+    sms = multi_processor_count(centres.device)
+    cases = [
+        ("encoder S=2048 H=4 D=64", 2048, 2048, 64, 0.0, "main"),
+        ("decoder Sq=128 Skv=2048 H=4 D=128", 128, 2048, 128, 0.0, "decoder"),
+        ("radius-masked S=2048 H=4 D=64 r=1.2**2", 2048, 2048, 64, 1.2 ** 2, "radius"),
+    ]
+    for label, sq, skv, d, radius, key in cases:
+        q = (randn(b, 4, sq, d).float() / d ** 0.5).to(bf16)
+        k, v = randn(b, 4, d, skv), randn(b, 4, skv, d)
+        qxyz = centres[:, :sq].contiguous()
+        kxyz_t = centres.transpose(1, 2).contiguous()
+        splits, chunk = ma.attention_splits(b, 4, sq, skv, d, sms)
+        kern = lambda: ma.masked_attention(q, k, v, qxyz, kxyz_t, radius, "bfloat16")
+        if splits > 1:
+            plain = lambda: ma.masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius, chunk,
+                                                            "bfloat16")
+        else:
+            plain = lambda: ma.masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, "bfloat16")
+        got = kern()
+        if got.dtype != bf16:
+            fail(f"attention_bf16 {label}: output dtype {got.dtype}")
+        p = torch.softmax(ma._bf16_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
+        p_abs_v = torch.matmul(p, v.float().abs())
+        del p
+        err = bf16_attention_check(torch, got, plain(), p_abs_v, f"attention_bf16 {label}")
+        del got, p_abs_v
+        library_ms = None
+        if radius == 0:  # the same function: q arrives scaled, so scale 1
+            kt = k.transpose(2, 3).contiguous()
+            library = lambda: sdpa(q, kt, v, scale=1.0)
+            ms, library_ms = time_in_turns(torch, kern, library)
+        else:
+            ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=3)
+        record("attention_bf16", f"{label} splits={splits}", err, ms, plain_ms,
+               bf16_bound(b, 4, sq, skv, d), library_ms, key == "main", key)
+        fp32 = (q.float(), k.float(), v.float())
+        print(f"  {'':16s} {'':44s} kernel D (fp32) ms="
+              f"{time_ms(torch, lambda: ma.masked_attention(*fp32, qxyz, kxyz_t, radius))!r}")
+        del q, k, v, fp32
+    for crops in (128, 8 * N_SEL):
+        q, k, v = (randn(crops, 12, 197, 64) for _ in range(3))
+        kern = lambda: vit_attention(q, k, v)
+        plain = lambda: vit_attention_plain(q, k, v)
+        got = kern()
+        if got.dtype != bf16:
+            fail(f"vit_attention_bf16: output dtype {got.dtype}")
+        p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / 8.0, dim=-1)
+        err = bf16_attention_check(torch, got, plain(), torch.matmul(p, v.float().abs()),
+                                   f"vit_attention_bf16 {crops} crops")
+        del p, got
+        ms, library_ms = time_in_turns(torch, kern, lambda: sdpa(q, k, v))
+        plain_ms = time_ms(torch, plain, reps=3)
+        record("vit_attention_bf16", f"B={crops} crops H=12 S=197 D=64", err, ms, plain_ms,
+               bf16_bound(crops, 12, 197, 197, 64), library_ms, crops == 128,
+               None if crops == 128 else "stage1")
+        del q, k, v
+
+
+def bf16_forward_plain(torch):
+    """A context in which the bf16 detector's attention runs its plain bf16
+    version (with kernel D-bf16's key split) instead of kernel D-bf16."""
+    from coda_neurips2023_tpu_torch.models import transformer
+    from coda_neurips2023_tpu_torch.ops import masked_attention as ma
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    kernel = transformer.masked_attention
+
+    def plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype):
+        b, h, sq, d = q.shape
+        skv = v.shape[2]
+        splits, chunk = ma.attention_splits(b, h, sq, skv, d, multi_processor_count(q.device))
+        if splits > 1:
+            return ma.masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius, chunk,
+                                                   compute_dtype)
+        return ma.masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype)
+
+    @contextlib.contextmanager
+    def ctx():
+        transformer.masked_attention = plain
+        try:
+            yield
+        finally:
+            transformer.masked_attention = kernel
+
+    return ctx()
+
+
+# outputs that follow the angle class: a row whose class differs jumps by a bin
+ANGLE_KEYS = ("angle_continuous", "box_corners", "box_corners_xyz")
+
+
+def compare_bf16_outputs(torch, got, want, what):
+    """Float outputs within BF16_MODEL_TOL of each output's largest
+    magnitude (BF16_SEM_LOGITS_TOL for sem_cls_logits), those of ANGLE_KEYS
+    on the rows whose angle classes agree (at least 95% of them); returns
+    the worst share of that magnitude."""
+    same_bin = got["angle_logits"].argmax(-1) == want["angle_logits"].argmax(-1)
+    share_same = same_bin.float().mean().item()
+    print(f"  {what}: angle classes differ on {int((~same_bin).sum())} of {same_bin.numel()} rows")
+    if share_same < 0.95:
+        fail(f"{what}: angle classes agree on only {share_same!r} of the rows")
+    worst = (0.0, "")
+    for key, w in want.items():
+        if not w.is_floating_point():
+            continue
+        g = got[key]
+        if key in ANGLE_KEYS:
+            g, w = g[same_bin], w[same_bin]
+        scale = w.abs().max().item()
+        share = (g.float() - w.float()).abs().max().item() / max(scale, 1e-30)
+        tol = BF16_SEM_LOGITS_TOL if key == "sem_cls_logits" else BF16_MODEL_TOL
+        if not share <= tol:
+            fail(f"{what}: {key} differs by {share!r} of its largest magnitude > {tol}")
+        worst = max(worst, (share, key))
+    print(f"  {what}: worst {worst[1]} at {worst[0]!r} of its largest magnitude")
+    return worst
+
+
+def bf16_detector_phase(torch, cfg, batch, text, ckpt):
+    """Phase 18 (b): the bf16 flagship detector's eval step at B=32 x 20000
+    from phase 4's weights."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+
+    print(f"phase 18 (b): the bf16 detector (--compute_dtype bf16) eval step, {BATCH} x "
+          f"{NUM_POINTS} points, phase 4's weights")
+    state = torch.load(ckpt, map_location="cuda")["model"]
+    model32 = CoDA3DETR(cfg, device="cuda")
+    model32.load_state_dict(state)
+    model16 = CoDA3DETR(cfg, device="cuda", compute_dtype=torch.bfloat16)
+    model16.load_state_dict(state)
+    model32.eval(), model16.eval()
+    step = make_eval_step(model16, eval_text_features=text, eval_logit_scale=100.0)
+    t0 = time.perf_counter()
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    print(f"  warm-up step {(time.perf_counter() - t0) * 1e3!r} ms")
+    _kernels.reset_launches()
+    times, outs = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        outs.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.LAUNCHES)
+    check_eval_outputs(torch, outs, model16.nqueries, "bf16 eval", zero_rows=False)
+    print(f"  launches in the {STEPS} timed steps: {launches}")
+    for name in ("fps", "ball_query", "gather", "attention_bf16"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the bf16 detector's eval path")
+    others = {k: v for k, v in launches.items()
+              if k not in ("fps", "ball_query", "gather", "attention_bf16") and v}
+    if others:
+        fail(f"kernels off the bf16 eval path launched: {others}")
+    med = statistics.median(times)
+    print(f"  bf16 eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}; "
+          f"scenes/s (median step): {BATCH / med * 1e3!r}")
+    with torch.inference_mode():
+        got = model16(batch)
+        fp32 = model32(batch)
+        with bf16_forward_plain(torch):
+            _kernels.reset_launches()
+            plain = model16(batch)
+            if _kernels.LAUNCHES["attention_bf16"]:
+                fail("the plain bf16 forward launched kernel D-bf16")
+    for key in ("enc_inds", "query_xyz", "enc_xyz"):
+        if not torch.equal(got[key], fp32[key]):
+            fail(f"bf16 eval: {key} differs from the fp32 step's")
+    print("  enc_inds, enc_xyz, query_xyz equal to the fp32 step's")
+    compare_bf16_outputs(torch, got, plain, "bf16 vs its plain bf16 path on the card")
+    same_bin = got["angle_logits"].argmax(-1) == fp32["angle_logits"].argmax(-1)
+    dist = {k: ((got[k] if k not in ANGLE_KEYS else got[k][same_bin]).float()
+                - (fp32[k] if k not in ANGLE_KEYS else fp32[k][same_bin])).abs().max().item()
+            / fp32[k].abs().max().item() for k in fp32 if fp32[k].is_floating_point()}
+    worst = max((v, k) for k, v in dist.items())
+    print(f"  bf16 vs fp32 (phase 4's model): angle classes differ on "
+          f"{int((~same_bin).sum())} of {same_bin.numel()} rows; worst {worst[1]} at "
+          f"{worst[0]!r} of its largest magnitude; {dist}")
+    return launches
+
+
+def bf16_clip_phase(torch, cfg, batch):
+    """Phase 18 (c): the CLIP-crop eval step and one stage-1 step with the
+    bf16 tower (--clip_dtype bf16), at phases 6 and 10's shapes."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.datasets.config import SunrgbdImageConfig
+    from coda_neurips2023_tpu_torch.models import build_model
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.stages import StageContext
+
+    print(f"phase 18 (c): --clip_dtype bf16: the CLIP-crop eval step ({BATCH} scenes) and one "
+          f"stage-1 step ({TRAIN_BATCH} scenes, {N_SEL} crops a scene)")
+    towers = {}
+    for dtype in ("float32", "bf16"):
+        towers[dtype] = StageContext(
+            types.SimpleNamespace(**CLIP_ARGS, clip_dtype=dtype), SunrgbdImageConfig(),
+            device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    ctx = towers["bf16"]
+    if ctx.clip_model.dtype != torch.bfloat16:
+        fail(f"--clip_dtype bf16: the tower is {ctx.clip_model.dtype}")
+    bank_err = (ctx.text_banks["test"] - towers["float32"].text_banks["test"]).abs().max().item()
+    print(f"  text bank of the bf16 tower vs the fp32 tower's: max_abs_err {bank_err!r}")
+    args = types.SimpleNamespace(**FLAGSHIP_ARGS, **CLIP_ARGS)
+    detector, _ = build_model(args, cfg, device="cuda")
+    detector = reset_parameters(detector, torch.Generator(device="cuda").manual_seed(SEED + 2))
+    detector.eval()
+    step = ctx.make_clip_eval_step(detector)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    times, outs = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        outs.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.LAUNCHES)
+    nq = detector.nqueries
+    check_eval_outputs(torch, outs, nq, "bf16-tower CLIP eval", zero_rows=True)
+    print(f"  launches in the {STEPS} timed steps: {launches}")
+    if launches["vit_attention_bf16"] != STEPS * BATCH * CLIP_LAYERS or launches["vit_attention"]:
+        fail(f"vit_attention_bf16 launched {launches['vit_attention_bf16']} times (expected "
+             f"{STEPS * BATCH * CLIP_LAYERS}), vit_attention {launches['vit_attention']}")
+    med = statistics.median(times)
+    print(f"  CLIP eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}; "
+          f"crops/s: {BATCH * nq / med * 1e3!r}")
+    want = towers["float32"].make_clip_eval_step(detector)(batch)["sem_cls_prob"]
+    dist = (outs[0]["sem_cls_prob"] - want).abs().max().item()
+    print(f"  sem_cls_prob, bf16 tower vs fp32 tower (same weights, same crops): "
+          f"max_abs_err {dist!r}")
+    del towers["float32"], want, outs
+
+    train = {k: v[:TRAIN_BATCH] for k, v in batch.items()}
+    flags = types.SimpleNamespace(**STAGE1_ARGS, clip_dtype="bf16")
+    ctx1 = StageContext(flags, cfg, device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+    model, criterion, optimizer, schedule = train_objects(torch, cfg, True, DEVICE, SEED + 8,
+                                                          STAGE1_ARGS)
+    step1 = ctx1.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    step1(train, gen)  # warm-up
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = step1(train, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches1 = dict(_kernels.LAUNCHES)
+    loss, l1 = float(metrics["loss"]), float(metrics["loss_predicted_region_embed_l1"])
+    print(f"  stage-1 step: loss {loss!r}, loss_predicted_region_embed_l1 {l1!r}, {ms!r} ms, "
+          f"crops/s {TRAIN_BATCH * N_SEL / ms * 1e3!r}; launches {launches1}")
+    if not (math.isfinite(loss) and l1 > 0):
+        fail(f"stage-1 step with the bf16 tower: loss {loss}, distillation {l1}")
+    if launches1["vit_attention_bf16"] != CLIP_LAYERS or launches1["vit_attention"]:
+        fail(f"stage-1 step: vit_attention_bf16 launched {launches1['vit_attention_bf16']} "
+             f"times, expected {CLIP_LAYERS}")
+    for name in ("fps", "ball_query", "gather", "attention"):
+        if launches1[name] <= 0:
+            fail(f"kernel {name} was not launched on the bf16-tower stage-1 step")
+    return launches, launches1
+
+
+def bf16_cli_phase(torch, ckpt):
+    """Phase 18 (d): `main --test_only --compute_dtype bf16` on phase 13's
+    data and weights."""
+    from coda_neurips2023_tpu_torch import _kernels
+
+    scans = CLI_SCENES // 4
+    out_dir = _kernels.BUILD_DIR.parent / "phase13"
+    argv = CLI_ARGS + ["--synthetic_num_scenes", str(CLI_SCENES), "--test_ckpt", str(ckpt),
+                       "--compute_dtype", "bf16", "--log_file", str(out_dir / "eval_bf16.lst")]
+    print(f"phase 18 (d): main --test_only --compute_dtype bf16 on phase 13's {scans} scenes")
+    metrics, launches, stats, meter, seconds = cli_run(torch, argv, CLI_WORKERS[0])
+    check_cli_metrics(metrics, scans, stats, meter, "bf16 CLI")
+    print(f"    launches: {launches}")
+    for name in ("fps", "ball_query", "gather", "attention_bf16"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the bf16 CLI path")
+    if launches["attention"]:
+        fail("kernel D (fp32) launched on the bf16 CLI path")
+    report_loop(stats, meter, seconds, CLI_WORKERS[0])
+    os.environ.pop("CODA_AP_WORKERS", None)
+    return launches
+
+
+def bf16_phase(torch, cfg, ckpt, results):
+    """Phase 18: the bf16 paths; returns each bf16 kernel's launches on its
+    path (D-bf16: (b)'s timed steps, E-bf16: (c)'s CLIP eval steps) and on
+    the CLI."""
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+    from coda_neurips2023_tpu_torch.stages import StageContext
+
+    t0 = time.perf_counter()
+    ds = SyntheticDetectionDataset(cfg, num_scenes=BATCH, num_points=NUM_POINTS, seed=SEED,
+                                   with_images=True, image_hw=IMAGE_HW)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_batch(ds, 0, BATCH).items()}
+    print("phase 18 (a): kernels D-bf16 and E-bf16 vs their plain bf16 versions")
+    with torch.inference_mode():
+        bf16_kernel_phase(torch, batch["point_clouds"][:, :2048, :3].contiguous(), results)
+    from coda_neurips2023_tpu_torch.datasets.config import SunrgbdImageConfig
+
+    ctx = StageContext(types.SimpleNamespace(**CLIP_ARGS), SunrgbdImageConfig(), device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    text = ctx.text_banks["test"]
+    del ctx
+    launches_b = bf16_detector_phase(torch, cfg, batch, text, ckpt)
+    launches_c, launches_stage1 = bf16_clip_phase(torch, cfg, batch)
+    del batch
+    launches_d = bf16_cli_phase(torch, ckpt)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return {
+        "attention_bf16": dict(launches=launches_b["attention_bf16"],
+                               cli_launches=launches_d["attention_bf16"]),
+        "vit_attention_bf16": dict(launches=launches_c["vit_attention_bf16"],
+                                   stage1_launches=launches_stage1["vit_attention_bf16"]),
+    }
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
@@ -2867,6 +3294,7 @@ def main():
     modes_phase(torch, ckpt4)
     print(f"phase 15 took {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s")
     ddp_launches = ddp_phase(torch, root, smi, ckpt4, eval13)
+    bf16_launches = bf16_phase(torch, cfg, ckpt4, results)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -2886,6 +3314,13 @@ def main():
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()
+    ] + [
+        {
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            **bf16_launches[name], "max_abs_err": results[name]["max_abs_err"],
+            **{key: value for key, value in results[name].items() if key != "max_abs_err"},
+        }
+        for name, (src, rep) in BF16_KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

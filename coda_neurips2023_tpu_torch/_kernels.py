@@ -43,7 +43,8 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0,
-            "ball_query_group": 0, "ball_query_tile": 0}
+            "ball_query_group": 0, "ball_query_tile": 0, "attention_bf16": 0,
+            "vit_attention_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,9 +63,15 @@ _SIGNATURES = {
     "coda_attention": (
         "attention", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P]
     ),
-    # kernel D's second launch when it splits the keys: counted under "attention"
-    "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # kernel D's second launch when it splits the keys: counted under
+    # "attention", or under "attention_bf16" where kernel D-bf16's wrapper
+    # launches it
+    "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "coda_attention_bf16": (
+        "attention_bf16", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
+    ),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
+    "coda_vit_attention_bf16": ("vit_attention_bf16", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "coda_ball_query_group": (
         "ball_query_group", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
     ),
@@ -188,7 +195,8 @@ def launch(fn: str, *args, count_as: str | None = None) -> None:
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that would need a gradient, for kernels without a
-    backward (A, B, E, F, G: point coordinates and the frozen CLIP tower take
-    none).  Kernels C and D have one, through their autograd Functions."""
+    backward (A, B, E, F, G, D-bf16, E-bf16: point coordinates, the frozen
+    CLIP tower and the bf16 detector at eval take none).  Kernels C and D
+    have one, through their autograd Functions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; its inputs must not require grad")

@@ -62,6 +62,7 @@
 // are normalized before flax drops them.
 
 #include <cfloat>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -444,9 +445,12 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // out[row, :] = sum_s O_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s;
-// o_part (splits, rows, D), ml_part (splits, rows, 2); one thread per 4 columns
+// o_part (splits, rows, D), ml_part (splits, rows, 2); one thread per 4
+// columns.  Kernel D-bf16 (attention_bf16.cu) writes the same partials; its
+// output may be bf16, rounded once here.
+template <typename OutT>
 __global__ void combine_kernel(const float* __restrict__ o_part,
-                               const float* __restrict__ ml_part, float* __restrict__ out,
+                               const float* __restrict__ ml_part, OutT* __restrict__ out,
                                long long rows, int d, int splits) {
   const int quads = d / 4;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -467,8 +471,15 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
     acc.z += x.z * w;
     acc.w += x.w * w;
   }
-  *reinterpret_cast<float4*>(out + row * d + c) =
-      make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  if constexpr (sizeof(OutT) == 2) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x / l, acc.y / l);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z / l, acc.w / l);
+    *reinterpret_cast<uint2*>(out + row * d + c) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  } else {
+    *reinterpret_cast<float4*>(out + row * d + c) =
+        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  }
 }
 
 template <int D>
@@ -515,15 +526,22 @@ extern "C" int coda_attention(const float* q, const float* k, const float* v,
   }
 }
 
-extern "C" int coda_attention_combine(const float* o_part, const float* ml_part, float* out,
-                                      int b, int h, int sq, int d, int splits,
+// out: bf16 where out_bf16, else fp32
+extern "C" int coda_attention_combine(const float* o_part, const float* ml_part, void* out,
+                                      int b, int h, int sq, int d, int splits, int out_bf16,
                                       cudaStream_t stream) {
   if (d % 4 != 0 || splits < 1) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)b * h * sq;
   const long long total = rows * (d / 4);
   if (total == 0) return (int)cudaSuccess;
   const int threads = 256;
-  combine_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
-      o_part, ml_part, out, rows, d, splits);
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (out_bf16)
+    combine_kernel<<<blocks, threads, 0, stream>>>(o_part, ml_part,
+                                                   static_cast<__nv_bfloat16*>(out), rows, d,
+                                                   splits);
+  else
+    combine_kernel<<<blocks, threads, 0, stream>>>(o_part, ml_part, static_cast<float*>(out),
+                                                   rows, d, splits);
   return (int)cudaGetLastError();
 }

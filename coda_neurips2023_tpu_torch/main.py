@@ -111,13 +111,17 @@ def make_args_parser():
     parser.add_argument("--use_color", default=False, action="store_true")
     parser.add_argument(
         "--compute_dtype", default="float32", choices=["float32", "bf16", "bfloat16"],
-        help="matmul/attention compute dtype (params stay f32); the port runs float32 "
-             "and raises on bf16 (ROADMAP Queue 1 item 6); not a reference flag",
+        help="the detector's compute dtype (params stay f32): bf16 runs the pre-encoder's "
+             "convs, the encoder (kernel D-bf16), the decoder and the heads in bf16, with "
+             "BatchNorm, LayerNorm and the residual stream in f32, and the CLIP tower in bf16 "
+             "as --clip_dtype bf16; with --test_only only (the bf16 detector's training is "
+             "ROADMAP Queue 1 item 10); not a reference flag",
     )
     parser.add_argument(
         "--clip_dtype", default="float32", choices=["float32", "bf16", "bfloat16"],
-        help="frozen CLIP tower compute dtype; the port runs float32 and raises on "
-             "bf16 (ROADMAP Queue 1 item 6); not a reference flag",
+        help="the frozen CLIP tower's dtype: bf16 casts its parameters to bf16 and runs "
+             "both towers in bf16 (the image tower's attention through kernel E-bf16), in "
+             "training and eval; the reference runs CLIP fp16 on CUDA; not a reference flag",
     )
     parser.add_argument(
         "--remat", default=False, action="store_true",
@@ -832,6 +836,12 @@ def main(argv=None, device="cuda", cpu_devices=None):
     parser = make_args_parser()
     args = parser.parse_args(argv)
     reject_inert_flags(parser, args)
+    mode = any(getattr(args, name) for name in _MODE_FLAGS)
+    if args.compute_dtype in ("bf16", "bfloat16") and (mode or not args.test_only):
+        raise NotImplementedError(
+            "--compute_dtype bf16 runs with --test_only only: the bf16 detector's training "
+            "(flax's stock bf16 attention with weight dropout, a bf16 backward, kernel "
+            "D-bf16's backward) is not ported (ROADMAP Queue 1 item 10)")
     if args.minitest_only:
         # the reference accepts this flag, but its build_dataset never makes
         # the minitest split
@@ -859,7 +869,6 @@ def main(argv=None, device="cuda", cpu_devices=None):
         print(f"data parallel: {world} rank(s) (--ngpus {args.ngpus}, {available} {what})")
         if world > 1:
             return _launch(args, argv, device, world)
-    mode = any(getattr(args, name) for name in _MODE_FLAGS)
     ctx = build_everything(args, device=device, train=not (args.test_only or mode), world=world)
     if mode:
         return run_mode(args, ctx)

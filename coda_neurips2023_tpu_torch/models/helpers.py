@@ -20,6 +20,15 @@ BatchNorm and dropout follow flax in training mode (`train()`):
   * Dropout keeps an element with probability 1 - rate and scales it by
     1 / (1 - rate), drawing its mask from the explicit `torch.Generator`
     the forward is given (the default generator when None).
+
+A compute dtype (`dtype`, bf16 for --compute_dtype bf16) follows flax's
+`dtype`: `Dense` casts its input and weight at use, rounds the product and
+then adds the bias in that dtype, and its parameters stay fp32, so a
+checkpoint of an fp32 run evaluates under bf16 unchanged.  BatchNorm runs in
+fp32 on the fp32-cast input (JAX helpers.py:48-57, pointnet.py:36-45).
+`LayerNorm` with bf16 weights (the bf16 CLIP tower) is flax's LayerNorm
+with bf16 params: fp32 statistics E[x^2] - E[x]^2, the scale and shift in
+fp32, one rounding at the output.
 """
 
 from __future__ import annotations
@@ -36,16 +45,30 @@ EPS = 1e-5
 ACT = {"relu": nn.ReLU}
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax's Dense at compute dtype `dtype`: in fp32 one fused product; in
+    bf16 the input and weight cast, the product rounded to bf16, then the
+    bias added in bf16 (flax's two roundings)."""
+    if dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    y = torch.matmul(x.to(dtype), weight.to(dtype).t())
+    return y if bias is None else y + bias.to(dtype)
+
+
 class Dense(nn.Module):
     """Channels-last linear map holding a reference Linear/Conv weight:
     (out, in) followed by `kernel_dims` unit dimensions.  `weight_init`
     names the flax kernel initializer `reset_parameters` draws it from:
-    "lecun_normal" (flax's nn.Dense default) or "xavier_uniform"."""
+    "lecun_normal" (flax's nn.Dense default) or "xavier_uniform".  `dtype`
+    is the compute dtype (`linear`); the parameters stay fp32."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
-                 kernel_dims: int = 0, device=None, weight_init: str = "lecun_normal"):
+                 kernel_dims: int = 0, device=None, weight_init: str = "lecun_normal",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight_init = weight_init
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty((out_dim, in_dim) + (1,) * kernel_dims, device=device)
         )
@@ -53,7 +76,21 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
-        return F.linear(x, w, self.bias)
+        return linear(x, w, self.bias, self.dtype)
+
+
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to `dtype`, as JAX rounds a weakly typed
+    scalar to the array's dtype before an elementwise op (PyTorch would
+    apply it unrounded to a bf16 tensor)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def flax_softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax at x's own (low-precision) dtype: exp(x - max)
+    rounded, its sum taken in fp32 and rounded, then the quotient."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.float().sum(-1, keepdim=True).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -94,6 +131,7 @@ class BatchNorm(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()  # fp32 whatever the compute dtype before it
         if not self.training:
             mul = torch.rsqrt(self.running_var + EPS) * self.weight
             return (x - self.running_mean) * mul + self.bias
@@ -121,14 +159,23 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, EPS)
+        if self.weight.dtype == torch.float32:
+            return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, EPS)
+        # flax LayerNorm with low-precision params (normalization._normalize)
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + EPS) * self.weight.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(self.weight.dtype)
 
 
 class GenericMLP(nn.Module):
     """Stack of 1x1 convs with optional bn1d / activation / dropout, laid out
     as the reference's `layers` Sequential so the state-dict indices match
     (e.g. a head with bn1d and dropout: conv 0, bn 1, relu 2, dropout 3,
-    conv 4, bn 5, relu 6, dropout 7, conv 8)."""
+    conv 4, bn 5, relu 6, dropout 7, conv 8).  With a bf16 `dtype` the
+    convs run in bf16 and each BatchNorm in fp32 (its output, and so the
+    next conv's input, fp32); the output is in the last layer's dtype."""
 
     def __init__(
         self,
@@ -143,6 +190,7 @@ class GenericMLP(nn.Module):
         output_use_activation: bool = False,
         output_use_norm: bool = False,
         device=None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if norm not in (None, "bn1d"):
@@ -151,14 +199,16 @@ class GenericMLP(nn.Module):
         layers = []
         prev = input_dim
         for h in hidden_dims:
-            layers.append(Dense(prev, h, bias=hidden_use_bias, kernel_dims=1, device=device))
+            layers.append(Dense(prev, h, bias=hidden_use_bias, kernel_dims=1, device=device,
+                                dtype=dtype))
             if norm:
                 layers.append(BatchNorm(h, device=device))
             layers.append(act())
             if dropout is not None:  # a rate of 0 keeps the slot: state-dict indices
                 layers.append(Dropout(dropout))
             prev = h
-        layers.append(Dense(prev, output_dim, bias=output_use_bias, kernel_dims=1, device=device))
+        layers.append(Dense(prev, output_dim, bias=output_use_bias, kernel_dims=1, device=device,
+                            dtype=dtype))
         if output_use_norm and norm:
             layers.append(BatchNorm(output_dim, device=device))
         if output_use_activation:

@@ -14,6 +14,13 @@ BatchNorm uses batch statistics and updates its running ones, and dropout
 draws from the `generator` given to the forward.  `sem_cls_prob` and
 `objectness_prob` carry no gradient, as in the JAX module (they only feed
 the matcher).
+
+`compute_dtype` (--compute_dtype) is the JAX module's: bf16 reaches the
+pre-encoder's convs, the encoder, the decoder and the heads, as in JAX
+model_3detr.py:65-176; `encoder_to_decoder_projection`, `pos_embedding` and
+`query_projection` stay fp32, and every head's output is fp32 again.  The
+parameters stay fp32.  bf16 is an eval path: a bf16 forward in training
+mode raises (the bf16 detector's training is ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ class CoDA3DETR(nn.Module):
         with_text_head: bool = True,
         use_color: bool = False,
         device=None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if enc_type != "vanilla":
@@ -65,14 +73,15 @@ class CoDA3DETR(nn.Module):
                                       "(ROADMAP Queue 1 item 9)")
         self.dataset_config = dataset_config
         self.nqueries = nqueries
+        self.compute_dtype = compute_dtype
         self.pre_encoder = PointnetSAModuleVotes(
             npoint=preenc_npoints, radius=0.2, nsample=64,
             mlp_dims=(3 * int(use_color), 64, 128, enc_dim), normalize_xyz=True,
-            device=device,
+            device=device, dtype=compute_dtype,
         )
         self.encoder = TransformerEncoder(
             enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, enc_dropout,
-            device=device,
+            device=device, dtype=compute_dtype,
         )
         self.encoder_to_decoder_projection = GenericMLP(
             enc_dim, (512, 512), dec_dim, norm="bn1d", output_use_activation=True,
@@ -86,7 +95,8 @@ class CoDA3DETR(nn.Module):
             output_use_activation=True, device=device,
         )
         self.decoder = TransformerDecoder(
-            dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, dec_dropout, device=device
+            dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, dec_dropout, device=device,
+            dtype=compute_dtype,
         )
         out_dims = {
             "sem_cls_head": num_cls_predict + 1,
@@ -101,7 +111,7 @@ class CoDA3DETR(nn.Module):
         self.mlp_heads = nn.ModuleDict({
             name: GenericMLP(
                 dec_dim, (dec_dim, dec_dim), dim, norm="bn1d", dropout=mlp_dropout,
-                device=device,
+                device=device, dtype=compute_dtype,
             )
             for name, dim in out_dims.items()
         })
@@ -122,13 +132,16 @@ class CoDA3DETR(nn.Module):
     def get_box_predictions(self, query_xyz, point_cloud_dims, box_features, generator=None):
         """box_features: (L, B, nq, dec_dim) -> dict of stacked per-layer outputs."""
         bp = self.box_processor
-        heads = self.mlp_heads
         x, g = box_features, generator
-        cls_logits = heads["sem_cls_head"](x, g)
-        center_offset = torch.sigmoid(heads["center_head"](x, g)) - 0.5
-        size_normalized = torch.sigmoid(heads["size_head"](x, g))
-        angle_logits = heads["angle_cls_head"](x, g)
-        angle_residual_normalized = heads["angle_residual_head"](x, g)
+
+        def head(name):  # fp32 whatever the compute dtype
+            return self.mlp_heads[name](x, g).float()
+
+        cls_logits = head("sem_cls_head")
+        center_offset = torch.sigmoid(head("center_head")) - 0.5
+        size_normalized = torch.sigmoid(head("size_head"))
+        angle_logits = head("angle_cls_head")
+        angle_residual_normalized = head("angle_residual_head")
         angle_residual = angle_residual_normalized * (
             math.pi / angle_residual_normalized.shape[-1]
         )
@@ -157,13 +170,16 @@ class CoDA3DETR(nn.Module):
             "sem_cls_prob": semcls_prob,
             "objectness_prob": objectness_prob,
         }
-        if "text_correlation_head" in heads:
-            out["text_correlation_embedding"] = heads["text_correlation_head"](x, g)
+        if "text_correlation_head" in self.mlp_heads:
+            out["text_correlation_embedding"] = head("text_correlation_head")
         return out
 
     def forward(self, inputs: dict, generator=None):
         """`generator` feeds dropout in training mode (the default generator
         when None); the eval forward draws nothing."""
+        if self.training and self.compute_dtype != torch.float32:
+            raise NotImplementedError("the bf16 detector runs at eval only: its training is "
+                                      "not ported (ROADMAP Queue 1 item 10)")
         enc_xyz, enc_features, enc_inds = self.run_encoder(inputs["point_clouds"], generator)
         enc_features = self.encoder_to_decoder_projection(enc_features)
         point_cloud_dims = (inputs["point_cloud_dims_min"], inputs["point_cloud_dims_max"])
@@ -194,7 +210,9 @@ def get_class_scores(text_correlation_embedding, text_features, logit_scale):
 
 
 def _model_kwargs_from_args(args, dataset_config, num_cls_predict, with_text_head, device):
+    bf16 = getattr(args, "compute_dtype", "float32") in ("bf16", "bfloat16")
     return dict(
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         dataset_config=dataset_config,
         num_cls_predict=num_cls_predict,
         enc_dim=args.enc_dim,

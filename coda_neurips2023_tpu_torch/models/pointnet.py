@@ -6,6 +6,11 @@ re-centred, radius-normalized xyz (kernel C) -> shared MLP of 1x1 convs
 without bias, each followed by BatchNorm and ReLU -> max over the
 neighbourhood.  Parameter names are the reference's
 (`mlp_module.layer{i}.conv.weight` (O, I, 1, 1), `mlp_module.layer{i}.bn.bn.*`).
+
+With a bf16 compute dtype the convs run in bf16 and BatchNorm and ReLU in
+fp32 (JAX pointnet.py:36-45), so the features leave fp32; FPS, the ball
+query and the grouping keep the fp32 coordinates, and kernels A, B and C see
+the inputs they see in fp32.
 """
 
 from __future__ import annotations
@@ -30,9 +35,9 @@ class _BNWrapper(nn.Module):  # the reference's BatchNorm2d wrapper: `bn.bn`
 
 
 class _ConvBNReLU(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int, device=None):
+    def __init__(self, in_dim: int, out_dim: int, device=None, dtype=torch.float32):
         super().__init__()
-        self.conv = Dense(in_dim, out_dim, bias=False, kernel_dims=2, device=device)
+        self.conv = Dense(in_dim, out_dim, bias=False, kernel_dims=2, device=device, dtype=dtype)
         self.bn = _BNWrapper(out_dim, device=device)
 
     def forward(self, x):
@@ -40,11 +45,12 @@ class _ConvBNReLU(nn.Module):
 
 
 class SharedMLP(nn.Module):
-    def __init__(self, dims: Sequence[int], device=None):
-        """dims: [in, h1, ..., out] channel counts."""
+    def __init__(self, dims: Sequence[int], device=None, dtype=torch.float32):
+        """dims: [in, h1, ..., out] channel counts; dtype: the convs' compute dtype."""
         super().__init__()
         for i in range(len(dims) - 1):
-            self.add_module(f"layer{i}", _ConvBNReLU(dims[i], dims[i + 1], device=device))
+            self.add_module(f"layer{i}", _ConvBNReLU(dims[i], dims[i + 1], device=device,
+                                                     dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.children():
@@ -60,7 +66,7 @@ class PointnetSAModuleVotes(nn.Module):
     """
 
     def __init__(self, npoint: int, radius: float, nsample: int, mlp_dims: Sequence[int],
-                 normalize_xyz: bool = False, device=None):
+                 normalize_xyz: bool = False, device=None, dtype=torch.float32):
         super().__init__()
         if mlp_dims[0] != 0:
             raise NotImplementedError("point features (mlp_dims[0] > 0) are not ported yet")
@@ -69,7 +75,7 @@ class PointnetSAModuleVotes(nn.Module):
         self.nsample = nsample
         self.normalize_xyz = normalize_xyz
         # the grouped xyz adds 3 input channels (use_xyz)
-        self.mlp_module = SharedMLP([mlp_dims[0] + 3, *mlp_dims[1:]], device=device)
+        self.mlp_module = SharedMLP([mlp_dims[0] + 3, *mlp_dims[1:]], device=device, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor):
         inds = furthest_point_sample(xyz, self.npoint)

@@ -9,18 +9,32 @@ squared by the caller (a reference quirk kept verbatim); disallowed scores
 are set to finfo(f32).min before the softmax.  With radius <= 0 the
 coordinates are ignored and may be None.
 
-On a CUDA tensor `masked_attention` launches kernel D (csrc/attention.cu);
-on a CPU tensor it takes `masked_attention_plain`.  Both are fp32-accurate:
-kernel D runs its two products on the tensor cores in 3xTF32 (each operand
-split into two TF32 parts, three products summed in fp32), about 22 of
-fp32's 24 bits; the JAX package's TPU default of bf16 operands is a
-precision choice for a later, measured change.
+`compute_dtype` is the JAX signature's last argument: the operand type of
+the two products.  The port's default is "float32" (the JAX package's is
+"bfloat16"): the fp32 detector runs kernel D at fp32 accuracy, which is the
+JAX package's own numerics off the TPU, where it takes the Pallas kernel
+only on a TPU backend (models/transformer.py:47-57) and flax's fp32
+attention elsewhere.  With "bfloat16" the numerics are the JAX kernel's
+(_reference): q, k and v rounded to bf16 (fp32 inputs are cast before the
+launch, as the TPU kernel casts them inside), fp32 sums of bf16 products,
+the mask from the fp32 coordinates, an fp32 softmax, p = e / sum e rounded
+to bf16, an fp32-summed PV product and the output in q's dtype.  bf16
+inputs need compute_dtype "bfloat16".
+
+On a CUDA tensor `masked_attention` launches kernel D (csrc/attention.cu)
+or, in bf16, kernel D-bf16 (csrc/attention_bf16.cu); on a CPU tensor it
+takes `masked_attention_plain`.  Kernel D runs its two products on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+products summed in fp32), about 22 of fp32's 24 bits; D-bf16 in bf16
+mma.sync, with the same tiling.
 
 Where (B*H) x ceil(Sq / QUERY_TILE) blocks of kernel D would leave the card
 idle (the decoder's cross-attention), `attention_splits` cuts the keys into
 chunks, one a block, and a second launch combines the chunks' partial
 (max, sum, output) triples.  `masked_attention_split_plain` is that scheme written out
-in PyTorch, the reference for the combine.
+in PyTorch, the reference for the combine.  In bf16 each chunk rounds p
+normalized by its own sum and hands the combine its fp32 output times that
+sum; the combine casts once to the output dtype.
 
 In training, `dropout` > 0 drops attention weights as flax's
 MultiHeadDotProductAttention does by default (broadcast_dropout): one keep
@@ -35,7 +49,9 @@ package's backward design (pallas_masked_attention.py:182-200): recompute
 the forward through `masked_attention_plain` and pull dq, dk and dv back
 through it with autograd.  The coordinates take no gradient.  The backward
 is plain PyTorch on both devices; a hand-written backward kernel is later,
-measured work.
+measured work.  It is fp32 only: the bf16 mode runs at eval, and refuses
+inputs that need a gradient and attention-weight dropout (the bf16
+detector's training is ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -122,9 +138,37 @@ def _scores(q, k, qxyz, kxyz_t, radius: float) -> torch.Tensor:
     return scores
 
 
-def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float,
+def _compute_dtype(compute_dtype) -> torch.dtype:
+    """"float32" / "bfloat16" (or "bf16", or a torch dtype) -> torch dtype."""
+    if compute_dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return torch.bfloat16
+    if compute_dtype in ("float32", torch.float32):
+        return torch.float32
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+
+
+def _bf16_scores(q, k, qxyz, kxyz_t, radius: float) -> torch.Tensor:
+    """The scores of bf16-rounded q and k: bf16 products are exact in fp32,
+    so an fp32 matmul of the upcast operands sums them in fp32."""
+    return _scores(q.to(torch.bfloat16).float(), k.to(torch.bfloat16).float(), qxyz, kxyz_t,
+                   radius)
+
+
+def _no_bf16_dropout(dropout: float) -> None:
+    if dropout > 0:
+        raise NotImplementedError("attention-weight dropout in bf16: the bf16 detector's "
+                                  "training is not ported (ROADMAP Queue 1 item 10)")
+
+
+def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float, compute_dtype="float32",
                            dropout: float = 0.0, seed=None) -> torch.Tensor:
     """Plain PyTorch version of `masked_attention`, on any device."""
+    if _compute_dtype(compute_dtype) == torch.bfloat16:
+        _no_bf16_dropout(dropout)
+        scores = _bf16_scores(q, k, qxyz, kxyz_t, radius)
+        e = torch.exp(scores - scores.amax(-1, keepdim=True))
+        p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+        return torch.matmul(p.float(), v.to(torch.bfloat16).float()).to(q.dtype)
     weights = torch.softmax(_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
     if dropout > 0:
         keep = attention_keep_mask(seed, q.shape[2], v.shape[2], dropout)
@@ -143,11 +187,21 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch
 
 
 def masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius: float, chunk: int,
-                                 dropout: float = 0.0, seed=None) -> torch.Tensor:
+                                 compute_dtype="float32", dropout: float = 0.0,
+                                 seed=None) -> torch.Tensor:
     """`masked_attention_plain` by kernel D's split-key scheme: the keys in
     chunks of `chunk`, each chunk's (max, sum, unnormalized output), then
-    `combine_partials`.  The sum takes the weights before the drop."""
-    scores = _scores(q, k, qxyz, kxyz_t, radius)
+    `combine_partials`.  The sum takes the weights before the drop.  In
+    bf16 (kernel D-bf16's scheme) a chunk's p is normalized by its own sum
+    and rounded to bf16, and its output, an fp32 sum, is multiplied by that
+    sum again for the combine."""
+    bf16 = _compute_dtype(compute_dtype) == torch.bfloat16
+    if bf16:
+        _no_bf16_dropout(dropout)
+        scores = _bf16_scores(q, k, qxyz, kxyz_t, radius)
+        v = v.to(torch.bfloat16).float()
+    else:
+        scores = _scores(q, k, qxyz, kxyz_t, radius)
     sq, skv = scores.shape[-2:]
     keep = attention_keep_mask(seed, sq, skv, dropout) if dropout > 0 else None
     scale = dropout_constants(dropout)[1] if dropout > 0 else 1.0
@@ -157,18 +211,25 @@ def masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius: float, chunk: in
         m = s.amax(-1)
         p = torch.exp(s - m[..., None])
         l = p.sum(-1)
+        if bf16:
+            p = (p / l[..., None]).to(torch.bfloat16).float()
+            parts.append((m, l, torch.matmul(p, v[..., c0:c0 + chunk, :]) * l[..., None]))
+            continue
         if keep is not None:
             p = torch.where(keep[:, c0:c0 + chunk], p * scale, torch.zeros((), dtype=p.dtype,
                                                                            device=p.device))
         parts.append((m, l, torch.matmul(p, v[..., c0:c0 + chunk, :])))
     m, l, o = (torch.stack(x) for x in zip(*parts))
-    return combine_partials(m, l, o)
+    return combine_partials(m, l, o).to(q.dtype)
 
 
 def _check(q, k, v, qxyz, kxyz_t, radius, dropout, seed) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or t.dim() != 4:
-            raise ValueError(f"{name}: expected float32 4-D, got {t.dtype} {tuple(t.shape)}")
+        if t.dtype not in (torch.float32, torch.bfloat16) or t.dim() != 4:
+            raise ValueError(f"{name}: expected float32 or bfloat16 4-D, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype} differ")
     b, h, sq, d = q.shape
     skv = v.shape[2]
     if tuple(k.shape) != (b, h, d, skv) or tuple(v.shape) != (b, h, skv, d):
@@ -193,11 +254,18 @@ def _check(q, k, v, qxyz, kxyz_t, radius, dropout, seed) -> None:
 
 
 def masked_attention(q, k, v, qxyz=None, kxyz_t=None, radius: float = 0.0,
-                     dropout: float = 0.0, seed=None) -> torch.Tensor:
-    """Radius-masked (radius > 0) or plain (radius <= 0) softmax attention,
-    with the attention weights dropped at rate `dropout` -> (B, H, Sq, D)."""
+                     compute_dtype="float32", dropout: float = 0.0, seed=None) -> torch.Tensor:
+    """Radius-masked (radius > 0) or plain (radius <= 0) softmax attention
+    with `compute_dtype` operands, the attention weights dropped at rate
+    `dropout` (fp32 only) -> (B, H, Sq, D) in q's dtype."""
     radius, dropout = float(radius), float(dropout)
+    bf16 = _compute_dtype(compute_dtype) == torch.bfloat16
     _check(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+    if q.dtype == torch.bfloat16 and not bf16:
+        raise ValueError("bf16 inputs need compute_dtype='bfloat16'")
+    if bf16:
+        _no_bf16_dropout(dropout)
+        _kernels.check_no_grad("masked_attention in bf16", q, k, v)
     if q.device.type == "cuda":
         d = q.shape[-1]
         if d not in KERNEL_HEAD_DIMS:
@@ -207,39 +275,57 @@ def masked_attention(q, k, v, qxyz=None, kxyz_t=None, radius: float = 0.0,
             raise ValueError("masked_attention: inputs must be contiguous")
     elif q.device.type != "cpu":
         raise ValueError(f"masked_attention: unsupported device {q.device}")
+    if bf16:
+        if q.device.type == "cpu":
+            return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, "bfloat16")
+        return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, bf16=True)
     return MaskedAttention.apply(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
 
 
-def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed) -> torch.Tensor:
+def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0, seed=None,
+                      bf16: bool = False) -> torch.Tensor:
+    """Kernel D, or with `bf16` kernel D-bf16 on q, k and v rounded to bf16;
+    the output in q's dtype."""
     b, h, sq, d = q.shape
     skv = v.shape[2]
     out = torch.empty_like(q)
     qx, kx = (qxyz, kxyz_t) if radius > 0 else (None, None)
-    threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
     splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(q.device))
     o_part = ml_part = None
     if splits > 1:  # scratch for the chunks' partials, merged by the combine
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32, device=q.device)
         ml_part = torch.empty((splits, b, h, sq, 2), dtype=torch.float32, device=q.device)
-    _kernels.launch("coda_attention", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq, skv, d,
-                    radius, seed if dropout > 0 else None, threshold, scale, splits, chunk)
+    out_bf16 = int(q.dtype == torch.bfloat16)
+    if bf16:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))  # no copy where already bf16
+        _kernels.launch("coda_attention_bf16", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq,
+                        skv, d, radius, out_bf16, splits, chunk)
+    else:
+        threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
+        _kernels.launch("coda_attention", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq, skv,
+                        d, radius, seed if dropout > 0 else None, threshold, scale, splits, chunk)
     if splits > 1:
-        _kernels.launch("coda_attention_combine", o_part, ml_part, out, b, h, sq, d, splits)
+        _kernels.launch("coda_attention_combine", o_part, ml_part, out, b, h, sq, d, splits,
+                        out_bf16, count_as="attention_bf16" if bf16 else "attention")
     return out
 
 
 def _attention_forward(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed):
     if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+        return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, dropout=dropout, seed=seed)
     return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
 
 
 class MaskedAttention(torch.autograd.Function):
     """Forward: kernel D on a CUDA tensor, `masked_attention_plain` on a CPU
-    one.  Backward: autograd of `masked_attention_plain`, recomputed."""
+    one.  Backward: autograd of `masked_attention_plain`, recomputed.  Not
+    in bf16."""
 
     @staticmethod
     def forward(ctx, q, k, v, qxyz, kxyz_t, radius, dropout=0.0, seed=None):
+        if q.dtype == torch.bfloat16:
+            raise NotImplementedError("MaskedAttention is fp32: the bf16 detector's training "
+                                      "is not ported (ROADMAP Queue 1 item 10)")
         ctx.save_for_backward(q, k, v, qxyz, kxyz_t, seed)
         ctx.radius, ctx.dropout = radius, dropout
         return _attention_forward(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
@@ -250,7 +336,8 @@ class MaskedAttention(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need)
                       for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
-            out = masked_attention_plain(*leaves, qxyz, kxyz_t, ctx.radius, ctx.dropout, seed)
+            out = masked_attention_plain(*leaves, qxyz, kxyz_t, ctx.radius, dropout=ctx.dropout,
+                                         seed=seed)
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
         return (*(next(grads) if t.requires_grad else None for t in leaves),

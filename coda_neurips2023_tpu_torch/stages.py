@@ -28,7 +28,13 @@ The CLIP is, in order of precedence: an OpenAI checkpoint at
 `args.clip_model_path`, loaded by parameter name with strict=True (logit
 scale min(exp(logit_scale), 100)); the `clip_model` passed in, with its
 weights as they are; or a ViT-B/16 with random weights from `generator`
-(logit scale 100), as the JAX package runs without a checkpoint.
+(logit scale 100), as the JAX package runs without a checkpoint.  With
+--clip_dtype bf16 or --compute_dtype bf16 (`clip_tower_dtype`) every
+floating parameter of that frozen CLIP is then cast to bf16, as the JAX
+package casts its variable tree (stages.py:86-97), and the towers run in
+bf16 (models/clip.py); the text banks come from that tower.  Crops enter
+the tower as fp32 and features leave it as fp32, so nothing around it
+changes.
 """
 
 from __future__ import annotations
@@ -69,17 +75,24 @@ def load_openai_state_dict(path: str) -> dict:
     return {k: v.float() for k, v in sd.items() if k not in _OPENAI_META_KEYS}
 
 
+def clip_tower_dtype(args) -> torch.dtype:
+    """The frozen CLIP tower's dtype (JAX stages.py:44-58): bf16 with
+    --clip_dtype bf16 or --compute_dtype bf16, else fp32.  The reference runs
+    CLIP in fp16 on CUDA (convert_weights, CLIP/clip/model.py:1146)."""
+    bf16 = (getattr(args, "clip_dtype", "float32") in ("bf16", "bfloat16")
+            or getattr(args, "compute_dtype", "float32") in ("bf16", "bfloat16"))
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 class StageContext:
     """The frozen CLIP and its text banks on `device` (the card unless the
-    caller passes device="cpu"; a `clip_model` passed in is moved there)."""
+    caller passes device="cpu"; a `clip_model` passed in is moved there, and
+    cast to `clip_tower_dtype(args)`: every floating parameter in bf16 for a
+    bf16 tower)."""
 
     def __init__(self, args, dataset_config, clip_model: Optional[CLIP] = None,
                  crop_size: int = 224, device="cuda",
                  generator: Optional[torch.Generator] = None):
-        if getattr(args, "clip_dtype", "float32") in ("bf16", "bfloat16") or getattr(
-            args, "compute_dtype", "float32"
-        ) in ("bf16", "bfloat16"):
-            raise NotImplementedError("the bf16 CLIP tower is not ported yet")
         device = resolve_device(device)
         self.args = args
         self.crop_size = crop_size
@@ -98,6 +111,8 @@ class StageContext:
             clip_model = init_clip_parameters(CLIP(device=device), generator)
         # frozen: no parameter of CLIP takes a gradient or reaches an optimizer
         self.clip_model = clip_model.to(device).eval().requires_grad_(False)
+        if clip_tower_dtype(args) == torch.bfloat16:
+            self.clip_model.to(torch.bfloat16)  # after init or load, as JAX casts its tree
         self.device = device
 
         is_scannet = "scannet" in getattr(args, "dataset_name", "")

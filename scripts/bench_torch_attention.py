@@ -85,7 +85,8 @@ def correctness(g):
                     qx = torch.rand((b, sq, 3), device="cuda", generator=g) * 2 - 1
                     qx[:, 0] = 100.0  # a row with no allowed key when masked
                     seed = torch.randint(0, 2 ** 62, (), device="cuda", generator=g)
-                    args = (q, k, v, qx, kx.transpose(1, 2).contiguous(), radius, dropout, seed)
+                    args = (q, k, v, qx, kx.transpose(1, 2).contiguous(), radius, "float32",
+                            dropout, seed)
                     err = (ma.masked_attention(*args) - ma.masked_attention_plain(*args)).abs().max().item()
                     worst = max(worst, err)
                     print(f"D d={d} {b}x{h}x{sq}x{skv} r={radius} p={dropout} "

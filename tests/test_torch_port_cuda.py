@@ -14,7 +14,13 @@ to kernel B followed by kernel C, kernel G also to kernel B; the grid build,
 with G's centre order, also to its plain version); both attention kernels agree within
 ATTN_TOL (fp32, summed in another order than cuBLAS), and so do D's
 gradients through its autograd Function and the gather's scatter-add
-backward with autograd of the plain versions.
+backward with autograd of the plain versions.  The bf16 kernels D-bf16 and
+E-bf16 agree with their plain bf16 versions within `bf16_bound`: both round
+p to bf16 at the same place, so they differ only where a p lies at a
+rounding boundary (their exp and sums differ in the last fp32 bits), by one
+bf16 ulp of that p, at most 2^-7 of it: at most 2^-7 sum_j p_j |v_j| before
+the output's rounding, which adds one bf16 ulp of the row's largest
+magnitude.
 """
 
 import numpy as np
@@ -46,9 +52,11 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
     tile_query,
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import (
+    _bf16_scores,
     attention_splits,
     masked_attention,
     masked_attention_plain,
+    masked_attention_split_plain,
 )
 from coda_neurips2023_tpu_torch.ops.sampling import (
     FPS_CLUSTER_SIZES,
@@ -466,7 +474,7 @@ def test_attention_split_keys(dev, b, h, d, sq, skv, radius, dropout):
     qxyz[:, 0] = 100.0
     kxyz_t = kxyz.transpose(1, 2).contiguous()
     seed = torch.randint(0, 2 ** 62, (), device=dev, generator=g)
-    args = (q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+    args = (q, k, v, qxyz, kxyz_t, radius, "float32", dropout, seed)
     _kernels.reset_launches()
     got = masked_attention(*args)
     assert _kernels.LAUNCHES["attention"] == 2  # the chunks, then the combine
@@ -511,8 +519,8 @@ def test_attention_backward(dev, d, sq, skv, radius, dropout):
     seed = torch.randint(0, 2 ** 62, (), device=dev, generator=g)
     a = [t.clone().requires_grad_() for t in leaves]
     b = [t.clone().requires_grad_() for t in leaves]
-    out_a = masked_attention(*a, qxyz, kxyz_t, radius, dropout, seed)
-    out_b = masked_attention_plain(*b, qxyz, kxyz_t, radius, dropout, seed)
+    out_a = masked_attention(*a, qxyz, kxyz_t, radius, dropout=dropout, seed=seed)
+    out_b = masked_attention_plain(*b, qxyz, kxyz_t, radius, dropout=dropout, seed=seed)
     assert (out_a - out_b).abs().max().item() <= ATTN_TOL
     got = torch.autograd.grad(out_a, a, grad_out)
     want = torch.autograd.grad(out_b, b, grad_out)
@@ -587,7 +595,8 @@ def test_launch_counts_and_refusals(dev):
     # B, F and G: the grid build's two launches and the query
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": GRID_LAUNCHES, "gather": 1, "attention": 1,
                                  "vit_attention": 1, "ball_query_group": GRID_LAUNCHES,
-                                 "ball_query_tile": TILE_LAUNCHES}
+                                 "ball_query_tile": TILE_LAUNCHES, "attention_bf16": 0,
+                                 "vit_attention_bf16": 0}
     # keys split across blocks: the combine is D's second launch
     q = torch.randn((1, 1, 16, 32), device=dev)
     assert attention_splits(1, 1, 16, 1000, 32, multi_processor_count(dev))[0] > 1
@@ -610,3 +619,88 @@ def test_launch_counts_and_refusals(dev):
         masked_attention(*(torch.zeros((1, 1, 8, 8), device=dev),) * 3)
     with pytest.raises(ValueError):
         group_points(xyz[:, ::2], idx)  # not contiguous
+
+
+# ------------------------------------------------------------ bf16 kernels
+
+
+def bf16_bound(p, v, want):
+    """2^-7 sum_j p_j |v_j| plus one bf16 ulp of each row's largest |want|."""
+    mag = want.float().abs().amax(-1, keepdim=True)
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7), 0.0)
+    return 2.0 ** -7 * torch.matmul(p, v.float().abs()) + ulp
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,skv", [(64, 64), (70, 136), (5, 200)])
+@pytest.mark.parametrize("radius", [0.0, 0.5])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_attention_bf16_kernel(dev, d, sq, skv, radius, out_dtype):
+    """Every template instance, ragged tiles (Skv 200 is not a multiple of 8:
+    the element-wise loads), a fully masked row, bf16 and fp32 outputs (fp32
+    inputs are rounded to bf16 first)."""
+    g = torch.Generator(device=dev).manual_seed(d + sq + skv)
+    q = (torch.randn((2, 3, sq, d), device=dev, generator=g) / d ** 0.5).to(out_dtype)
+    k = torch.randn((2, 3, d, skv), device=dev, generator=g).to(out_dtype)
+    v = torch.randn((2, 3, skv, d), device=dev, generator=g).to(out_dtype)
+    kxyz = torch.rand((2, skv, 3), device=dev, generator=g) * 2 - 1
+    qxyz = torch.rand((2, sq, 3), device=dev, generator=g) * 2 - 1
+    qxyz[:, 0] = 100.0  # no allowed key when masked: a uniform row
+    kxyz_t = kxyz.transpose(1, 2).contiguous()
+    args = (q, k, v, qxyz, kxyz_t, radius, "bfloat16")
+    _kernels.reset_launches()
+    got = masked_attention(*args)
+    assert got.dtype == out_dtype and _kernels.LAUNCHES["attention_bf16"] >= 1
+    assert _kernels.LAUNCHES["attention"] == 0
+    want = masked_attention_plain(*args)
+    p = torch.softmax(_bf16_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
+    assert ((got.float() - want.float()).abs() <= bf16_bound(p, v.to(torch.bfloat16), want)).all()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_attention_bf16_split_keys(dev, out_dtype):
+    """The decoder's shape cut to 2 scenes: the keys split across blocks,
+    each chunk's partials, then the combine (counted under attention_bf16),
+    against the plain version of the same split."""
+    b, h, sq, skv, d = 2, 4, 128, 2000, 128
+    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(dev))
+    assert splits > 1
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = (torch.randn((b, h, sq, d), device=dev, generator=g) / d ** 0.5).to(out_dtype)
+    k = torch.randn((b, h, d, skv), device=dev, generator=g).to(out_dtype)
+    v = torch.randn((b, h, skv, d), device=dev, generator=g).to(out_dtype)
+    _kernels.reset_launches()
+    got = masked_attention(q, k, v, None, None, 0.0, "bfloat16")
+    assert _kernels.LAUNCHES["attention_bf16"] == 2 and got.dtype == out_dtype
+    want = masked_attention_split_plain(q, k, v, None, None, 0.0, chunk, "bfloat16")
+    p = torch.softmax(_bf16_scores(q, k, None, None, 0.0), dim=-1)
+    assert ((got.float() - want.float()).abs() <= bf16_bound(p, v.to(torch.bfloat16), want)).all()
+
+
+@pytest.mark.parametrize("h", [1, 12])
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [1, 50, 197])
+def test_vit_attention_bf16_kernel(dev, s, d, h):
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(dev, (3, h, s, d), s + d + h))
+    _kernels.reset_launches()
+    got = vit_attention(q, k, v)
+    assert got.dtype == torch.bfloat16 and _kernels.LAUNCHES["vit_attention_bf16"] == 1
+    want = vit_attention_plain(q, k, v)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5, dim=-1)
+    assert ((got.float() - want.float()).abs() <= bf16_bound(p, v, want)).all()
+    if s == 1:  # one key: p = 1 exactly and the output is v
+        assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("d,s_max", [(32, 1440), (64, 800)])
+def test_vit_attention_bf16_longest_sequence(dev, d, s_max):
+    """K and V of a head sit in shared memory as bf16: the longest S that
+    fits runs, one more is refused before launch."""
+    assert max_sequence(d, torch.bfloat16) == s_max
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(dev, (1, 2, s_max, d), d))
+    want = vit_attention_plain(q, k, v)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5, dim=-1)
+    assert ((vit_attention(q, k, v).float() - want.float()).abs() <= bf16_bound(p, v, want)).all()
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(dev, (1, 1, s_max + 1, d), d))
+    with pytest.raises(ValueError):
+        vit_attention(q, k, v)

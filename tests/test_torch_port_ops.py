@@ -325,9 +325,12 @@ def test_cpu_calls_launch_nothing():
     ball_query_tile(0.5, 8, xyz, centres)
     q = torch.randn(1, 2, 16, 8)
     masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8))
+    masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8), compute_dtype="bfloat16")
     vit_attention(q, torch.randn(1, 2, 16, 8), torch.randn(1, 2, 16, 8))
+    vit_attention(*(torch.randn(1, 2, 16, 8, dtype=torch.bfloat16) for _ in range(3)))
     assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
-                                 "vit_attention": 0, "ball_query_group": 0, "ball_query_tile": 0}
+                                 "vit_attention": 0, "ball_query_group": 0, "ball_query_tile": 0,
+                                 "attention_bf16": 0, "vit_attention_bf16": 0}
 
 
 @pytest.mark.parametrize(

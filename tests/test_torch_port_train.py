@@ -597,7 +597,7 @@ def test_attention_dropout_matches_flax_semantics():
     got = masked_attention(q, k, v, dropout=rate, seed=seed)
     weights = torch.softmax(q @ k, dim=-1) * keep / np.float32(1 - rate)
     torch.testing.assert_close(got, weights @ v, rtol=0, atol=1e-6)
-    assert torch.equal(got, masked_attention_plain(q, k, v, None, None, 0.0, rate, seed))
+    assert torch.equal(got, masked_attention_plain(q, k, v, None, None, 0.0, dropout=rate, seed=seed))
     other = masked_attention(q, k, v, dropout=rate, seed=seed + 1)
     assert not torch.equal(got, other)
     with pytest.raises(ValueError):
