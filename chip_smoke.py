@@ -173,14 +173,21 @@ result):
      or more cards (a)'s checks run again over NCCL, one card a rank, and
      with one card the script says that this part did not run.
  18. The bf16 paths.  (a) Kernels D-bf16 (the encoder's 32 x 4 x 2048 x
-     64, the decoder's 32 x 4 x 128 x 2048 x 128 with its key splits, a
+     64, the decoder's 32 x 4 x 128 x 2048 x 128 as its split policy cuts it, a
      radius case) and E-bf16 (128 and 256 crops x 12 x 197 x 64), each on
      bf16 inputs against its plain bf16 version: within the bound of
      bf16_attention_check (2^-7 sum_j p_j |v_j| plus one bf16 ulp of the
-     row), timed like phase 3 beside SDPA in bf16 and kernel D in fp32.
+     row) with at least BF16_BIT_EQUAL of the elements bit-equal, timed
+     like phase 3 beside SDPA in bf16 (the radius case with a boolean mask
+     made outside the timed window) and kernel D in fp32; each bf16
+     kernel's registers and spill bytes from the build's ptxas log (no
+     spill); D-bf16's division (a reciprocal a row, two FMAs) bit-equal to
+     __fdiv_rn on the encoder's (e, l) pairs and a ladder of e to 2^-149.
      (b) The flagship detector with --compute_dtype bf16 from phase 4's
      weights, its eval step on 32 x 20000 points (warm-up and STEPS timed):
-     A, B, C and D-bf16 launch and nothing else; enc_inds, enc_xyz and
+     A, B, C and D-bf16 launch and nothing else, D-bf16 as often as its
+     key-split policy says (3 encoder and 8 decoder layers, each with a
+     combine where it splits); enc_inds, enc_xyz and
      query_xyz equal to the fp32 model's; the floats within BF16_MODEL_TOL
      of the same model through the plain bf16 attention (with D-bf16's key
      split), and their distance to the fp32 model printed.  (c)
@@ -2704,7 +2711,7 @@ def ddp_phase(torch, root, smi, ckpt13, eval13):
 # bound of kernels D-bf16 and E-bf16 (NVIDIA's H100 SXM data sheet, 700 W)
 BF16_PEAK = 989e12  # FLOP/s
 BF16_KERNELS = {
-    "attention_bf16": ("coda_neurips2023_tpu_torch/csrc/attention_bf16.cu",
+    "attention_bf16": ("coda_neurips2023_tpu_torch/csrc/attention_bf16.cuh",
                        "coda_neurips2023_tpu/ops/pallas_masked_attention.py:121"),
     "vit_attention_bf16": ("coda_neurips2023_tpu_torch/csrc/vit_attention_bf16.cu",
                            "coda_neurips2023_tpu/ops/pallas_vit_attention.py:109"),
@@ -2718,6 +2725,10 @@ BF16_KERNELS = {
 # 6e-2 for the small sem logits
 BF16_MODEL_TOL = 3e-2
 BF16_SEM_LOGITS_TOL = 6e-2
+# phase 18 (a): a bf16 kernel and its plain version round p at the same
+# place, so they differ only where a p lies at a rounding boundary; below
+# this share of bit-equal elements something else differs
+BF16_BIT_EQUAL = 0.995
 
 
 def bf16_ulp(torch, x):
@@ -2740,9 +2751,114 @@ def bf16_attention_check(torch, got, want, p_abs_v, label):
     if not (err <= bound).all():
         fail(f"{label}: {int((err > bound).sum())} elements beyond the bf16 rounding bound "
              f"(max_abs_err {err.max().item()!r})")
-    print(f"  {'':16s} {'':44s} bit-equal {(got == want).float().mean().item()!r}; "
+    equal = (got == want).float().mean().item()
+    print(f"  {'':16s} {'':44s} bit-equal {equal!r}; "
           f"{int(own)} elements over one ulp of their own magnitude")
+    if equal < BF16_BIT_EQUAL:
+        fail(f"{label}: only {equal!r} of the elements bit-equal (< {BF16_BIT_EQUAL})")
     return err.max().item()
+
+
+def kernel_instance(mangled):
+    """`kernel<args>` for a mangled kernel name (its last length-prefixed
+    identifier that ends in "kernel", then its integer and float/bf16
+    template arguments), else the mangled name."""
+    import re
+
+    for m in reversed(list(re.finditer(r"(?=(\d+))", mangled))):
+        end = m.start() + len(m.group(1))
+        ident = mangled[end:end + int(m.group(1))]
+        if ident.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            t = re.match(r"I((?:Li\d+E)+)(f|13__nv_bfloat16)?E", mangled[end + len(ident):])
+            if t is None:
+                return ident
+            args = re.findall(r"Li(\d+)E", t.group(1))
+            args += {"f": ["f32"], "13__nv_bfloat16": ["bf16"]}.get(t.group(2), [])
+            return f"{ident}<{','.join(args)}>"
+    return mangled
+
+
+def ptxas_report(log_lines):
+    """{kernel instance: {"registers": n, "spill_bytes": n, "stack_bytes": n}}
+    from a build's ptxas log (-Xptxas=-v); spill bytes are the stores."""
+    import re
+
+    report, name = {}, None
+    for line in log_lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_instance(m.group(1))
+            report[name] = {"registers": None, "spill_bytes": None, "stack_bytes": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            report[name]["stack_bytes"] = int(m.group(1))
+            report[name]["spill_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def bf16_ptxas(torch):
+    """Each bf16 kernel instance's registers and spill bytes (phase 2's
+    ptxas log), and ptxas's warnings on them (notes C7510-C7515: it
+    serialized D-bf16's wgmma); a spill fails."""
+    from coda_neurips2023_tpu_torch import _kernels
+
+    log = (_kernels.BUILD_DIR / "build.log").read_text().splitlines()
+    for line in log:
+        if "bf16" in line and ("warning" in line or "Performance" in line):
+            print(f"  ptxas: {line.strip()}")
+    report = {k: v for k, v in ptxas_report(log).items() if "bf16" in k and "kernel" in k}
+    for name, info in report.items():
+        print(f"  ptxas {name}: {info['registers']} registers, {info['spill_bytes']} bytes "
+              f"spilled, {info['stack_bytes']} bytes of stack")
+        if info["spill_bytes"]:
+            fail(f"{name} spills {info['spill_bytes']} bytes")
+    if not report:
+        fail("no bf16 kernel in the build's ptxas log")
+
+
+def bf16_division_check(torch, q, k):
+    """D-bf16's division (a correctly rounded reciprocal of l a row, then
+    q0 = e r, q = fma(fma(-q0, l, e), r, q0), or fp64 for e below 2^-80)
+    against __fdiv_rn, bit for bit: on the (e, l) pairs of the encoder's
+    scores (two of its scenes) and on a ladder of e = m 2^-x (x to 149)
+    against ten sums."""
+    from coda_neurips2023_tpu_torch import _kernels
+
+    s = torch.matmul(q[:2].float(), k[:2].float())
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True).expand_as(e)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 180)
+    ladder = torch.exp2(-torch.arange(0, 150, device=DEVICE, dtype=torch.float32))
+    mant = 1.0 + torch.rand(256, device=DEVICE, generator=gen)
+    el = (ladder[:, None] * mant[None, :]).clamp(max=1.0).reshape(-1)
+    sums = torch.tensor([1.0, 1.0 + 2 ** -23, 1.5, 2.0, 3.0, 7.0, 100.3, 1000.7, 2047.9, 2048.0],
+                        device=DEVICE)
+    el, ll = (x.reshape(-1) for x in torch.broadcast_tensors(el[:, None], sums[None, :]))
+    import ctypes
+
+    lib = _kernels.library()
+    ptr, n = ctypes.c_void_p, ctypes.c_int
+    lib.coda_attention_bf16_div_check.argtypes = [ptr, ptr, ptr, ptr, n, ptr]
+    lib.coda_attention_bf16_div_check.restype = ctypes.c_int
+    for name, ev, lv in (("encoder", e.reshape(-1), l.reshape(-1)), ("ladder", el, ll)):
+        ev, lv = ev.contiguous(), lv.contiguous()
+        fast, ieee = torch.empty_like(ev), torch.empty_like(ev)
+        if lib.coda_attention_bf16_div_check(ev.data_ptr(), lv.data_ptr(), fast.data_ptr(),
+                                             ieee.data_ptr(), ev.numel(),
+                                             torch.cuda.current_stream().cuda_stream):
+            fail("the division check did not launch")
+        torch.cuda.synchronize()
+        differ = int((fast.view(torch.int32) != ieee.view(torch.int32)).sum())
+        print(f"  division check, {name}: {ev.numel()} pairs (e, l), {differ} quotients differ "
+              f"from __fdiv_rn")
+        if differ:
+            fail(f"D-bf16's division differs from __fdiv_rn on {differ} {name} pairs")
 
 
 def bf16_bound(b, h, sq, skv, d):
@@ -2783,6 +2899,7 @@ def bf16_kernel_phase(torch, centres, results):
         print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} "
               f"plain_ms={plain_ms!r} bound_ms={bnd[0]!r} ({bnd[1]}){lib}")
 
+    bf16_ptxas(torch)
     b = centres.shape[0]
     sms = multi_processor_count(centres.device)
     cases = [
@@ -2795,7 +2912,7 @@ def bf16_kernel_phase(torch, centres, results):
         k, v = randn(b, 4, d, skv), randn(b, 4, skv, d)
         qxyz = centres[:, :sq].contiguous()
         kxyz_t = centres.transpose(1, 2).contiguous()
-        splits, chunk = ma.attention_splits(b, 4, sq, skv, d, sms)
+        splits, chunk = ma.attention_splits(b, 4, sq, skv, d, sms, bf16=True)
         kern = lambda: ma.masked_attention(q, k, v, qxyz, kxyz_t, radius, "bfloat16")
         if splits > 1:
             plain = lambda: ma.masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius, chunk,
@@ -2810,13 +2927,20 @@ def bf16_kernel_phase(torch, centres, results):
         del p
         err = bf16_attention_check(torch, got, plain(), p_abs_v, f"attention_bf16 {label}")
         del got, p_abs_v
-        library_ms = None
-        if radius == 0:  # the same function: q arrives scaled, so scale 1
-            kt = k.transpose(2, 3).contiguous()
-            library = lambda: sdpa(q, kt, v, scale=1.0)
-            ms, library_ms = time_in_turns(torch, kern, library)
+        if key == "main":
+            bf16_division_check(torch, q, k)
+        # the same function: q arrives scaled, so scale 1; the radius case's
+        # allowed keys as a boolean mask (B, 1, Sq, Skv), made here, outside
+        # the timed window (a row with no allowed key is NaN in SDPA; the
+        # synthetic scenes' centres each hold themselves)
+        kt = k.transpose(2, 3).contiguous()
+        if radius > 0:
+            allowed = (ma._scores(q[:, :1].float(), k[:, :1].float(), qxyz, kxyz_t, radius)
+                       != torch.finfo(torch.float32).min)
+            library = lambda: sdpa(q, kt, v, attn_mask=allowed, scale=1.0)
         else:
-            ms = time_ms(torch, kern)
+            library = lambda: sdpa(q, kt, v, scale=1.0)
+        ms, library_ms = time_in_turns(torch, kern, library)
         plain_ms = time_ms(torch, plain, reps=3)
         record("attention_bf16", f"{label} splits={splits}", err, ms, plain_ms,
                bf16_bound(b, 4, sq, skv, d), library_ms, key == "main", key)
@@ -2841,6 +2965,20 @@ def bf16_kernel_phase(torch, centres, results):
                bf16_bound(crops, 12, 197, 197, 64), library_ms, crops == 128,
                None if crops == 128 else "stage1")
         del q, k, v
+    # short sequences over 40 crops x 12 heads: every persistent block walks
+    # three or more heads, and at S <= 112 a head has fewer query tiles than
+    # a block has warps
+    for s in (1, 16, 33, 48, 100):
+        q, k, v = (randn(40, 12, s, 64) for _ in range(3))
+        p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / 8.0, dim=-1)
+        err = bf16_attention_check(torch, vit_attention(q, k, v), vit_attention_plain(q, k, v),
+                                   torch.matmul(p, v.float().abs()),
+                                   f"vit_attention_bf16 40 x 12 heads S={s}")
+        results["vit_attention_bf16"]["max_abs_err"] = max(
+            results["vit_attention_bf16"]["max_abs_err"], err)
+        print(f"  {'vit_attention_bf16':16s} {f'B=40 crops H=12 S={s} D=64':44s} "
+              f"max_abs_err={err!r}")
+        del q, k, v, p
 
 
 def bf16_forward_plain(torch):
@@ -2855,7 +2993,8 @@ def bf16_forward_plain(torch):
     def plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype):
         b, h, sq, d = q.shape
         skv = v.shape[2]
-        splits, chunk = ma.attention_splits(b, h, sq, skv, d, multi_processor_count(q.device))
+        splits, chunk = ma.attention_splits(b, h, sq, skv, d, multi_processor_count(q.device),
+                                            bf16=True)
         if splits > 1:
             return ma.masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius, chunk,
                                                    compute_dtype)
@@ -2940,6 +3079,20 @@ def bf16_detector_phase(torch, cfg, batch, text, ckpt):
               if k not in ("fps", "ball_query", "gather", "attention_bf16") and v}
     if others:
         fail(f"kernels off the bf16 eval path launched: {others}")
+    # D-bf16 in the 3 encoder layers' self-attention and the 8 decoder layers'
+    # cross-attention, and its combine where the policy splits the keys
+    from coda_neurips2023_tpu_torch.ops.masked_attention import attention_splits
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    a, sms = FLAGSHIP_ARGS, multi_processor_count(batch["point_clouds"].device)
+    npts = a["preenc_npoints"]
+    per_call = [1 + (attention_splits(BATCH, heads, sq, npts, dim // heads, sms, bf16=True)[0] > 1)
+                for sq, dim, heads in ((npts, a["enc_dim"], a["enc_nhead"]),
+                                       (a["nqueries"], a["dec_dim"], a["dec_nhead"]))]
+    want = STEPS * (a["enc_nlayers"] * per_call[0] + a["dec_nlayers"] * per_call[1])
+    if launches["attention_bf16"] != want:
+        fail(f"attention_bf16 launched {launches['attention_bf16']} times in {STEPS} steps, "
+             f"its split policy says {want}")
     med = statistics.median(times)
     print(f"  bf16 eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}; "
           f"scenes/s (median step): {BATCH / med * 1e3!r}")
@@ -3105,6 +3258,7 @@ def bf16_phase(torch, cfg, ckpt, results):
 
 
 def main():
+    started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "coda_neurips2023_tpu_torch", "csrc")):
         fail("coda_neurips2023_tpu_torch/ is not beside this script")
@@ -3322,6 +3476,7 @@ def main():
         }
         for name, (src, rep) in BF16_KERNELS.items()
     ]
+    print(f"chip_smoke took {time.perf_counter() - started:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

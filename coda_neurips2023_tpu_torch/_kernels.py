@@ -68,7 +68,8 @@ _SIGNATURES = {
     # launches it
     "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "coda_attention_bf16": (
-        "attention_bf16", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P]
+        "attention_bf16",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     ),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "coda_vit_attention_bf16": ("vit_attention_bf16", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),

@@ -446,7 +446,7 @@ attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // out[row, :] = sum_s O_s e^(m_s - M) / sum_s l_s e^(m_s - M), M = max_s m_s;
 // o_part (splits, rows, D), ml_part (splits, rows, 2); one thread per 4
-// columns.  Kernel D-bf16 (attention_bf16.cu) writes the same partials; its
+// columns.  Kernel D-bf16 (attention_bf16.cuh) writes the same partials; its
 // output may be bf16, rounded once here.
 template <typename OutT>
 __global__ void combine_kernel(const float* __restrict__ o_part,

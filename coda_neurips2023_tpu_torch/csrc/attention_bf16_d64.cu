@@ -1,0 +1,14 @@
+// Kernel D-bf16 at head width 64 (attention_bf16.cuh), both output types.
+
+#include "attention_bf16.cuh"
+
+namespace coda_d_bf16 {
+
+template int launch<64, bf16>(const bf16*, const bf16*, const bf16*, const float*, const float*,
+                             bf16*, float*, float*, int, int, int, int, int, float, int, int,
+                             cudaStream_t);
+template int launch<64, float>(const bf16*, const bf16*, const bf16*, const float*, const float*,
+                              float*, float*, float*, int, int, int, int, int, float, int, int,
+                              cudaStream_t);
+
+}  // namespace coda_d_bf16

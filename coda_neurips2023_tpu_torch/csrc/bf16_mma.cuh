@@ -1,7 +1,9 @@
-// bf16 products on the tensor cores, shared by kernels D-bf16
-// (attention_bf16.cu) and E-bf16 (vit_attention_bf16.cu): mma.sync m16n8k16
-// with bf16 operands and fp32 accumulation, at the card's dense bf16 rate
-// (989 TFLOP/s on an H100 SXM).
+// bf16 products on the tensor cores for kernel E-bf16
+// (vit_attention_bf16.cu): mma.sync m16n8k16 with bf16 operands and fp32
+// accumulation (the card's dense bf16 rate is 989 TFLOP/s on an H100 SXM;
+// mma.sync reaches a part of it, wgmma all).  Kernel D-bf16
+// (attention_bf16.cuh) shares the bf16 rounding and the reciprocal; its
+// products are wgmma (wgmma.cuh), whose register fragments are these.
 //
 // Fragments of m16n8k16 (lane = 4 g + t), each 32-bit register a pair of
 // bf16, the lower index in the low half: A (row-major 16 x 16)
@@ -33,6 +35,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the correctly rounded 1 / l for l >= 1 normal, without __frcp_rn's call
+// to its slow path (a call serializes wgmma, and its saved registers spill):
+// the special-function unit's approximation, two Newton steps in fp64 (to
+// ~2^-90), one rounding
+__device__ __forceinline__ float rcp_rn(float l) {
+  float y0;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y0) : "f"(l));
+  const double x = l;
+  double y = y0;
+  y = fma(y, fma(-x, y, 1.0), y);
+  y = fma(y, fma(-x, y, 1.0), y);
+  return (float)y;
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {

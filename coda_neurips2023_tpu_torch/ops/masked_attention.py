@@ -22,17 +22,22 @@ to bf16, an fp32-summed PV product and the output in q's dtype.  bf16
 inputs need compute_dtype "bfloat16".
 
 On a CUDA tensor `masked_attention` launches kernel D (csrc/attention.cu)
-or, in bf16, kernel D-bf16 (csrc/attention_bf16.cu); on a CPU tensor it
+or, in bf16, kernel D-bf16 (csrc/attention_bf16.cuh); on a CPU tensor it
 takes `masked_attention_plain`.  Kernel D runs its two products on the
 tensor cores in 3xTF32 (each operand split into two TF32 parts, three
-products summed in fp32), about 22 of fp32's 24 bits; D-bf16 in bf16
-mma.sync, with the same tiling.
+products summed in fp32), about 22 of fp32's 24 bits, on mma.sync; D-bf16
+on wgmma, its tiles loaded by TMA (one block of 128 query rows an SM, keys
+in tiles of 128, 64 at D = 128).  D-bf16's TMA copies read rows of a
+multiple of 16 bytes: where Skv is not a multiple of 8 the wrapper pads
+K^T's and the key coordinates' rows with zeros (keys the kernel never
+counts).
 
-Where (B*H) x ceil(Sq / QUERY_TILE) blocks of kernel D would leave the card
-idle (the decoder's cross-attention), `attention_splits` cuts the keys into
-chunks, one a block, and a second launch combines the chunks' partial
-(max, sum, output) triples.  `masked_attention_split_plain` is that scheme written out
-in PyTorch, the reference for the combine.  In bf16 each chunk rounds p
+Where (B*H) x ceil(Sq / query tile) blocks would leave the card idle (the
+decoder's cross-attention under kernel D), `attention_splits` cuts the keys
+into chunks, one a block, and a second launch combines the chunks' partial
+(max, sum, output) triples; it takes each kernel's own query and key tiles
+and blocks an SM.  `masked_attention_split_plain` is that scheme written
+out in PyTorch, the reference for the combine.  In bf16 each chunk rounds p
 normalized by its own sum and hands the combine its fp32 output times that
 sum; the combine casts once to the output dtype.
 
@@ -64,37 +69,53 @@ from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _M32 = 0xFFFFFFFF
 # blocks of kernel D resident on one SM at once (two of ~110 KB of shared
-# memory); the card holds this many times its SM count
+# memory); the card holds this many times its SM count.  Kernel D-bf16 runs
+# one block of ~150-200 KB an SM.
 BLOCKS_PER_SM = 2
+BF16_BLOCKS_PER_SM = 1
 # a chunk spans at least this many keys: below it the blocks' fixed cost
 # (the query tile's load, the partials' store and combine) outweighs the
 # parallelism gained
 MIN_CHUNK_KEYS = 256
 QUERY_TILE = 128  # query rows a block of kernel D (csrc/attention.cu Cfg::TQ)
+# query rows a block of kernel D-bf16: two consumer warpgroups of 64 rows
+# (csrc/attention_bf16.cuh Cfg::TQ)
+BF16_QUERY_TILE = 128
 
 
-def key_tile(d: int) -> int:
-    """Keys a tile of kernel D at head width d (csrc/attention.cu Cfg::TK)."""
+def key_tile(d: int, bf16: bool = False) -> int:
+    """Keys a tile of kernel D (csrc/attention.cu Cfg::TK) or, with `bf16`,
+    of kernel D-bf16 (csrc/attention_bf16.cuh Cfg::TK) at head width d."""
+    if bf16:
+        return 128 if d <= 64 else 64
     return 32 if d <= 64 else 16
 
 
-def attention_splits(b: int, h: int, sq: int, skv: int, d: int, sm_count: int):
-    """(splits, chunk): kernel D cuts the Skv keys into `splits` chunks of
-    `chunk` keys (a whole number of key tiles, at least MIN_CHUNK_KEYS), one
-    chunk a block, where the (B*H) x ceil(Sq / QUERY_TILE) blocks are fewer
-    than the resident BLOCKS_PER_SM x sm_count (a wave) and so leave the card
-    idle.  A block's time falls as 1/splits while the card runs
-    ceil(blocks * splits / wave) waves of them: the fewest splits that
-    minimise waves / splits (a split that fills waves badly, 3 at 128
-    blocks on 132 SMs, measured slower than 2 or 4).  Every chunk holds at
-    least one key (the combine of an all-padding chunk would divide 0 by 0)
-    and the chunks cover the keys exactly."""
-    tk = key_tile(d)
+def attention_splits(b: int, h: int, sq: int, skv: int, d: int, sm_count: int,
+                     bf16: bool = False):
+    """(splits, chunk): kernel D (with `bf16`, kernel D-bf16) cuts the Skv
+    keys into `splits` chunks of `chunk` keys (a whole number of its key
+    tiles, at least MIN_CHUNK_KEYS), one chunk a block, where the (B*H) x
+    ceil(Sq / query tile) blocks are fewer than the resident blocks a SM x
+    sm_count (a wave) and so leave the card idle.  Kernel D: a block's time
+    falls as 1/splits while the card runs ceil(blocks * splits / wave) waves
+    of them, so the fewest splits that minimise waves / splits (a split that
+    fills waves badly, 3 at 128 blocks on 132 SMs, measured slower than 2 or
+    4).  Kernel D-bf16: the most splits whose blocks still run in one wave
+    (on an H100 SXM at the decoder's 128 x 2048 keys, D = 128, measured on
+    the card's clock: 32 blocks 2.2x faster as 4 splits, 64 blocks 1.19x as
+    2; 96 blocks 1.15x slower as 4 splits, in three waves).  Every chunk
+    holds at least one key (the combine of an all-padding chunk would divide
+    0 by 0) and the chunks cover the keys exactly."""
+    tk = key_tile(d, bf16)
     tiles = -(-skv // tk)
-    blocks = b * h * -(-sq // QUERY_TILE)
-    wave = BLOCKS_PER_SM * sm_count
+    blocks = b * h * -(-sq // (BF16_QUERY_TILE if bf16 else QUERY_TILE))
+    wave = (BF16_BLOCKS_PER_SM if bf16 else BLOCKS_PER_SM) * sm_count
     most = 1 if blocks >= wave else max(1, min(tiles, skv // MIN_CHUNK_KEYS))
-    want = min(range(1, most + 1), key=lambda s: -(-blocks * s // wave) / s)
+    if bf16:
+        want = max(1, min(most, wave // blocks))
+    else:
+        want = min(range(1, most + 1), key=lambda s: -(-blocks * s // wave) / s)
     per = -(-tiles // want)  # tiles a chunk
     return -(-tiles // per), per * tk
 
@@ -290,7 +311,7 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0
     skv = v.shape[2]
     out = torch.empty_like(q)
     qx, kx = (qxyz, kxyz_t) if radius > 0 else (None, None)
-    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(q.device))
+    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(q.device), bf16)
     o_part = ml_part = None
     if splits > 1:  # scratch for the chunks' partials, merged by the combine
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -298,8 +319,16 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0
     out_bf16 = int(q.dtype == torch.bfloat16)
     if bf16:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))  # no copy where already bf16
+        # the TMA copies read rows of 16-byte multiples at 16-byte aligned
+        # addresses: K^T's and the key coordinates' rows padded to ldk keys
+        ldk = -(-skv // 8) * 8
+        if ldk != skv:
+            k = torch.nn.functional.pad(k, (0, ldk - skv))
+            kx = None if kx is None else torch.nn.functional.pad(kx, (0, ldk - skv))
+        q, k, v, kx = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (q, k, v, kx))
         _kernels.launch("coda_attention_bf16", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq,
-                        skv, d, radius, out_bf16, splits, chunk)
+                        skv, ldk, d, radius, out_bf16, splits, chunk)
     else:
         threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
         _kernels.launch("coda_attention", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq, skv,

@@ -12,8 +12,10 @@ rounded to bf16 once.
 
 On a CUDA tensor `vit_attention` launches kernel E (csrc/vit_attention.cu;
 fp32, its two products in 3xTF32 on the tensor cores, fp32-level error) or
-kernel E-bf16 (csrc/vit_attention_bf16.cu; bf16 mma.sync); on a CPU tensor
-it takes `vit_attention_plain`.  The port's towers call it on every layer of
+kernel E-bf16 (csrc/vit_attention_bf16.cu; bf16 mma.sync, one pass over a
+head's keys with the score row in registers for S <= 256, persistent blocks
+with the next head's TMA copies in flight; two passes for longer S); on a
+CPU tensor it takes `vit_attention_plain`.  The port's towers call it on every layer of
 the image tower, unconditionally.  The JAX package reaches its Pallas kernel
 only when three conditions hold at once: a bf16 tower, CODA_CLIP_FUSED_ATTN=1
 (coda_neurips2023_tpu/models/clip.py:37, 163) and CODA_VIT_ATTN_IMPL=pallas
@@ -39,8 +41,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 def _smem_bytes(s: int, d: int, dtype=torch.float32) -> int:
     """Kernel E's shared memory at sequence length s (csrc :: smem_bytes):
     fp32, the copies of K and V, rows padded to a multiple of 8 keys, each
-    row to d + 4 floats; bf16 (E-bf16), K and V once, rows padded to a
-    multiple of 16 keys, each row to d + 8 bf16."""
+    row to d + 4 floats; bf16 (E-bf16's two-pass branch for S > 256, which
+    sets the longest S; the one-pass branch's two buffers fit at any S <=
+    256), K and V once, rows padded to a multiple of 16 keys, each row to d
+    + 8 bf16."""
     if dtype == torch.bfloat16:
         return 2 * 2 * (-(-s // 16) * 16) * (d + 8)
     return 4 * _RESIDENT_COPIES * (-(-s // 8) * 8) * (d + 4)

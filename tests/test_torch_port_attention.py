@@ -30,6 +30,8 @@ from coda_neurips2023_tpu.ops.pallas_vit_attention import _attention_reference a
 
 from coda_neurips2023_tpu_torch.ops.masked_attention import (
     MIN_CHUNK_KEYS,
+    BF16_BLOCKS_PER_SM,
+    BF16_QUERY_TILE,
     QUERY_TILE,
     BLOCKS_PER_SM,
     attention_splits,
@@ -116,19 +118,23 @@ SM_COUNTS = (132, 114)
 @pytest.mark.parametrize("skv", [1, 63, 64, 65, 2048, 2049])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("sm_count", SM_COUNTS)
-def test_attention_splits_cover_the_keys(skv, d, sm_count):
-    """Chunks are whole key tiles, every chunk starts before Skv (none is all
-    padding), and they cover Skv exactly, at the paths' shapes and small ones."""
-    wave = BLOCKS_PER_SM * sm_count
+@pytest.mark.parametrize("bf16", [False, True], ids=["D", "D-bf16"])
+def test_attention_splits_cover_the_keys(skv, d, sm_count, bf16):
+    """Chunks are whole key tiles (kernel D's or D-bf16's), every chunk
+    starts before Skv (none is all padding), and they cover Skv exactly, at
+    the paths' shapes and small ones."""
+    wave = (BF16_BLOCKS_PER_SM if bf16 else BLOCKS_PER_SM) * sm_count
     for b, h, sq in ((32, 4, 2048), (32, 4, 128), (8, 4, 128), (2, 3, 70), (1, 1, 1)):
-        splits, chunk = attention_splits(b, h, sq, skv, d, sm_count)
-        assert splits >= 1 and chunk % key_tile(d) == 0
+        splits, chunk = attention_splits(b, h, sq, skv, d, sm_count, bf16)
+        assert splits >= 1 and chunk % key_tile(d, bf16) == 0
         assert (splits - 1) * chunk < skv <= splits * chunk
-        blocks = b * h * -(-sq // QUERY_TILE)
+        blocks = b * h * -(-sq // (BF16_QUERY_TILE if bf16 else QUERY_TILE))
         if splits > 1:  # split only where the blocks leave the card idle
             assert blocks < wave and chunk >= MIN_CHUNK_KEYS
             waves = -(-blocks * splits // wave)
             assert waves / splits < 1  # fewer waves a split than unsplit
+            if bf16:  # D-bf16: the split blocks run in one wave
+                assert waves == 1
 
 
 @pytest.mark.parametrize("sm_count", SM_COUNTS)
@@ -145,6 +151,30 @@ def test_attention_splits_at_the_paths_shapes(sm_count):
            attention_splits(8, 4, 2048, 2048, 64, sm_count),
            attention_splits(32, 4, 128, 2048, 128, sm_count),
            attention_splits(8, 4, 128, 2048, 128, sm_count)]
+    assert got == want
+
+
+@pytest.mark.parametrize("sm_count", SM_COUNTS)
+def test_attention_bf16_splits_at_the_paths_shapes(sm_count):
+    """Kernel D-bf16 runs one block of 128 query rows an SM, keys in tiles
+    of 128 (64 at D = 128): a wave is the SM count, and it splits into the
+    most chunks whose blocks still fit in one wave.  The eval encoder's
+    4096 blocks and the encoder's 1024 at 8 scenes run unsplit; so does the
+    decoder's cross-attention at 32 scenes (128 blocks) and at 24 (96: 4
+    splits measured 1.15x slower at 132 SMs).  At 16 scenes (64 blocks) it
+    splits 2 ways at 132 SMs and not at 114; at 8 (32 blocks) 4 ways at 132
+    SMs and 3 at 114; the decoder's shape cut to 2 scenes (8 blocks) 7 ways
+    (no chunk under MIN_CHUNK_KEYS)."""
+    want = {132: [(1, 2048), (1, 2048), (1, 2048), (1, 2048), (2, 1024), (4, 512), (7, 320)],
+            114: [(1, 2048), (1, 2048), (1, 2048), (1, 2048), (1, 2048), (3, 704),
+                  (7, 320)]}[sm_count]
+    got = [attention_splits(32, 4, 2048, 2048, 64, sm_count, bf16=True),
+           attention_splits(8, 4, 2048, 2048, 64, sm_count, bf16=True),
+           attention_splits(32, 4, 128, 2048, 128, sm_count, bf16=True),
+           attention_splits(24, 4, 128, 2048, 128, sm_count, bf16=True),
+           attention_splits(16, 4, 128, 2048, 128, sm_count, bf16=True),
+           attention_splits(8, 4, 128, 2048, 128, sm_count, bf16=True),
+           attention_splits(2, 4, 128, 2000, 128, sm_count, bf16=True)]
     assert got == want
 
 

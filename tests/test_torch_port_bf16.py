@@ -214,17 +214,25 @@ def test_split_combine_bf16_matches_unsplit(chunk, radius):
     assert (err <= split_bound(*args, want)).all()
 
 
-def test_split_at_the_kernels_own_split_in_bf16():
-    """The decoder's cross-attention shape cut to 2 scenes, at the split the
-    kernel takes there (a last chunk shorter than the rest)."""
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_split_at_the_kernels_own_split_in_bf16(monkeypatch, sm_count):
+    """The decoder's cross-attention shape cut to 2 scenes, at the split
+    kernel D-bf16 takes there on an H100 SXM and PCIe (7 chunks of 320 keys,
+    a last chunk shorter than the rest), against the unsplit version
+    (`split_bound`), which is held against the Pallas kernel in interpret
+    mode on the same inputs (`within_one_ulp`)."""
     b, h, sq, skv, d = 2, 4, 128, 2000, 128
-    splits, chunk = attention_splits(b, h, sq, skv, d, 132)
+    splits, chunk = attention_splits(b, h, sq, skv, d, sm_count, bf16=True)
     assert splits > 1 and skv - (splits - 1) * chunk < chunk
-    q, k, v, _, _ = _d_inputs(11, b, h, sq, skv, d)
+    q, k, v, qxyz, kxyz_t = _d_inputs(11, b, h, sq, skv, d)
     args = (*map(_t_bf16, (q, k, v)), None, None, 0.0)
     got = masked_attention_split_plain(*args, chunk=chunk, compute_dtype="bfloat16")
     want = masked_attention_plain(*args, "bfloat16")
     assert ((got.float() - want.float()).abs() <= split_bound(*args, want)).all()
+    monkeypatch.setattr(pma, "_INTERPRET", True)
+    pallas = pma.masked_attention(*map(_jnp_bf16, (q, k, v)), jnp.asarray(qxyz),
+                                  jnp.asarray(kxyz_t), 0.0, "bfloat16")
+    within_one_ulp(want, np.asarray(pallas.astype(jnp.float32)), "D-bf16 plain, decoder shape")
 
 
 def test_combine_partials_weights_chunks_by_their_max_bf16():

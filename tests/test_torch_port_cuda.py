@@ -632,13 +632,18 @@ def bf16_bound(p, v, want):
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("sq,skv", [(64, 64), (70, 136), (5, 200)])
+@pytest.mark.parametrize("sq,skv", [(64, 64), (70, 136), (5, 200), (130, 1001), (200, 2048)])
 @pytest.mark.parametrize("radius", [0.0, 0.5])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_attention_bf16_kernel(dev, d, sq, skv, radius, out_dtype):
-    """Every template instance, ragged tiles (Skv 200 is not a multiple of 8:
-    the element-wise loads), a fully masked row, bf16 and fp32 outputs (fp32
-    inputs are rounded to bf16 first)."""
+    """Every template instance; Sq not a multiple of the 64 rows of a
+    warpgroup (70, 5, 130); Skv ending inside a TMA key tile (136, 200,
+    1001), and not a multiple of 8 (1001: K^T and the key coordinates padded
+    to 1008 keys a row); many tiles through the ring of stages (2048), split
+    across blocks where the policy splits them (1001, 2048 at 2 x 3 heads);
+    a fully masked row, under the allowed bits of pass 0; bf16 and fp32
+    outputs (fp32 inputs are rounded to bf16 first).  Against the plain
+    version of the kernel's own split."""
     g = torch.Generator(device=dev).manual_seed(d + sq + skv)
     q = (torch.randn((2, 3, sq, d), device=dev, generator=g) / d ** 0.5).to(out_dtype)
     k = torch.randn((2, 3, d, skv), device=dev, generator=g).to(out_dtype)
@@ -650,9 +655,11 @@ def test_attention_bf16_kernel(dev, d, sq, skv, radius, out_dtype):
     args = (q, k, v, qxyz, kxyz_t, radius, "bfloat16")
     _kernels.reset_launches()
     got = masked_attention(*args)
-    assert got.dtype == out_dtype and _kernels.LAUNCHES["attention_bf16"] >= 1
+    splits, chunk = attention_splits(2, 3, sq, skv, d, multi_processor_count(dev), bf16=True)
+    assert got.dtype == out_dtype and _kernels.LAUNCHES["attention_bf16"] == 1 + (splits > 1)
     assert _kernels.LAUNCHES["attention"] == 0
-    want = masked_attention_plain(*args)
+    want = (masked_attention_split_plain(*args[:6], chunk, "bfloat16") if splits > 1
+            else masked_attention_plain(*args))
     p = torch.softmax(_bf16_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
     assert ((got.float() - want.float()).abs() <= bf16_bound(p, v.to(torch.bfloat16), want)).all()
 
@@ -663,7 +670,7 @@ def test_attention_bf16_split_keys(dev, out_dtype):
     each chunk's partials, then the combine (counted under attention_bf16),
     against the plain version of the same split."""
     b, h, sq, skv, d = 2, 4, 128, 2000, 128
-    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(dev))
+    splits, chunk = attention_splits(b, h, sq, skv, d, multi_processor_count(dev), bf16=True)
     assert splits > 1
     g = torch.Generator(device=dev).manual_seed(7)
     q = (torch.randn((b, h, sq, d), device=dev, generator=g) / d ** 0.5).to(out_dtype)
@@ -679,12 +686,32 @@ def test_attention_bf16_split_keys(dev, out_dtype):
 
 @pytest.mark.parametrize("h", [1, 12])
 @pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("s", [1, 50, 197])
+@pytest.mark.parametrize("s", [1, 50, 197, 256, 300])
 def test_vit_attention_bf16_kernel(dev, s, d, h):
+    """The one-pass branch (S <= 208 and S <= 256, its two instances) and
+    the two-pass one (S = 300)."""
     q, k, v = (t.to(torch.bfloat16) for t in _qkv(dev, (3, h, s, d), s + d + h))
     _kernels.reset_launches()
     got = vit_attention(q, k, v)
     assert got.dtype == torch.bfloat16 and _kernels.LAUNCHES["vit_attention_bf16"] == 1
+    want = vit_attention_plain(q, k, v)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5, dim=-1)
+    assert ((got.float() - want.float()).abs() <= bf16_bound(p, v, want)).all()
+    if s == 1:  # one key: p = 1 exactly and the output is v
+        assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", [1, 16, 33, 48, 100, 197])
+def test_vit_attention_bf16_persistent_blocks(dev, s, d):
+    """40 crops x 12 heads: more heads than persistent blocks, so each block
+    walks over several heads (at least 3), two buffers in turn.  At S <= 112
+    a head has fewer 16-row tiles than the block has warps, so a warp holds
+    tiles of only some of the heads and still waits on every head's
+    buffer."""
+    q, k, v = (t.to(torch.bfloat16) for t in _qkv(dev, (40, 12, s, d), d + 40 + s))
+    assert 40 * 12 > 2 * multi_processor_count(dev)
+    got = vit_attention(q, k, v)
     want = vit_attention_plain(q, k, v)
     p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5, dim=-1)
     assert ((got.float() - want.float()).abs() <= bf16_bound(p, v, want)).all()
