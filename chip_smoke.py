@@ -201,6 +201,46 @@ result):
      E-bf16 as attention_bf16 and vit_attention_bf16, with their launches
      in (b) and (c), the CLI's and the stage-1 step's, and the decoder,
      radius and 256-crop shapes' times.
+ 19. The radius-masked encoder (--enc_type masked), point features and the
+     sine embedding.  (a) The masked flagship (enc 256, dec 512, 2048
+     pre-encoder points kept as 1024 by the interim SA, 128 queries) with
+     random weights from a seed, eval step on STEPS batches of 32 x 20000
+     synthetic scenes against phase 4's text bank: shapes, finite values,
+     enc_inds (32, 1024) indices into the 20000 points that name enc_xyz,
+     and the exact launch counts of A (3 a step), B (GRID_LAUNCHES for each
+     of the two set abstractions), C (6: the two SAs' centres and xyz, the
+     interim SA's 256-d features, the queries) and D (the three masked
+     layers and the eight decoder layers, with a combine where
+     `attention_splits` splits the 1024 keys), and no other kernel; step ms
+     and peak memory.  Then D at the three radii (0.4^2 over the 2048
+     pre-encoder points, 0.8^2 and 1.2^2 over the interim SA's 1024) against
+     its plain version and fp32 SDPA with a boolean mask made outside the
+     timed window (as D decides it), the bound counting the allowed pairs'
+     products and every pair's distance test; D at the decoder's 1024 keys
+     against SDPA; B at 32 x 1024 over 2048 bit for bit; C on the 256-d
+     features (1.07 GB out) bit for bit against torch.gather.  (b) The same
+     weights on the CPU on 2 scenes: integer outputs equal, floats within
+     MODEL_TOL.  (c) `main --test_only --enc_type masked --test_ckpt` (a
+     .pth of (a)'s weights with the encoder.interim_downsampling.* names) on
+     phase 13's scenes: metrics with the JAX package's keys, (a)'s launches
+     a step and nothing else, the first batch within MXU_TOL of (a)'s step,
+     scenes/s and the idle share; then one batch with --compute_dtype bf16
+     through build_model and the eval step: D (fp32, radius) in the encoder,
+     D-bf16 in the decoder, nothing else, the indices equal to fp32's.  (d)
+     The stage-1 step with --enc_type masked (phase 10's flags, dropout as
+     shipped, MASKED_TRAIN_STEPS timed steps under CODA_BQ_ALGO=adaptive: A,
+     G, C, D and E launch, G twice a step); the same step at dropout 0 from
+     the same weights without and with --remat (loss within STEP_TOL,
+     gradients within GRAD_TOL of their norm: C's backward adds with
+     atomics; step ms and peak memory of both); phase 11's GPU-vs-CPU check
+     of the masked step on 2 scenes.  (e) --use_color --pos_embed sine on
+     the vanilla flagship: one eval batch of 6-channel scenes (C launched 4
+     times: the colours grouped beside the xyz) and GPU vs CPU on 2 scenes.
+     Phase 19 prints its seconds, part by part.  The kernels line gives
+     each kernel masked_launches, masked_cli_launches and
+     masked_stage1_launches; attention carries masked_enc0/1/2_* and
+     masked_dec_* (ms, plain, bound, library), ball_query interim_*, gather
+     interim_c256_*.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -1104,10 +1144,12 @@ def fused_step_keeping_targets(ctx, store, *args, **kw):
 
 
 def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_query_tile",
-                 title=None):
+                 title=None, steps=TRAIN_STEPS, sa_calls=1):
     """Phase 10: the stage-1 distillation training step at full width, G on;
     phase 15 runs it with ScanNet's script flags (`stage_args`, a parsed
-    namespace), the text banks of `bank_cfg` and kernel `bq`."""
+    namespace), the text banks of `bank_cfg` and kernel `bq`; phase 19 with
+    the masked encoder's flags, `steps` timed steps and `sa_calls` set
+    abstractions a step."""
     from coda_neurips2023_tpu_torch import _kernels
     from coda_neurips2023_tpu_torch.stages import StageContext
 
@@ -1155,17 +1197,17 @@ def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_q
         fail(f"the distillation loss is not above 0: {l1}")
     if not all(p.isfinite().all() for p in model.parameters()):
         fail("parameters not finite after the stage-1 steps")
-    print(f"  launches in the {TRAIN_STEPS} timed steps: {launches}")
+    print(f"  launches in the {steps} timed steps: {launches}")
     for name in ("fps", bq, "gather", "attention", "vit_attention"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the stage-1 path")
     for name in {"ball_query", "ball_query_group", "ball_query_tile"} - {bq}:
         if launches[name] != 0:
             fail(f"kernel {name} was launched on the stage-1 path in {bq}'s place")
-    check_grid_launches(launches, bq, TRAIN_STEPS, "stage-1")
-    if launches["vit_attention"] != TRAIN_STEPS * CLIP_LAYERS:
+    check_grid_launches(launches, bq, steps * sa_calls, "stage-1")
+    if launches["vit_attention"] != steps * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
-             f"{TRAIN_STEPS * CLIP_LAYERS} (one tower call of every step's crops)")
+             f"{steps * CLIP_LAYERS} (one tower call of every step's crops)")
     med = statistics.median(times)
     print(f"  stage-1 step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
     print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}; crops/s: "
@@ -3257,6 +3299,432 @@ def bf16_phase(torch, cfg, ckpt, results):
     }
 
 
+# phase 19: the radius-masked encoder (--enc_type masked), point features
+# and the sine embedding on the card
+MASKED_TRAIN_STEPS = 2
+
+
+def masked_attention_launches(torch, bf16_decoder=False):
+    """Kernel D's launches an eval step of the masked flagship: the three
+    encoder layers over 2048, 1024 and 1024 tokens (D = 64), the eight
+    decoder layers' cross-attention over 1024 keys (D = 128), each with a
+    combine where `attention_splits` splits the keys.  Returns (D's
+    launches, D-bf16's): with `bf16_decoder` (--compute_dtype bf16) the
+    decoder's go to D-bf16."""
+    from coda_neurips2023_tpu_torch.ops.masked_attention import attention_splits
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    sm = multi_processor_count(torch.device(DEVICE))
+
+    def calls(sq, skv, d, bf16=False):
+        return 1 + (attention_splits(BATCH, 4, sq, skv, d, sm, bf16)[0] > 1)
+
+    enc = calls(2048, 2048, 64) + 2 * calls(1024, 1024, 64)
+    dec = 8 * calls(128, 1024, 128, bf16_decoder)
+    return (enc, dec) if bf16_decoder else (enc + dec, 0)
+
+
+def radius_mask(torch, xyz, radius):
+    """(B, S, S) bool: the keys kernel D's radius mode allows, decided as it
+    and its plain version decide them (elementwise, in the kernel's order:
+    sqrt(max(|q|^2 + |k|^2 - 2 q.k, 0)) < radius), so a library call given
+    this mask computes the same function."""
+    q = [xyz[:, :, i, None] for i in range(3)]
+    k = [xyz[:, None, :, i] for i in range(3)]
+    cross = (q[0] * k[0] + q[1] * k[1]) + q[2] * k[2]
+    sq_q = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]
+    sq_k = (k[0] * k[0] + k[1] * k[1]) + k[2] * k[2]
+    return torch.sqrt(torch.clamp((sq_q + sq_k) - 2.0 * cross, min=0.0)) < radius
+
+
+def masked_attention_bound(torch, b, h, s, d, mask):
+    """The least ms kernel D's radius mode needs on these points: the
+    distance test of every pair (BQ_OPS at the fp32 peak), and QK, PV (3xTF32
+    on the tensor cores) and the softmax only for the allowed pairs of
+    `mask` (the data decides how many), against q, k, v and the output read
+    or written once with the coordinates.  Returns (bound, allowed share)."""
+    allowed = int(mask.sum())
+    pairs = b * s * s
+    nbytes = 4 * b * h * 4 * s * d + 24 * b * s
+    return bound(BQ_OPS * pairs + 5 * h * allowed, nbytes, tc_flops=4 * d * h * allowed), \
+        allowed / pairs
+
+
+def masked_kernel_rows(torch, model, batch, results):
+    """Phase 19 (a), second part: kernels D, B and C against their plain
+    versions at the masked path's own shapes and points, with kernel, plain,
+    bound and library ms, written into `results` beside each kernel's main
+    row."""
+    from coda_neurips2023_tpu_torch.models.transformer import MASKING_RADIUS
+    from coda_neurips2023_tpu_torch.ops import grouping, sampling
+    from coda_neurips2023_tpu_torch.ops.masked_attention import (
+        masked_attention,
+        masked_attention_plain,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    xyz = batch["point_clouds"][..., :3].contiguous()
+    b = xyz.shape[0]
+    with torch.inference_mode():
+        pre_xyz, pre_feat, _ = model.pre_encoder(xyz)
+        feats = model.encoder.layers[0](pre_feat, xyz=pre_xyz, radius=MASKING_RADIUS[0])
+        half = sampling.gather_points(pre_xyz, sampling.furthest_point_sample(pre_xyz, 1024))
+
+    def row(name, label, err, ms, plain_ms, bnd, library_ms, key):
+        results[name].update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                              f"{key}_bound_ms": bnd[0], f"{key}_bound_by": bnd[1],
+                              f"{key}_library_ms": library_ms})
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        lib = f" library_ms={library_ms!r}" if library_ms is not None else ""
+        print(f"  {name:16s} {label:44s} max_abs_err={err!r} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} bound_ms={bnd[0]!r} ({bnd[1]}){lib}")
+
+    # D's radius mode at the encoder's three layers, the library fp32 SDPA
+    # with a boolean mask made outside the timed window
+    for radius, pts, key in zip(MASKING_RADIUS, (pre_xyz, half, half),
+                                ("masked_enc0", "masked_enc1", "masked_enc2")):
+        s = pts.shape[1]
+        q = torch.randn((b, 4, s, 64), device=DEVICE, generator=gen) / 8.0
+        k = torch.randn((b, 4, 64, s), device=DEVICE, generator=gen)
+        v = torch.randn((b, 4, s, 64), device=DEVICE, generator=gen)
+        kxyz_t = pts.transpose(1, 2).contiguous()
+        kern = lambda: masked_attention(q, k, v, pts, kxyz_t, radius)
+        plain = lambda: masked_attention_plain(q, k, v, pts, kxyz_t, radius)
+        want = plain()
+        err = (kern() - want).abs().max().item()
+        if not err <= ATTN_TOL:
+            fail(f"attention S={s} r^2={radius!r}: max_abs_err {err!r} > {ATTN_TOL}")
+        mask = radius_mask(torch, pts, radius)[:, None]
+        kt = k.transpose(2, 3).contiguous()
+        library = lambda: sdpa(q, kt, v, attn_mask=mask, scale=1.0)
+        lib_err = (library() - want).abs().max().item()
+        if not lib_err <= ATTN_TOL:
+            fail(f"fp32 SDPA with the mask differs from the plain radius attention by {lib_err!r}")
+        ms, library_ms = time_in_turns(torch, kern, library)
+        bnd, share = masked_attention_bound(torch, b, 4, s, 64, mask)
+        del mask
+        row("attention", f"radius S={s} H=4 D=64 r^2={radius:.2f} (allowed {share:.4f})", err,
+            ms, time_ms(torch, plain), bnd, library_ms, key)
+    # D at the decoder's cross-attention over the 1,024 tokens left
+    q = torch.randn((b, 4, 128, 128), device=DEVICE, generator=gen) / 128 ** 0.5
+    k = torch.randn((b, 4, 128, 1024), device=DEVICE, generator=gen)
+    v = torch.randn((b, 4, 1024, 128), device=DEVICE, generator=gen)
+    kern = lambda: masked_attention(q, k, v)
+    plain = lambda: masked_attention_plain(q, k, v, None, None, 0.0)
+    err = (kern() - plain()).abs().max().item()
+    if not err <= ATTN_TOL:
+        fail(f"attention decoder over 1024 keys: max_abs_err {err!r} > {ATTN_TOL}")
+    kt = k.transpose(2, 3).contiguous()
+    ms, library_ms = time_in_turns(torch, kern, lambda: sdpa(q, kt, v, scale=1.0))
+    row("attention", "decoder Sq=128 Skv=1024 H=4 D=128", err, ms, time_ms(torch, plain),
+        attention_bound(b, 4, 128, 1024, 128), library_ms, "masked_dec")
+    del q, k, v, kt
+    # B at the interim SA's 32 x 1024 centres over 2048 points, bit for bit
+    kern = lambda: grouping.ball_query(0.4, 32, pre_xyz, half)
+    plain = lambda: grouping.ball_query_plain(0.4, 32, pre_xyz, half)
+    idx = kern()
+    if not torch.equal(idx, plain()):
+        fail("ball_query at the interim SA's shape differs from its plain version")
+    bnd, scan_bnd = ball_query_bound(torch, 0.4, 32, pre_xyz, half)
+    row("ball_query", f"interim B={b} N=2048 M=1024 r=0.4 k=32", 0.0, time_ms(torch, kern),
+        time_ms(torch, plain), bnd, None, "interim")
+    print(f"  {'':16s} {'':44s} scan bound_ms={scan_bnd[0]!r}")
+    # C on the interim SA's 256-d features, against torch.gather
+    c = feats.shape[-1]
+    kern = lambda: grouping.group_points(feats, idx)
+    plain = lambda: grouping.group_points_plain(feats, idx)
+    flat = idx.reshape(b, -1, 1).long().expand(-1, -1, c)
+    got = kern()
+    if not torch.equal(got, plain()):
+        fail(f"gather of the interim SA's {c}-d features differs from its plain version")
+    ms, library_ms = time_in_turns(torch, kern, lambda: torch.gather(feats, 1, flat))
+    nbytes = 4 * (feats.numel() + idx.numel() + got.numel())
+    row("gather", f"features B={b} N=2048 M=1024 K=32 C={c}", 0.0, ms, time_ms(torch, plain),
+        bound(0, nbytes), library_ms, f"interim_c{c}")
+    print(f"  {'':16s} {'':44s} output {got.numel() * 4 / 1e9!r} GB")
+
+
+def masked_eval_phase(torch, cfg, text, results):
+    """Phase 19 (a) and (b): the masked flagship's eval step on the card,
+    its kernels at its shapes, then the same weights on the CPU."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES
+
+    print(f"phase 19 (a): the masked flagship (--enc_type masked) eval step, {STEPS} batches of "
+          f"{BATCH} x {NUM_POINTS} points")
+    ds = SyntheticDetectionDataset(cfg, num_scenes=STEPS * BATCH, num_points=NUM_POINTS, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(ds, i * BATCH, BATCH).items()
+                if k in ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")}
+               for i in range(STEPS)]
+    model = CoDA3DETR(cfg, enc_type="masked", device=DEVICE)
+    reset_parameters(model, torch.Generator(device=DEVICE).manual_seed(SEED + 30)).eval()
+    if model.encoder.interim_downsampling.npoint != 1024:
+        fail("the masked encoder's interim SA does not keep 1024 points")
+    step = make_eval_step(model, eval_text_features=text, eval_logit_scale=100.0)
+    step(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    times, outs = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        outs.append(step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_eval_outputs(torch, outs, model.nqueries, "masked eval", zero_rows=False)
+    with torch.inference_mode():
+        full = model(batches[0])
+    if tuple(full["enc_inds"].shape) != (BATCH, 1024) or tuple(full["enc_xyz"].shape) != (
+            BATCH, 1024, 3):
+        fail(f"enc_inds {tuple(full['enc_inds'].shape)} / enc_xyz {tuple(full['enc_xyz'].shape)}")
+    inds = full["enc_inds"].long()
+    if not (0 <= inds.min() and inds.max() < NUM_POINTS):
+        fail("enc_inds outside the 20000 input points")
+    picked = torch.gather(batches[0]["point_clouds"][..., :3], 1, inds[..., None].expand(-1, -1, 3))
+    if not torch.equal(picked, full["enc_xyz"]):
+        fail("enc_inds do not name the points of enc_xyz")
+    attn, _ = masked_attention_launches(torch)
+    want = {"fps": 3 * STEPS, "ball_query": 2 * GRID_LAUNCHES * STEPS, "gather": 6 * STEPS,
+            "attention": attn * STEPS}
+    print(f"  launches in the {STEPS} timed steps: {launches}")
+    print(f"  expected: {want} (FPS 20000->2048, 2048->1024, 1024->128; two ball queries of "
+          f"{GRID_LAUNCHES} launches; C for 2 + 3 gathers of the SAs and the queries; D in 3 "
+          f"encoder and 8 decoder layers with their combines)")
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"masked eval launches {got} != {want}")
+    med = statistics.median(times)
+    print(f"  masked eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
+    print(f"  scenes/s (median step): {BATCH / med * 1e3!r}; peak memory allocated: {peak_gb!r} GB")
+    masked_kernel_rows(torch, model, batches[0], results)
+
+    print("phase 19 (b): the same masked model on the CPU (plain PyTorch) on 2 scenes")
+    small = {k: v[:2] for k, v in batches[0].items()}
+    with torch.inference_mode():
+        gpu = model(small)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        cpu = cpu_model({k: v.cpu() for k, v in small.items()})
+    compare_gpu_cpu(torch, gpu, cpu, "masked")
+    return model, batches[0], launches
+
+
+def compare_gpu_cpu(torch, gpu, cpu, what):
+    """A detector's outputs on the card and on the CPU (phases 5 and 19):
+    integer outputs and angle classes equal, floats within MODEL_TOL."""
+    for key in ("enc_inds", "query_xyz", "enc_xyz"):
+        if not torch.equal(gpu[key].cpu(), cpu[key]):
+            fail(f"{what} {key}: GPU and CPU differ")
+    if not torch.equal(gpu["angle_logits"].argmax(-1).cpu(), cpu["angle_logits"].argmax(-1)):
+        fail(f"{what}: angle classes differ between GPU and CPU")
+    worst = max(((gpu[k].cpu() - cpu[k]).abs().max().item(), k)
+                for k in cpu if cpu[k].is_floating_point())
+    print(f"  {what} GPU vs CPU: indices equal, worst float key {worst[1]} "
+          f"max_abs_err={worst[0]!r}")
+    if not worst[0] <= MODEL_TOL:
+        fail(f"{what} GPU vs CPU: {worst[1]} differs by {worst[0]!r} > {MODEL_TOL}")
+
+
+def masked_cli_phase(torch, model, batch, batch_launches):
+    """Phase 19 (c): `main --test_only --enc_type masked --test_ckpt` on
+    phase 13's scenes from (a)'s weights, then one batch with
+    --compute_dtype bf16."""
+    from coda_neurips2023_tpu_torch import _kernels, engine
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.models import build_model
+    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES
+
+    scans = CLI_SCENES // 4
+    out_dir = _kernels.BUILD_DIR.parent / "phase19"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = out_dir / "masked.pth"
+    sd = model.state_dict()
+    if not any(k.startswith("encoder.interim_downsampling.mlp_module.") for k in sd):
+        fail("the masked state dict has no encoder.interim_downsampling.* entries")
+    torch.save({"model": sd}, ckpt)
+    print(f"phase 19 (c): main --test_only --enc_type masked --test_ckpt on {scans} synthetic "
+          f"scenes (the .pth has {sum(k.startswith('encoder.interim_downsampling.') for k in sd)} "
+          f"encoder.interim_downsampling.* entries)")
+    argv = CLI_ARGS + ["--synthetic_num_scenes", str(CLI_SCENES), "--test_ckpt", str(ckpt),
+                       "--enc_type", "masked", "--log_file", str(out_dir / "eval.lst")]
+    steps = -(-scans // BATCH)
+    with recording_eval_step(engine, {}) as store:
+        metrics, launches, stats, meter, seconds = cli_run(torch, argv, CLI_WORKERS[0])
+    check_cli_metrics(metrics, scans, stats, meter, "masked CLI")
+    print(f"    launches: {launches}")
+    want = {k: v // STEPS * steps for k, v in batch_launches.items() if v}
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(f"masked CLI launches {launches}, expected {want}")
+    first_batch, got = store["first"]
+    ref = make_eval_step(model, eval_text_features=store["bank"], eval_logit_scale=100.0)(
+        first_batch)
+    err = max((got[k] - ref[k]).abs().max().item() for k in ref)
+    print(f"    first batch vs (a)'s eval step (its model, the CLI's bank): max_abs_err={err!r}")
+    if not err <= MXU_TOL:
+        fail(f"the masked CLI's first batch differs from (a)'s eval step by {err!r} > {MXU_TOL}")
+    report_loop(stats, meter, seconds, CLI_WORKERS[0])
+
+    os.environ.pop("CODA_AP_WORKERS", None)
+    cli_launches = dict(launches)
+
+    # --compute_dtype bf16 from the same weights, one batch through the
+    # build_model and eval step that main takes (tests/test_torch_port_masked.py runs
+    # the flag through main on the CPU)
+    print("  --enc_type masked --compute_dtype bf16, one batch of (a)'s scenes through "
+          "build_model and make_eval_step")
+    args = types.SimpleNamespace(**{**FLAGSHIP_ARGS, "enc_type": "masked", "compute_dtype": "bf16",
+                                    "model_name": "3detr_predictedbox_distillation"})
+    bf16_model, _ = build_model(args, model.dataset_config, device=DEVICE)
+    bf16_model.load_state_dict(model.state_dict(), strict=True)
+    bf16_model.eval()
+    if any(m.dtype != torch.float32 for m in bf16_model.encoder.modules()
+           if hasattr(m, "dtype") and isinstance(m.dtype, torch.dtype)):
+        fail("the masked encoder is not fp32 under --compute_dtype bf16")
+    step = make_eval_step(bf16_model, eval_text_features=store["bank"], eval_logit_scale=100.0)
+    step(batch)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = step(batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    check_eval_outputs(torch, [out], bf16_model.nqueries, "masked bf16 eval", zero_rows=False)
+    enc, dec = masked_attention_launches(torch, bf16_decoder=True)
+    want = {"fps": 3, "ball_query": 2 * GRID_LAUNCHES, "gather": 6, "attention": enc,
+            "attention_bf16": dec}
+    print(f"    launches: {launches}; expected {want} (fp32 D with the radius in the "
+          f"encoder, D-bf16 in the decoder)")
+    if launches != want:
+        fail(f"masked bf16 eval launches {launches}, expected {want}")
+    with torch.inference_mode():
+        got, ref = bf16_model(batch), model(batch)
+    for key in ("enc_inds", "enc_xyz", "query_xyz"):
+        if not torch.equal(got[key], ref[key]):
+            fail(f"masked bf16 {key} differs from the fp32 model's")
+    print(f"    enc_inds, enc_xyz and query_xyz equal to the fp32 model's; box_corners "
+          f"max |bf16 - fp32| {(got['box_corners'] - ref['box_corners']).abs().max().item()!r}")
+    return cli_launches
+
+
+def masked_train_phase(torch, cfg):
+    """Phase 19 (d): the stage-1 training step with --enc_type masked, then
+    at dropout 0 with and without --remat, then GPU vs CPU."""
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+
+    ds = SyntheticDetectionDataset(cfg, num_scenes=(MASKED_TRAIN_STEPS + 1) * TRAIN_BATCH,
+                                   num_points=NUM_POINTS, seed=SEED + 3, with_images=True,
+                                   image_hw=IMAGE_HW)
+    batches = [{k: torch.from_numpy(v).to(DEVICE)
+                for k, v in make_batch(ds, i * TRAIN_BATCH, TRAIN_BATCH).items()}
+               for i in range(MASKED_TRAIN_STEPS + 1)]
+    flags = types.SimpleNamespace(**{**FLAGSHIP_ARGS, **TRAIN_ARGS, **STAGE1_ARGS,
+                                     "enc_type": "masked", "remat": False})
+    with bq_env(CODA_BQ_ALGO="adaptive"):
+        launches, ctx = stage1_phase(
+            torch, cfg, batches, stage_args=flags, steps=MASKED_TRAIN_STEPS, sa_calls=2,
+            title=(f"phase 19 (d): the stage-1 training step with --enc_type masked, "
+                   f"{MASKED_TRAIN_STEPS} steps of {TRAIN_BATCH} x {NUM_POINTS} points, "
+                   f"CODA_BQ_ALGO=adaptive"))
+        print("  the same step at dropout 0 from the same weights, without and with --remat")
+
+        def one_step(remat, batch):
+            args = copy.copy(flags)
+            args.remat = remat
+            model, criterion, optimizer, schedule = train_objects(torch, cfg, False, DEVICE,
+                                                                  SEED + 31, args)
+            step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            metrics = step(batch, torch.Generator(device=DEVICE).manual_seed(SEED + 32))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return (float(metrics["loss"]),
+                    {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                    torch.cuda.max_memory_allocated() / 1e9, ms)
+
+        one_step(True, batches[1])  # warm-up: checkpoint's first call imports its machinery
+        runs = {}
+        for remat in (False, True):
+            runs[remat] = one_step(remat, batches[0])
+            print(f"    remat={remat}: loss {runs[remat][0]!r}, step {runs[remat][3]!r} ms, "
+                  f"peak memory allocated {runs[remat][2]!r} GB")
+        (la, ga, _, _), (lb, gb, _, _) = runs[False], runs[True]
+        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in ga.values())).item()
+        worst = max(((ga[n] - gb[n]).abs().max().item() / norm, n) for n in ga)
+        print(f"    --remat vs not: loss |diff| {abs(la - lb)!r}; gradient max |diff| / global "
+              f"norm {worst[0]!r} ({worst[1]}) (C's backward adds with atomics)")
+        if not abs(la - lb) <= STEP_TOL or not worst[0] <= GRAD_TOL:
+            fail(f"--remat changed the masked step: loss {abs(la - lb)!r}, gradient {worst[0]!r}")
+        stage1_cpu_phase(torch, cfg, ctx, batches[0], stage_args=flags,
+                         title="  the masked stage-1 step on 2 scenes, GPU vs CPU, dropout 0")
+    return launches
+
+
+def color_sine_phase(torch, cfg, batch, text):
+    """Phase 19 (e): --use_color and --pos_embed sine on the vanilla
+    flagship, one eval batch of 6-channel scenes, then GPU vs CPU."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.engine import make_eval_step
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.ops.grouping import GRID_LAUNCHES
+
+    print("phase 19 (e): --use_color --pos_embed sine on the vanilla flagship, one batch of "
+          f"{BATCH} x {NUM_POINTS} points with colours")
+    rgb = torch.rand(batch["point_clouds"].shape, device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(SEED + 33))
+    batch = dict(batch, point_clouds=torch.cat([batch["point_clouds"], rgb], -1))
+    model = CoDA3DETR(cfg, use_color=True, position_embedding="sine", device=DEVICE)
+    reset_parameters(model, torch.Generator(device=DEVICE).manual_seed(SEED + 34)).eval()
+    if "pos_embedding.gauss_B" in model.state_dict():
+        fail("the sine embedding has a gauss_B")
+    step = make_eval_step(model, eval_text_features=text, eval_logit_scale=100.0)
+    step(batch)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    check_eval_outputs(torch, [out], model.nqueries, "colour + sine eval", zero_rows=False)
+    want = {"fps": 2, "ball_query": GRID_LAUNCHES, "gather": 4}
+    print(f"  launches: {launches}; step {ms!r} ms (C gathers the centres, the grouped xyz, the "
+          f"grouped colours and the queries)")
+    if {k: launches.get(k, 0) for k in want} != want or launches.get("attention", 0) <= 0:
+        fail(f"colour + sine launches {launches}, expected {want} and D")
+    small = {k: v[:2] for k, v in batch.items()}
+    with torch.inference_mode():
+        gpu = model(small)
+        cpu = copy.deepcopy(model).to("cpu")({k: v.cpu() for k, v in small.items()})
+    compare_gpu_cpu(torch, gpu, cpu, "colour + sine")
+
+
+def masked_phase(torch, cfg, text, results):
+    """Phase 19; returns each kernel's launches on the masked paths."""
+    t0 = time.perf_counter()
+    marks = []
+    model, batch, launches = masked_eval_phase(torch, cfg, text, results)
+    marks.append(("(a) and (b)", time.perf_counter()))
+    cli_launches = masked_cli_phase(torch, model, batch, launches)
+    marks.append(("(c)", time.perf_counter()))
+    del model
+    train_launches = masked_train_phase(torch, cfg)
+    marks.append(("(d)", time.perf_counter()))
+    color_sine_phase(torch, cfg, batch, text)
+    marks.append(("(e)", time.perf_counter()))
+    parts = ", ".join(f"{name} {end - start:.1f} s"
+                      for (name, end), start in zip(marks, [t0] + [m[1] for m in marks]))
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s: {parts}")
+    return launches, cli_launches, train_launches
+
+
 def main():
     started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3390,17 +3858,7 @@ def main():
         gpu = model(small)
         cpu_model = model.to("cpu")
         cpu = cpu_model({k: v.cpu() for k, v in small.items()})
-    for key in ("enc_inds", "query_xyz", "enc_xyz"):
-        if not torch.equal(gpu[key].cpu(), cpu[key]):
-            fail(f"{key}: GPU and CPU differ")
-    if not torch.equal(gpu["angle_logits"].argmax(-1).cpu(), cpu["angle_logits"].argmax(-1)):
-        fail("angle classes differ between GPU and CPU")
-    worst = max(
-        ((gpu[k].cpu() - cpu[k]).abs().max().item(), k) for k in cpu if cpu[k].is_floating_point()
-    )
-    print(f"  GPU vs CPU: indices equal, worst float key {worst[1]} max_abs_err={worst[0]!r}")
-    if not worst[0] <= MODEL_TOL:
-        fail(f"GPU vs CPU: {worst[1]} differs by {worst[0]!r} > {MODEL_TOL}")
+    compare_gpu_cpu(torch, gpu, cpu, "flagship")
 
     launches6, detector = clip_eval_phase(torch, ctx, cfg, batches)
     clip_cpu_phase(torch, ctx, detector, batches[0])
@@ -3449,6 +3907,7 @@ def main():
     print(f"phase 15 took {t1 - t0:.1f} s, phase 16 {time.perf_counter() - t1:.1f} s")
     ddp_launches = ddp_phase(torch, root, smi, ckpt4, eval13)
     bf16_launches = bf16_phase(torch, cfg, ckpt4, results)
+    masked_launches, masked_cli, masked_stage1 = masked_phase(torch, cfg, text, results)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -3465,6 +3924,9 @@ def main():
             "scannet_cli_launches": results["scannet_cli_launches"][NUM_POINTS].get(name, 0),
             "scannet_stage1_launches": launches15[name],
             "ddp_launches": ddp_launches[name],
+            "masked_launches": masked_launches.get(name, 0),
+            "masked_cli_launches": masked_cli.get(name, 0),
+            "masked_stage1_launches": masked_stage1.get(name, 0),
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()

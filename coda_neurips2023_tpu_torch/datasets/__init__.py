@@ -115,6 +115,7 @@ def build_dataset(args):
                 num_points=getattr(args, "num_points", 20000),
                 with_images=getattr(args, "if_input_image", False),
                 empty_scene_rate=getattr(args, "synthetic_empty_scene_rate", 0.0),
+                use_color=getattr(args, "use_color", False),
                 **kw,
             )
 

@@ -16,7 +16,10 @@ string fields, `im_name` and `pseudo_box_path`. With `pseudo_dir`, each
 scene reads stage-2 pseudo boxes from its own
 `synthetic_{idx:06d}_novel_bbox.npy` there, when the file exists, and merges
 them as ground truth (class 0, full extents halved), as the SUN RGB-D
-dataset merges its pseudo labels.
+dataset merges its pseudo labels.  With `use_color` (--use_color, which the
+JAX generator ignores) each point also carries an RGB colour, uniform in
+[0, 1) less the SUN RGB-D mean colour as that dataset gives it, drawn from a
+generator of its own so that every other field stays bit-equal.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import os
 
 import numpy as np
 
+from coda_neurips2023_tpu_torch.datasets.sunrgbd import MEAN_COLOR_RGB
 from coda_neurips2023_tpu_torch.ops import box_ops
 
 
@@ -41,6 +45,7 @@ class SyntheticDetectionDataset:
         image_hw: tuple = (64, 96),
         pseudo_dir: str | None = None,
         empty_scene_rate: float = 0.0,
+        use_color: bool = False,
     ):
         self.dataset_config = dataset_config
         self.num_scenes = num_scenes
@@ -53,6 +58,7 @@ class SyntheticDetectionDataset:
         self.pseudo_dir = pseudo_dir
         # the share of scenes with no ground-truth box (SUN RGB-D has ~0.4%)
         self.empty_scene_rate = float(empty_scene_rate)
+        self.use_color = use_color
 
     def __len__(self):
         return self.num_scenes
@@ -120,6 +126,10 @@ class SyntheticDetectionDataset:
         pc_min = pc.min(axis=0)
         pc_max = pc.max(axis=0)
         scene_scale = np.clip(pc_max - pc_min, 1e-1, None)
+        if self.use_color:
+            rgb = np.random.default_rng((self.seed * 100003 + idx, 1)).uniform(
+                0.0, 1.0, (pc.shape[0], 3))
+            pc = np.concatenate([pc, (rgb - MEAN_COLOR_RGB).astype(np.float32)], axis=1)
         angle_cls = np.zeros((max_obj,), np.int64)
         angle_res = np.zeros((max_obj,), np.float32)
         if self.use_angles:

@@ -60,9 +60,12 @@ A mode flag (--show_only, --show_box_points, --save_novel_only,
 the modes of modes.py, from --test_ckpt.  Its loader pads the tail and the
 modes honour "pad_mask", where the JAX package's drops the tail scenes.
 
+--enc_type masked, --use_color, --pos_embed sine and --remat (activation
+checkpointing of each encoder and decoder layer in training, the dropout
+masks replayed) run as in the JAX package.
+
 Raising: --minitest_only (as in the JAX package, which has no such split
-either), and in training --remat (activation checkpointing, ROADMAP Queue 1
-item 9) and --if_two_phase_stage_step (not to port).
+either), and in training --if_two_phase_stage_step (not to port).
 """
 
 from __future__ import annotations
@@ -126,7 +129,7 @@ def make_args_parser():
     parser.add_argument(
         "--remat", default=False, action="store_true",
         help="per-transformer-layer activation checkpointing in training "
-             "(the JAX package's; the port raises on it); not a reference flag",
+             "(torch.utils.checkpoint, the dropout masks replayed); not a reference flag",
     )
     parser.add_argument(
         "--if_two_phase_stage_step", default=False, action="store_true",
@@ -530,9 +533,6 @@ def do_train(args, ctx):
     from coda_neurips2023_tpu_torch.utils import io
     from coda_neurips2023_tpu_torch.utils.logger import Logger
 
-    if args.remat:
-        raise NotImplementedError("--remat (activation checkpointing) is not ported "
-                                  "(ROADMAP Queue 1 item 9)")
     if args.if_two_phase_stage_step:
         raise NotImplementedError("--if_two_phase_stage_step keeps XLA graphs small and is "
                                   "not ported (ROADMAP, Not to port)")

@@ -35,8 +35,11 @@ and scatters the embeddings and their validity mask back to the proposals;
 `keep_novel_boxes_as_gt` (--if_keep_box) appends confident novel boxes to
 the ground truth, and --if_clip_weak_labels adds CLIP's weak labels.
 
-The bilinear crop variant (:139-163, used only by
-scripts/measure_discovery_deviations.py) is not ported yet.
+`crop_square_resize_white_bilinear` is the JAX package's bilinear crop
+variant (:139-163, hat-kernel interpolation matrices, the white padding
+masked after the interpolation), which its
+scripts/measure_discovery_deviations.py holds against the bicubic path;
+no path of either package crops with it.
 """
 
 from __future__ import annotations
@@ -122,6 +125,41 @@ def crop_square_resize_white(image, rects, out_size: int = 224):
     val = torch.einsum("...pw,...owc->...opc", kx, tmp)
     val = val + 255.0 * (1.0 - my[..., :, None] * mx[..., None, :])[..., None]
     return torch.round(torch.clamp(val, 0.0, 255.0))
+
+
+def _interp_matrix(coords, size: int):
+    """Bilinear interpolation matrices (..., out, size): each row the hat
+    weights around its source coordinate, clipped into [0, size - 1]; at
+    most two taps a row, summing to 1."""
+    coords = torch.clamp(coords, 0.0, size - 1.0)
+    i = torch.arange(size, dtype=torch.float32, device=coords.device)
+    return torch.clamp(1.0 - torch.abs(coords[..., None] - i), 0.0, 1.0)
+
+
+def crop_square_resize_white_bilinear(image, rects, out_size: int = 224):
+    """image (H, W, 3) float in [0, 255]; rects (..., 4) int32 [xmin, ymin,
+    xmax, ymax] -> (..., out_size, out_size, 3): each rect centred in a white
+    square, resampled bilinearly at the square's pixel centres, and 255
+    wherever a sample falls outside the rect's pixels.  Not rounded."""
+    h_img, w_img = image.shape[0], image.shape[1]
+    xmin, ymin, xmax, ymax = rects.unbind(-1)
+    w = (ymax - ymin).to(torch.float32)  # vertical extent (the reference's naming)
+    h = (xmax - xmin).to(torch.float32)  # horizontal extent
+    max_edge = torch.maximum(w, h)
+    y_begin = torch.floor((max_edge - w) / 2)
+    x_begin = torch.floor((max_edge - h) / 2)
+
+    o = torch.arange(out_size, dtype=torch.float32, device=image.device)
+    grid = (o + 0.5) * max_edge[..., None] / out_size - 0.5  # (..., out)
+    sy = grid - y_begin[..., None] + ymin.to(torch.float32)[..., None]
+    sx = grid - x_begin[..., None] + xmin.to(torch.float32)[..., None]
+    row_in = (sy >= ymin[..., None]) & (sy <= ymax.to(torch.float32)[..., None] - 1)
+    col_in = (sx >= xmin[..., None]) & (sx <= xmax.to(torch.float32)[..., None] - 1)
+    inside = row_in[..., :, None] & col_in[..., None, :]
+
+    tmp = torch.einsum("...oh,hwc->...owc", _interp_matrix(sy, h_img), image)
+    val = torch.einsum("...pw,...owc->...opc", _interp_matrix(sx, w_img), tmp)
+    return torch.where(inside[..., None], val, torch.full((), 255.0, device=image.device))
 
 
 def preprocess_crops(crops):

@@ -131,7 +131,7 @@ class BatchNorm(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()  # fp32 whatever the compute dtype before it
+        x = x.to(torch.promote_types(x.dtype, torch.float32))  # at least fp32
         if not self.training:
             mul = torch.rsqrt(self.running_var + EPS) * self.weight
             return (x - self.running_mean) * mul + self.bias
@@ -159,7 +159,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.weight.dtype == torch.float32:
+        if self.weight.dtype in (torch.float32, torch.float64):
             return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, EPS)
         # flax LayerNorm with low-precision params (normalization._normalize)
         x32 = x.float()

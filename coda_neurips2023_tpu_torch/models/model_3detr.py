@@ -15,11 +15,20 @@ draws from the `generator` given to the forward.  `sem_cls_prob` and
 `objectness_prob` carry no gradient, as in the JAX module (they only feed
 the matcher).
 
+`enc_type` "masked" (--enc_type masked) builds the radius-masked encoder
+with its interim downsampling (models/transformer.py), which keeps
+preenc_npoints // 2 of the pre-encoder's points; `enc_inds` is then composed
+through both samplings, as in the JAX package.  A cloud of more than 3
+channels hands the channels after xyz to the pre-encoder as point features
+(--use_color: the pre-encoder's MLP takes 3 + 3 inputs).
+
 `compute_dtype` (--compute_dtype) is the JAX module's: bf16 reaches the
-pre-encoder's convs, the encoder, the decoder and the heads, as in JAX
-model_3detr.py:65-176; `encoder_to_decoder_projection`, `pos_embedding` and
-`query_projection` stay fp32, and every head's output is fp32 again.  The
-parameters stay fp32.  bf16 is an eval path: a bf16 forward in training
+pre-encoder's convs, the vanilla encoder, the decoder and the heads, as in
+JAX model_3detr.py:65-176; the masked encoder with its interim SA,
+`encoder_to_decoder_projection`, `pos_embedding` and `query_projection` stay
+fp32, and every head's output is fp32 again.  The parameters stay fp32.
+`remat` (--remat) checkpoints each encoder and decoder layer in training
+(models/transformer.py).  bf16 is an eval path: a bf16 forward in training
 mode raises (the bf16 detector's training is ROADMAP Queue 1 item 10).
 """
 
@@ -34,7 +43,11 @@ from coda_neurips2023_tpu_torch.models.box_processor import BoxProcessor
 from coda_neurips2023_tpu_torch.models.helpers import GenericMLP
 from coda_neurips2023_tpu_torch.models.pointnet import PointnetSAModuleVotes
 from coda_neurips2023_tpu_torch.models.position_embedding import PositionEmbeddingCoordsSine
-from coda_neurips2023_tpu_torch.models.transformer import TransformerDecoder, TransformerEncoder
+from coda_neurips2023_tpu_torch.models.transformer import (
+    MaskedTransformerEncoder,
+    TransformerDecoder,
+    TransformerEncoder,
+)
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 from coda_neurips2023_tpu_torch.utils.device import resolve_device
 
@@ -66,11 +79,9 @@ class CoDA3DETR(nn.Module):
         use_color: bool = False,
         device=None,
         compute_dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
-        if enc_type != "vanilla":
-            raise NotImplementedError(f"enc_type {enc_type!r} is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
         self.dataset_config = dataset_config
         self.nqueries = nqueries
         self.compute_dtype = compute_dtype
@@ -79,10 +90,18 @@ class CoDA3DETR(nn.Module):
             mlp_dims=(3 * int(use_color), 64, 128, enc_dim), normalize_xyz=True,
             device=device, dtype=compute_dtype,
         )
-        self.encoder = TransformerEncoder(
-            enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, enc_dropout,
-            device=device, dtype=compute_dtype,
-        )
+        if enc_type == "vanilla":
+            self.encoder = TransformerEncoder(
+                enc_nlayers, enc_dim, enc_nhead, enc_ffn_dim, enc_activation, enc_dropout,
+                device=device, dtype=compute_dtype, remat=remat,
+            )
+        elif enc_type == "masked":  # three layers whatever enc_nlayers says, as in JAX
+            self.encoder = MaskedTransformerEncoder(
+                enc_dim, preenc_npoints // 2, enc_nhead, enc_ffn_dim, enc_activation,
+                enc_dropout, device=device, remat=remat,
+            )
+        else:
+            raise ValueError(f"enc_type {enc_type!r}: expected 'vanilla' or 'masked'")
         self.encoder_to_decoder_projection = GenericMLP(
             enc_dim, (512, 512), dec_dim, norm="bn1d", output_use_activation=True,
             output_use_norm=True, output_use_bias=False, device=device,
@@ -96,7 +115,7 @@ class CoDA3DETR(nn.Module):
         )
         self.decoder = TransformerDecoder(
             dec_nlayers, dec_dim, dec_nhead, dec_ffn_dim, dec_dropout, device=device,
-            dtype=compute_dtype,
+            dtype=compute_dtype, remat=remat,
         )
         out_dims = {
             "sem_cls_head": num_cls_predict + 1,
@@ -119,9 +138,12 @@ class CoDA3DETR(nn.Module):
 
     def run_encoder(self, point_clouds, generator=None):
         xyz = point_clouds[..., 0:3].contiguous()
-        pre_xyz, pre_feat, pre_inds = self.pre_encoder(xyz)
-        enc_xyz, enc_feat, _ = self.encoder(pre_feat, xyz=pre_xyz, generator=generator)
-        return enc_xyz, enc_feat, pre_inds
+        features = point_clouds[..., 3:] if point_clouds.shape[-1] > 3 else None
+        pre_xyz, pre_feat, pre_inds = self.pre_encoder(xyz, features)
+        enc_xyz, enc_feat, enc_inds = self.encoder(pre_feat, xyz=pre_xyz, generator=generator)
+        if enc_inds is None:
+            return enc_xyz, enc_feat, pre_inds
+        return enc_xyz, enc_feat, torch.gather(pre_inds, 1, enc_inds.long())
 
     def get_query_embeddings(self, enc_xyz, point_cloud_dims):
         query_inds = furthest_point_sample(enc_xyz, self.nqueries)
@@ -134,8 +156,9 @@ class CoDA3DETR(nn.Module):
         bp = self.box_processor
         x, g = box_features, generator
 
-        def head(name):  # fp32 whatever the compute dtype
-            return self.mlp_heads[name](x, g).float()
+        def head(name):  # at least fp32 whatever the compute dtype
+            y = self.mlp_heads[name](x, g)
+            return y.to(torch.promote_types(y.dtype, torch.float32))
 
         cls_logits = head("sem_cls_head")
         center_offset = torch.sigmoid(head("center_head")) - 0.5
@@ -234,6 +257,7 @@ def _model_kwargs_from_args(args, dataset_config, num_cls_predict, with_text_hea
         with_text_head=with_text_head,
         use_color=args.use_color,
         device=device,
+        remat=getattr(args, "remat", False),
     )
 
 

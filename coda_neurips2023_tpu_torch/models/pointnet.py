@@ -2,7 +2,8 @@
 
 Counterpart of coda_neurips2023_tpu/models/pointnet.py: FPS (kernel A) ->
 gather the centres (kernel C) -> ball query (kernel B) and group the
-re-centred, radius-normalized xyz (kernel C) -> shared MLP of 1x1 convs
+re-centred, radius-normalized xyz, and the point features where there are
+any, beside it (kernel C) -> shared MLP of 1x1 convs
 without bias, each followed by BatchNorm and ReLU -> max over the
 neighbourhood.  Parameter names are the reference's
 (`mlp_module.layer{i}.conv.weight` (O, I, 1, 1), `mlp_module.layer{i}.bn.bn.*`).
@@ -59,29 +60,33 @@ class SharedMLP(nn.Module):
 
 
 class PointnetSAModuleVotes(nn.Module):
-    """Single-scale set abstraction with max pooling, xyz input only.
+    """Single-scale set abstraction with max pooling (use_xyz).
 
-    forward(xyz (B, N, 3)) -> (new_xyz (B, npoint, 3),
-    new_features (B, npoint, mlp_dims[-1]), inds (B, npoint) int32).
+    forward(xyz (B, N, 3), features (B, N, mlp_dims[0]) or None) ->
+    (new_xyz (B, npoint, 3), new_features (B, npoint, mlp_dims[-1]),
+    inds (B, npoint) int32).  mlp_dims[0] is the feature count (0: xyz
+    only); the MLP takes mlp_dims[0] + 3 inputs, the grouped xyz first.
     """
 
     def __init__(self, npoint: int, radius: float, nsample: int, mlp_dims: Sequence[int],
                  normalize_xyz: bool = False, device=None, dtype=torch.float32):
         super().__init__()
-        if mlp_dims[0] != 0:
-            raise NotImplementedError("point features (mlp_dims[0] > 0) are not ported yet")
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
         self.normalize_xyz = normalize_xyz
-        # the grouped xyz adds 3 input channels (use_xyz)
+        self.in_features = mlp_dims[0]
         self.mlp_module = SharedMLP([mlp_dims[0] + 3, *mlp_dims[1:]], device=device, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor):
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor = None):
+        width = 0 if features is None else features.shape[-1]
+        if width != self.in_features:
+            raise ValueError(f"PointnetSAModuleVotes: {width} point features, built for "
+                             f"{self.in_features}")
         inds = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, inds)
-        grouped, _ = query_and_group(
-            self.radius, self.nsample, xyz, new_xyz, normalize_xyz=self.normalize_xyz
-        )
+        grouped, _ = query_and_group(self.radius, self.nsample, xyz, new_xyz,
+                                     None if features is None else features.contiguous(),
+                                     normalize_xyz=self.normalize_xyz)
         out = self.mlp_module(grouped)  # (B, npoint, nsample, C)
         return new_xyz, torch.amax(out, dim=2), inds

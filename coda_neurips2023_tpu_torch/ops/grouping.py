@@ -17,7 +17,8 @@ Counterparts of coda_neurips2023_tpu/ops/grouping.py:
     (`index_add_`).
   * `ball_query_group`: both in one pass, `ball_query` then `group_points` of
     the coordinates.  Kernel F (csrc/ball_query_group.cu) on CUDA.
-  * `query_and_group`: the above, re-centred and radius-normalized; it takes
+  * `query_and_group`: the above, re-centred and radius-normalized, with
+    the point features grouped at the same indices; it takes
     `ball_query_group` under the JAX package's gate (`fused_gather`),
     otherwise `ball_query` then `group_points`.
 
@@ -667,18 +668,25 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: to
     return grid_query(radius, nsample, xyz, new_xyz, grouped=True)
 
 
-def query_and_group(radius: float, nsample: int, xyz, new_xyz, normalize_xyz: bool = False):
-    """Ball query + grouped, re-centred xyz (reference QueryAndGroup, xyz only:
-    grouping point features is not ported yet).
+def query_and_group(radius: float, nsample: int, xyz, new_xyz, features=None,
+                    normalize_xyz: bool = False):
+    """Ball query + grouped, re-centred xyz, and the point features grouped
+    with the same indices (reference QueryAndGroup, use_xyz).
 
-    Returns (new_features, grouped_xyz), both (B, M, nsample, 3): without
-    point features the two are the same tensor, as in the JAX package.
+    features (B, N, C) float32 or None.  Returns (new_features (B, M,
+    nsample, 3 + C), grouped_xyz (B, M, nsample, 3)): without features the
+    two are the same tensor, as in the JAX package.  The features go through
+    kernel C (`group_points`) with the indices of whichever ball-query
+    kernel ran, F's included.
     """
     if fused_gather(nsample, xyz.shape[1]):
-        _, grouped = ball_query_group(radius, nsample, xyz, new_xyz)
+        idx, grouped = ball_query_group(radius, nsample, xyz, new_xyz)
     else:
-        grouped = group_points(xyz, ball_query(radius, nsample, xyz, new_xyz))
+        idx = ball_query(radius, nsample, xyz, new_xyz)
+        grouped = group_points(xyz, idx)
     grouped_xyz = grouped - new_xyz[:, :, None, :]
     if normalize_xyz:
         grouped_xyz = grouped_xyz / radius
-    return grouped_xyz, grouped_xyz
+    if features is None:
+        return grouped_xyz, grouped_xyz
+    return torch.cat([grouped_xyz, group_points(features, idx)], dim=-1), grouped_xyz

@@ -8,6 +8,8 @@ which are the port's own parameter names:
 
   conv{i}/kernel (I, O)              -> pre_encoder.mlp_module.layer{i}.conv.weight (O, I, 1, 1)
   bn{i}/{scale, bias} + {mean, var}  -> ...layer{i}.bn.bn.{weight, bias, running_mean, running_var}
+  encoder/interim_downsampling/...   -> encoder.interim_downsampling.mlp_module.layer{i}... (the
+                                        masked encoder's SA, as the pre-encoder's)
   MHA query/key/value (in, H, D)     -> in_proj_weight (3C, in), in_proj_bias (3C,)
   MHA out (H, D, out)                -> out_proj.weight (out, C), out_proj.bias
   GenericMLP layer{h}/out (I, O)     -> layers.{idx}.weight (O, I, 1)
@@ -25,7 +27,9 @@ there, so flax CLIP weights load into the port under OpenAI's names:
 `grads_from_flax` maps a gradient tree of the CoDA3DETR params (same
 structure as `params`) onto the port's parameter names, so gradients of the
 two packages can be compared.  `to_torch` wraps either state dict for
-`load_state_dict(strict=True)`.
+`load_state_dict(strict=True)`.  A key of the CoDA3DETR tree that the
+bridge does not map raises ValueError, naming it, so no weight is left
+behind without a word.
 """
 
 from __future__ import annotations
@@ -75,7 +79,12 @@ def _mha(p, sd, prefix):
     sd[prefix + "out_proj.bias"] = np.asarray(p["out"]["bias"])
 
 
-def _encoder_layer(p, sd, prefix):
+_ENCODER_LAYER_KEYS = {"self_attn", "linear1", "linear2", "norm1", "norm2"}
+_DECODER_LAYER_KEYS = _ENCODER_LAYER_KEYS | {"multihead_attn", "norm3"}
+
+
+def _encoder_layer(p, sd, prefix, keys=_ENCODER_LAYER_KEYS):
+    _unmapped(prefix, set(p) - keys)
     _mha(p["self_attn"], sd, prefix + ".self_attn.")
     _linear(p["linear1"], sd, prefix + ".linear1")
     _linear(p["linear2"], sd, prefix + ".linear2")
@@ -87,6 +96,9 @@ def _generic_mlp(p, s, sd, prefix, hidden_norm: bool, n_hidden: int,
                  out_norm: bool, dropout: bool):
     """Flax layer{h}/norm{h}/out/out_norm -> the reference Sequential indices:
     conv, [bn], activation, [dropout] for each hidden layer, then conv, [bn]."""
+    known = {f"layer{h}" for h in range(n_hidden)} | {"out"}
+    known |= {f"norm{h}" for h in range(n_hidden)} if hidden_norm else set()
+    _unmapped(prefix, set(p) - known - ({"out_norm"} if out_norm else set()))
     idx = 0
     for h in range(n_hidden):
         layer = p[f"layer{h}"]
@@ -105,27 +117,57 @@ def _generic_mlp(p, s, sd, prefix, hidden_norm: bool, n_hidden: int,
         _bn(p["out_norm"], s["out_norm"], sd, f"{prefix}.layers.{idx + 1}")
 
 
+def _unmapped(what: str, keys) -> None:
+    if keys:
+        raise ValueError(f"weight bridge: {what} has keys it does not map: {sorted(keys)}")
+
+
+def _layers(tree: dict):
+    """The `layer{i}` entries of a flax tree, by i."""
+    return sorted(((int(k[5:]), v) for k, v in tree.items()
+                   if k.startswith("layer") and k[5:].isdigit()), key=lambda kv: kv[0])
+
+
+def _shared_mlp(p, s, sd, prefix):
+    """A PointNet SA's `mlp_module` (conv{i} without bias, bn{i})."""
+    n = sum(1 for k in p if k.startswith("conv"))
+    _unmapped(prefix, set(p) - {f"{kind}{i}" for kind in ("conv", "bn") for i in range(n)})
+    for i in range(n):
+        sd[f"{prefix}.layer{i}.conv.weight"] = _conv(p[f"conv{i}"]["kernel"])[..., None]
+        _bn(p[f"bn{i}"], s[f"bn{i}"], sd, f"{prefix}.layer{i}.bn.bn")
+
+
 def state_dict_from_flax(params: dict, batch_stats: dict, constants: dict) -> Dict[str, np.ndarray]:
     """CoDA3DETR flax variables -> {reference name: numpy array}."""
     sd: Dict[str, np.ndarray] = {}
+    _unmapped("params", set(params) - {"pre_encoder", "encoder", "decoder",
+                                       "encoder_to_decoder_projection", "query_projection",
+                                       *HEAD_NAMES})
+    _unmapped("constants", set(constants) - {"pos_embedding"})
+    _unmapped("pre_encoder", set(params["pre_encoder"]) - {"mlp_module"})
+    _shared_mlp(params["pre_encoder"]["mlp_module"], batch_stats["pre_encoder"]["mlp_module"],
+                sd, "pre_encoder.mlp_module")
 
-    pe_p = params["pre_encoder"]["mlp_module"]
-    pe_s = batch_stats["pre_encoder"]["mlp_module"]
-    for i in range(sum(1 for k in pe_p if k.startswith("conv"))):
-        sd[f"pre_encoder.mlp_module.layer{i}.conv.weight"] = _conv(pe_p[f"conv{i}"]["kernel"])[..., None]
-        _bn(pe_p[f"bn{i}"], pe_s[f"bn{i}"], sd, f"pre_encoder.mlp_module.layer{i}.bn.bn")
-
-    for name, layer in params["encoder"].items():
-        if name.startswith("layer"):
-            _encoder_layer(layer, sd, f"encoder.layers.{name[5:]}")
+    enc = params["encoder"]
+    layers = _layers(enc)
+    _unmapped("encoder", set(enc) - {f"layer{i}" for i, _ in layers} - {"interim_downsampling"})
+    for i, layer in layers:
+        _encoder_layer(layer, sd, f"encoder.layers.{i}")
+    if "interim_downsampling" in enc:
+        interim = enc["interim_downsampling"]
+        _unmapped("encoder.interim_downsampling", set(interim) - {"mlp_module"})
+        _shared_mlp(interim["mlp_module"],
+                    batch_stats["encoder"]["interim_downsampling"]["mlp_module"], sd,
+                    "encoder.interim_downsampling.mlp_module")
 
     dec = params["decoder"]
-    for name, layer in dec.items():
-        if name.startswith("layer"):
-            prefix = f"decoder.layers.{name[5:]}"
-            _encoder_layer(layer, sd, prefix)
-            _mha(layer["multihead_attn"], sd, prefix + ".multihead_attn.")
-            _norm(layer["norm3"], sd, prefix + ".norm3")
+    layers = _layers(dec)
+    _unmapped("decoder", set(dec) - {f"layer{i}" for i, _ in layers} - {"norm"})
+    for i, layer in layers:
+        prefix = f"decoder.layers.{i}"
+        _encoder_layer(layer, sd, prefix, _DECODER_LAYER_KEYS)
+        _mha(layer["multihead_attn"], sd, prefix + ".multihead_attn.")
+        _norm(layer["norm3"], sd, prefix + ".norm3")
     _norm(dec["norm"], sd, "decoder.norm")
 
     _generic_mlp(

@@ -413,6 +413,23 @@ def test_gather_kernel(dev, c):
     assert torch.equal(group_points(feats, idx), group_points_plain(feats, idx))
 
 
+def test_gather_kernel_interim_features(dev):
+    """C = 256: the masked encoder's interim set abstraction gathers its
+    points' encoder features (32 centres of 32 neighbours over 2048 points
+    here, a scene of the path's (1024, 32) x 256 per batch row), and its
+    backward sums them back."""
+    rng = np.random.default_rng(256)
+    feats = torch.from_numpy(rng.standard_normal((2, 2048, 256)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 2048, (2, 1024, 32)).astype(np.int32)).to(dev)
+    idx[:, :, 20:] = idx[:, :, :1]  # the ball query's padding: repeated first hits
+    assert torch.equal(group_points(feats, idx), group_points_plain(feats, idx))
+    leaf, ref = feats.clone().requires_grad_(True), feats.clone().requires_grad_(True)
+    grad = torch.randn((2, 1024, 32, 256), device=dev)
+    group_points(leaf, idx).backward(grad)
+    group_points_plain(ref, idx).backward(grad)
+    assert (leaf.grad - ref.grad).abs().max().item() <= ATTN_TOL * grad.abs().max().item()
+
+
 @pytest.mark.parametrize("r,aligned", [(128, True), (130, True), (131, False)])
 def test_gather_kernel_xyz_rows(dev, r, aligned):
     """C = 3, a warp per 128 rows: R = 128 (whole warps, 16-byte index
@@ -497,6 +514,25 @@ def test_attention_kernel(dev, d, sq, skv, radius):
     kxyz_t = kxyz.transpose(1, 2).contiguous()
     args = (q, k, v, qxyz, kxyz_t, radius)
     err = (masked_attention(*args) - masked_attention_plain(*args)).abs().max().item()
+    assert err <= ATTN_TOL
+
+
+@pytest.mark.parametrize("s,radius", [(2048, 0.16), (1024, 0.64), (1024, 1.44)])
+def test_attention_kernel_masked_encoder_radii(dev, s, radius):
+    """Kernel D's radius mode at the masked encoder's squared radii (0.4^2,
+    0.8^2, 1.2^2) on points spread like a scene's (a 6 m room), at the
+    layers' token counts, in eval and with D's attention-weight dropout."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((2, 4, s, 64), device=dev, generator=g) / 8.0
+    k = torch.randn((2, 4, 64, s), device=dev, generator=g)
+    v = torch.randn((2, 4, s, 64), device=dev, generator=g)
+    xyz = torch.rand((2, s, 3), device=dev, generator=g) * torch.tensor([6.0, 6.0, 3.0], device=dev)
+    args = (q, k, v, xyz, xyz.transpose(1, 2).contiguous(), radius)
+    err = (masked_attention(*args) - masked_attention_plain(*args)).abs().max().item()
+    assert err <= ATTN_TOL
+    seed = torch.tensor(11, dtype=torch.int64, device=dev)
+    err = (masked_attention(*args, dropout=0.1, seed=seed)
+           - masked_attention_plain(*args, dropout=0.1, seed=seed)).abs().max().item()
     assert err <= ATTN_TOL
 
 

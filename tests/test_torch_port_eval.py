@@ -545,7 +545,7 @@ def _args(extra=()):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--enc_type", "masked"], "Queue 1 item 9"),
+    (["--compute_dtype", "bf16"], "Queue 1 item 10"),
     (["--test_only", "--minitest_only"], "minitest"),
 ], ids=["training", "minitest"])
 def test_main_raises_on_what_is_not_ported(extra, match):

@@ -14,7 +14,8 @@ and for each state-dict key:
     of the JAX init's own (5 standard errors, each estimated from the
     sample's fourth moment).
 
-Both the SUN RGB-D config (12 angle bins) and ScanNet's (1 bin) are held.
+The SUN RGB-D config (12 angle bins), ScanNet's (1 bin) and the radius-masked
+encoder's (its interim set abstraction's convs and BatchNorms) are held.
 The CLIP tower keeps its own init (OpenAI's real weights replace it).
 """
 
@@ -44,8 +45,10 @@ from test_torch_port_clip import TINY_CLIP
 from test_torch_port_model import TINY
 
 CONFIGS = {
-    "sunrgbd": (JaxSunrgbdConfig, SunrgbdAnonymousConfig),
-    "scannet": (JaxScannetConfig, ScannetAnonymousConfig),
+    "sunrgbd": (JaxSunrgbdConfig, SunrgbdAnonymousConfig, {}),
+    "scannet": (JaxScannetConfig, ScannetAnonymousConfig, {}),
+    # the radius-masked encoder: its interim SA's convs and BatchNorms too
+    "masked": (JaxSunrgbdConfig, SunrgbdAnonymousConfig, {"enc_type": "masked"}),
 }
 XAVIER = ("out_proj.weight", "linear1.weight", "linear2.weight")
 SIGMAS = 5.0
@@ -53,21 +56,21 @@ SIGMAS = 5.0
 
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def inits(request):
-    """(config name, JAX state dict, port state dict, port config class)."""
-    jcfg, tcfg = CONFIGS[request.param]
+    """(config name, JAX state dict, port state dict, a function that builds the port model)."""
+    jcfg, tcfg, extra = CONFIGS[request.param]
     ds = JaxScenes(JaxSunrgbdConfig(), num_scenes=2, num_points=512)
     samples = [ds[i] for i in range(2)]
     keys = ("point_clouds", "point_cloud_dims_min", "point_cloud_dims_max")
     batch = {k: np.stack([s[k] for s in samples]) for k in keys}
-    jm = jmodel.CoDA3DETR(dataset_config=jcfg(), **TINY)
+    jm = jmodel.CoDA3DETR(dataset_config=jcfg(), **TINY, **extra)
     variables = jax.jit(lambda r, b: jm.init(r, b, train=False))(jax.random.PRNGKey(3), batch)
     variables = jax.tree.map(np.asarray, variables)
     want = state_dict_from_flax(variables["params"], variables["batch_stats"],
                                 variables["constants"])
-    model = CoDA3DETR(tcfg(), **TINY)
+    model = CoDA3DETR(tcfg(), **TINY, **extra)
     reset_parameters(model, torch.Generator().manual_seed(3))
     got = {k: v.numpy().copy() for k, v in model.state_dict().items()}
-    return request.param, want, got, tcfg
+    return request.param, want, got, lambda: CoDA3DETR(tcfg(), **TINY, **extra)
 
 
 def _initializer(key, shape):
@@ -94,14 +97,16 @@ def _std_and_error(x):
 
 
 def test_port_init_has_the_jax_keys_and_shapes(inits):
-    name, want, got, tcfg = inits
+    name, want, got, build = inits
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].shape == np.shape(want[k]), k
     if name == "scannet":  # the angle heads are 1 wide and the bridge carries them
         assert got["mlp_heads.angle_cls_head.layers.8.weight"].shape[0] == 1
         assert got["mlp_heads.angle_residual_head.layers.8.weight"].shape[0] == 1
-    result = CoDA3DETR(tcfg(), **TINY).load_state_dict(to_torch(want), strict=True)
+    if name == "masked":
+        assert sum(k.startswith("encoder.interim_downsampling.") for k in want) == 3 * 6
+    result = build().load_state_dict(to_torch(want), strict=True)
     assert not result.missing_keys and not result.unexpected_keys
 
 

@@ -76,7 +76,8 @@ def _build(config_kw, batch, seed=0):
         jax.random.PRNGKey(seed), batch
     )
     variables = _perturb(variables, seed)
-    sd = state_dict_from_flax(variables["params"], variables["batch_stats"], variables["constants"])
+    sd = state_dict_from_flax(variables["params"], variables["batch_stats"],
+                              variables.get("constants", {}))
     tm = CoDA3DETR(SunrgbdAnonymousConfig(), **config_kw)
     result = tm.load_state_dict(to_torch(sd), strict=True)
     assert not result.missing_keys and not result.unexpected_keys

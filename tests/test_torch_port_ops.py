@@ -373,7 +373,8 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "new = {'models.clip', 'models.tokenizer', 'models.text_bank', 'models.distillation',\n"
         "       'ops.vit_attention', 'ops.projection', 'stages', 'criterion', 'optimizer',\n"
-        "       'ops.giou', 'ops.hungarian', 'utils.device', 'parallel.dist', 'parallel.ddp'}\n"
+        "       'ops.giou', 'ops.hungarian', 'utils.device', 'parallel.dist', 'parallel.ddp',\n"
+        "       'ops.interpolate', 'vis_color_pc'}\n"
         "assert {pkg.__name__ + '.' + n for n in new} <= set(names), names\n"
         "assert len(names) >= 30, names\n"
         "print(len(names))\n"
