@@ -241,6 +241,36 @@ result):
      masked_stage1_launches; attention carries masked_enc0/1/2_* and
      masked_dec_* (ms, plain, bound, library), ball_query interim_*, gather
      interim_c256_*.
+ 20. The bf16 detector's training (--compute_dtype bf16).  (a) ptxas's
+     log holds no note that it serialized D-bf16's wgmma (C7510-C7515);
+     D-bf16 with attention-weight dropout 0.1 against its plain bf16
+     version with the same seed, at the bf16 training step's encoder
+     (8 x 4 x 2048 x 64) and split decoder cross-attention (Sq 128, Skv
+     2048, D 128) and at 1001 keys (padded to 1008; unsplit at D 64, split
+     at D 128): values within phase 18 (a)'s bound, and each pair's drop,
+     read through a one-hot V, where the hash drops it, in the kernel and
+     the plain version alike; the kernel's time with dropout, without it
+     (in turns), its bound and SDPA bf16 with dropout_p.  (b) The bf16 backward (dq, dk, dv through
+     MaskedAttention's plain bf16 recompute) against the fp32 backward on
+     the card within BF16_BACKWARD_TOL, timed beside it and SDPA's bf16
+     backward.  (c) The bf16 stage-1 step (CODA_BQ_ALGO=adaptive, the bf16
+     tower) and the bf16 baseline step (CODA_BQ_FUSED_GATHER=1) at full
+     width, B = 8 x 20000: TRAIN_STEPS timed steps each, D-bf16's exact
+     launches a step and no kernel D, E-bf16 once a tower layer, step ms
+     and peak memory beside phases 8 and 10's fp32 steps and phase 18
+     (c)'s. (d) One bf16 step on 2 scenes GPU vs CPU: the loss within
+     BF16_STEP_RTOL of its size, the largest gradient element within
+     BF16_GRAD_RTOL of the gradient's norm and the difference's norm within
+     BF16_GRAD_NORM_RTOL of it, the assignments the GPU's where the costs
+     tie.  (e) main
+     with scripts/coda_sunrgbd_stage1.sh's flags and --compute_dtype bf16
+     for one epoch (scenes/s, the idle share), then main --compute_dtype
+     bf16 --test_only --show_only from its checkpoint.  The kernels line
+     gives D-bf16 train_launches (a stage-1 step), baseline_train_launches
+     and train_cli_launches, train_dropout_* and train_dropout_decoder_*
+     (ms, plain, bound, library, nodrop) and backward_* (its ms, the fp32
+     backward's, bound, SDPA's, the largest relative error); E-bf16
+     train_launches and train_cli_launches.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -1075,6 +1105,7 @@ def train_phase(torch, cfg, batches):
             fail(f"kernel {name} was not launched on the training path")
     check_grid_launches(launches, "ball_query_group", TRAIN_STEPS, "training")
     med = statistics.median(times)
+    STEP_TIMES["phase 8"] = dict(median=med, peak_gb=peak_gb)
     print(f"  train step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
     print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}")
     print(f"  matcher host ms a step: median {statistics.median(matcher_ms)!r} "
@@ -1209,6 +1240,8 @@ def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_q
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{steps * CLIP_LAYERS} (one tower call of every step's crops)")
     med = statistics.median(times)
+    if title is None:
+        STEP_TIMES["phase 10"] = dict(median=med, peak_gb=peak_gb)
     print(f"  stage-1 step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
     print(f"  scenes/s (median step): {TRAIN_BATCH / med * 1e3!r}; crops/s: "
           f"{TRAIN_BATCH * N_SEL / med * 1e3!r}")
@@ -2803,19 +2836,22 @@ def bf16_attention_check(torch, got, want, p_abs_v, label):
 
 def kernel_instance(mangled):
     """`kernel<args>` for a mangled kernel name (its last length-prefixed
-    identifier that ends in "kernel", then its integer and float/bf16
-    template arguments), else the mangled name."""
+    identifier that ends in "kernel", then its integer, float/bf16 and bool
+    template arguments, the bool as "drop" or "nodrop"), else the mangled
+    name."""
     import re
 
     for m in reversed(list(re.finditer(r"(?=(\d+))", mangled))):
         end = m.start() + len(m.group(1))
         ident = mangled[end:end + int(m.group(1))]
         if ident.endswith("kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
-            t = re.match(r"I((?:Li\d+E)+)(f|13__nv_bfloat16)?E", mangled[end + len(ident):])
+            t = re.match(r"I((?:Li\d+E)+)(f|13__nv_bfloat16)?(Lb[01]E)?E",
+                         mangled[end + len(ident):])
             if t is None:
                 return ident
             args = re.findall(r"Li(\d+)E", t.group(1))
             args += {"f": ["f32"], "13__nv_bfloat16": ["bf16"]}.get(t.group(2), [])
+            args += {"Lb0E": ["nodrop"], "Lb1E": ["drop"]}.get(t.group(3), [])
             return f"{ident}<{','.join(args)}>"
     return mangled
 
@@ -3032,15 +3068,16 @@ def bf16_forward_plain(torch):
 
     kernel = transformer.masked_attention
 
-    def plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype):
+    def plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype, dropout=0.0, seed=None):
         b, h, sq, d = q.shape
         skv = v.shape[2]
         splits, chunk = ma.attention_splits(b, h, sq, skv, d, multi_processor_count(q.device),
                                             bf16=True)
         if splits > 1:
             return ma.masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius, chunk,
-                                                   compute_dtype)
-        return ma.masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype)
+                                                   compute_dtype, dropout, seed)
+        return ma.masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, compute_dtype,
+                                         dropout, seed)
 
     @contextlib.contextmanager
     def ctx():
@@ -3228,6 +3265,7 @@ def bf16_clip_phase(torch, cfg, batch):
     metrics = step1(train, gen)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
+    STEP_TIMES["phase 18 (c)"] = dict(median=ms, peak_gb=None)
     launches1 = dict(_kernels.LAUNCHES)
     loss, l1 = float(metrics["loss"]), float(metrics["loss_predicted_region_embed_l1"])
     print(f"  stage-1 step: loss {loss!r}, loss_predicted_region_embed_l1 {l1!r}, {ms!r} ms, "
@@ -3725,6 +3763,453 @@ def masked_phase(torch, cfg, text, results):
     return launches, cli_launches, train_launches
 
 
+# phase 20: the bf16 detector's training (--compute_dtype bf16): kernel
+# D-bf16 with its attention-weight dropout, its backward, the bf16 steps
+BF16_DROPOUT = 0.1  # --enc_dropout / --dec_dropout as the scripts ship them
+# (b): the bf16 backward against the fp32 backward on the card, each
+# gradient's largest error over the fp32 gradient's largest magnitude: p and
+# its cotangent rounded to bf16 in the recompute (2^-9 relative), each
+# gradient a sum over 2048 keys or queries rounded to bf16 once, and the two
+# dropout multipliers 1.109375 and 1 / 0.9 (0.16% apart); the plain versions
+# on the CPU measure 3.6e-3 to 4.0e-3 at this shape (one scene)
+BF16_BACKWARD_TOL = 1.5e-2
+# (d): one bf16 step GPU vs CPU.  cuBLAS and the CPU sum each bf16 product in
+# their own orders, so a product lands a bf16 ulp apart now and then and
+# moves what follows (tests/test_torch_port_bf16_train.py measures the
+# port's bf16 step against the JAX package's: the loss 7.5e-4 of its size,
+# the gradients' largest element 2.1e-2 of their norm, the difference's
+# norm 0.29 of theirs, and the port's bf16 step against its fp32 step 0.32:
+# BatchNorm's training backward cancels most of each term, so bf16's
+# rounding of the terms is a large share of what is left).  The loss within
+# BF16_STEP_RTOL of its size, the largest gradient element within
+# BF16_GRAD_RTOL of the norm, the difference's norm within BF16_GRAD_NORM_RTOL
+# (the CPU test's bound); where the two matchers' costs tie within
+# BF16_TIE_COST (a scene's cost sums up to 64 matched pairs of terms
+# weighted up to 5, each carrying bf16's 2^-9) the CPU takes the GPU's
+# assignments, and the rows concerned are printed
+BF16_STEP_RTOL = 5e-3
+BF16_GRAD_RTOL = 5e-2
+BF16_GRAD_NORM_RTOL = 0.4
+BF16_TIE_COST = 0.5
+# step ms and peak GB of the fp32 steps (phases 8 and 10) and of phase 18
+# (c)'s bf16-tower step, for phase 20 (c)
+STEP_TIMES = {}
+
+
+def bf16_backward_bound(b, h, sq, skv, d):
+    """The backward's products (the recomputed QK^T, then dV, dP, dQ, dK:
+    10D flops a query-key pair) at the dense bf16 rate and its elementwise
+    softmax work (5 a pair) at the fp32 peak; q, k, v and dO read and dq,
+    dk, dv written once in bf16."""
+    pairs = b * h * sq * skv
+    ops_ms = (pairs * 10 * d / BF16_PEAK + pairs * 5 / FP32_PEAK) * 1e3
+    bytes_ms = 2 * b * h * (4 * sq * d + 3 * skv * d) / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def wgmma_serialized(log_lines):
+    """ptxas's notes that it serialized kernel D-bf16's wgmma (C7510-C7515)."""
+    return [line.strip() for line in log_lines
+            if "C751" in line and ("coda_d_bf16" in line or "attention_bf16" in line)]
+
+
+def bf16_dropout_kernel_phase(torch, results):
+    """Phase 20 (a): D-bf16 with dropout against its plain bf16 version, the
+    same seed, at the bf16 training step's shapes and at key counts that are
+    not a multiple of 8 (padded, split and not): values within phase 18
+    (a)'s bound, and each pair's drop, read through a one-hot V (D keys a
+    call: the output is each pair's dropped weight, or in a split that times
+    its chunk's share), at the same places as the hash's; times beside SDPA
+    with dropout_p."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.ops import masked_attention as ma
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    serialized = wgmma_serialized((_kernels.BUILD_DIR / "build.log").read_text().splitlines())
+    for line in serialized:
+        print(f"  ptxas: {line}")
+    if serialized:
+        fail(f"ptxas serialized kernel D-bf16's wgmma ({len(serialized)} notes C7510-C7515)")
+    print("  ptxas: no wgmma serialization note (C7510-C7515) for kernel D-bf16")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 200)
+    bf16, b, h = torch.bfloat16, TRAIN_BATCH, 4
+    seed = torch.randint(0, 2 ** 62, (), dtype=torch.int64, device=DEVICE, generator=gen)
+    mult = ma.bf16_dropout_multiplier(BF16_DROPOUT)
+    sms = multi_processor_count(torch.device(DEVICE))
+    entry = results["attention_bf16"]
+    cases = [
+        (f"encoder B={b} S=2048 H=4 D=64", 2048, 2048, 64, "train_dropout"),
+        (f"decoder B={b} Sq=128 Skv=2048 H=4 D=128", 128, 2048, 128, "train_dropout_decoder"),
+        (f"B={b} Sq=300 Skv=1001 H=4 D=64", 300, 1001, 64, None),
+        (f"B={b} Sq=128 Skv=1001 H=4 D=128", 128, 1001, 128, None),
+    ]
+    for label, sq, skv, d, key in cases:
+        q = (torch.randn((b, h, sq, d), device=DEVICE, generator=gen) / d ** 0.5).to(bf16)
+        k = torch.randn((b, h, d, skv), device=DEVICE, generator=gen).to(bf16)
+        v = torch.randn((b, h, skv, d), device=DEVICE, generator=gen).to(bf16)
+        splits, chunk = ma.attention_splits(b, h, sq, skv, d, sms, bf16=True)
+
+        def kern(vv):
+            return ma.masked_attention(q, k, vv, None, None, 0.0, "bfloat16", BF16_DROPOUT, seed)
+
+        def plain(vv):
+            if splits > 1:
+                return ma.masked_attention_split_plain(q, k, vv, None, None, 0.0, chunk,
+                                                       "bfloat16", BF16_DROPOUT, seed)
+            return ma.masked_attention_plain(q, k, vv, None, None, 0.0, "bfloat16",
+                                             BF16_DROPOUT, seed)
+
+        p = torch.softmax(ma._bf16_scores(q, k, None, None, 0.0), dim=-1)
+        err = bf16_attention_check(torch, kern(v), plain(v), torch.matmul(p * mult, v.float().abs()),
+                                   f"attention_bf16 dropout {label}")
+        del p
+        keep = ma.attention_keep_mask(seed, sq, skv, BF16_DROPOUT)
+        wrong = 0
+        for j0 in range(0, skv, d):
+            n = min(d, skv - j0)
+            probe = torch.zeros((b, h, skv, d), dtype=bf16, device=DEVICE)
+            idx = torch.arange(n, device=DEVICE)
+            probe[:, :, j0 + idx, idx] = 1.0
+            dropped = ~keep[:, j0:j0 + n]
+            for out in (kern(probe), plain(probe)):
+                wrong += int(((out[..., :n] == 0) != dropped).sum())
+        print(f"  {'attention_bf16':16s} {label + f' splits={splits} ldk={-(-skv // 8) * 8}':44s} "
+              f"dropout {BF16_DROPOUT}: {int((~keep).sum())} of {keep.numel()} pairs dropped; "
+              f"pairs whose zero differs from the hash's (kernel or plain, every row and head): "
+              f"{wrong}")
+        if wrong:
+            fail(f"attention_bf16 dropout {label}: {wrong} pairs dropped otherwise than the hash")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if key:
+            kt = k.transpose(2, 3).contiguous()
+            ms, nodrop_ms, library_ms = time_in_turns(
+                torch, lambda: kern(v),
+                lambda: ma.masked_attention(q, k, v, None, None, 0.0, "bfloat16"),
+                lambda: sdpa(q, kt, v, dropout_p=BF16_DROPOUT, scale=1.0))
+            plain_ms = time_ms(torch, lambda: plain(v), reps=3)
+            bnd = bf16_bound(b, h, sq, skv, d)
+            entry.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": bnd[0],
+                          f"{key}_library_ms": library_ms, f"{key}_nodrop_ms": nodrop_ms})
+            print(f"  {'':16s} {'':44s} max_abs_err={err!r} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+                  f"bound_ms={bnd[0]!r} ({bnd[1]}) library_ms={library_ms!r} (SDPA bf16, "
+                  f"dropout_p {BF16_DROPOUT}); the kernel without dropout {nodrop_ms!r}")
+        del q, k, v
+
+
+def bf16_backward_phase(torch, results):
+    """Phase 20 (b): D-bf16's backward (the plain bf16 recompute under
+    autograd) against the fp32 backward (kernel D's) on the card, dropout on,
+    the same seed, at the training step's encoder shape; its time beside the
+    fp32 backward's and SDPA's bf16 backward with dropout_p."""
+    from coda_neurips2023_tpu_torch.ops import masked_attention as ma
+
+    b, h, s, d = TRAIN_BATCH, 4, 2048, 64
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 201)
+    bf16 = torch.bfloat16
+    seed = torch.randint(0, 2 ** 62, (), dtype=torch.int64, device=DEVICE, generator=gen)
+    q = (torch.randn((b, h, s, d), device=DEVICE, generator=gen) / d ** 0.5).to(bf16)
+    k = torch.randn((b, h, d, s), device=DEVICE, generator=gen).to(bf16)
+    v = torch.randn((b, h, s, d), device=DEVICE, generator=gen).to(bf16)
+    g = torch.randn((b, h, s, d), device=DEVICE, generator=gen).to(bf16)
+    graphs = {}
+    for dtype, cdt in ((bf16, "bfloat16"), (torch.float32, "float32")):
+        leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        out = ma.masked_attention(*leaves, None, None, 0.0, cdt, BF16_DROPOUT, seed)
+        graphs[cdt] = (out, leaves, torch.autograd.grad(out, leaves, g.to(dtype),
+                                                        retain_graph=True))
+    errs = []
+    for name, got, want in zip("qkv", graphs["bfloat16"][2], graphs["float32"][2]):
+        if got.dtype != bf16:
+            fail(f"the bf16 backward's d{name} is {got.dtype}")
+        errs.append((got.float() - want).abs().max().item() / want.abs().max().item())
+    print(f"  bf16 backward vs fp32 (dropout {BF16_DROPOUT}, same mask): dq, dk, dv largest error "
+          f"over the fp32 gradient's largest magnitude {errs!r} (tolerance {BF16_BACKWARD_TOL})")
+    if not max(errs) <= BF16_BACKWARD_TOL:
+        fail(f"the bf16 backward differs from the fp32 backward by {max(errs)!r}")
+
+    def backward(cdt):
+        out, leaves, _ = graphs[cdt]
+        gg = g.to(out.dtype)
+        return lambda: torch.autograd.grad(out, leaves, gg, retain_graph=True)
+
+    sq, sk, sv = (t.detach().requires_grad_() for t in (q, k.transpose(2, 3).contiguous(), v))
+    sout = torch.nn.functional.scaled_dot_product_attention(sq, sk, sv, dropout_p=BF16_DROPOUT,
+                                                            scale=1.0)
+    ms, library_ms = time_in_turns(
+        torch, backward("bfloat16"),
+        lambda: torch.autograd.grad(sout, (sq, sk, sv), g, retain_graph=True))
+    fp32_ms = time_ms(torch, backward("float32"), reps=3)
+    bnd = bf16_backward_bound(b, h, s, s, d)
+    results["attention_bf16"].update(
+        backward_ms=ms, backward_fp32_ms=fp32_ms, backward_bound_ms=bnd[0],
+        backward_library_ms=library_ms, backward_max_rel_err=max(errs))
+    print(f"  {'attention_bf16':16s} {'backward, encoder B=8 S=2048 H=4 D=64':44s} "
+          f"backward_ms={ms!r} (the plain bf16 recompute) fp32_backward_ms={fp32_ms!r} "
+          f"bound_ms={bnd[0]!r} ({bnd[1]}) library_ms={library_ms!r} (SDPA bf16 backward, "
+          f"dropout_p {BF16_DROPOUT})")
+    del graphs, sout
+
+
+def expected_bf16_launches(model, b, sms):
+    """Kernel D-bf16's launches in one forward of the vanilla bf16 detector
+    at batch b: a launch an encoder layer and a decoder layer's
+    cross-attention, and a combine where `attention_splits` splits."""
+    from coda_neurips2023_tpu_torch.ops.masked_attention import attention_splits
+
+    h, npts, nq = model.encoder.layers[0].self_attn.nhead, model.pre_encoder.npoint, model.nqueries
+    enc_d = model.encoder.layers[0].linear1.weight.shape[1] // h
+    dec_d = model.decoder.layers[0].linear1.weight.shape[1] // h
+    enc = 1 + (attention_splits(b, h, npts, npts, enc_d, sms, bf16=True)[0] > 1)
+    dec = 1 + (attention_splits(b, h, nq, npts, dec_d, sms, bf16=True)[0] > 1)
+    return len(model.encoder.layers) * enc + len(model.decoder.layers) * dec
+
+
+def bf16_train_steps_phase(torch, cfg, batches):
+    """Phase 20 (c): the bf16 stage-1 step (CODA_BQ_ALGO=adaptive, as phase
+    10) and the bf16 baseline step (CODA_BQ_FUSED_GATHER=1, as phase 8) at
+    full width: one warm-up and TRAIN_STEPS timed steps each, D-bf16's
+    exact launches a step, no kernel D, E-bf16 once a tower layer in stage
+    1; step ms and peak memory beside the fp32 steps' and the bf16-tower
+    step's of the same run."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.engine import make_train_step
+    from coda_neurips2023_tpu_torch.stages import StageContext
+    from coda_neurips2023_tpu_torch.utils.device import multi_processor_count
+
+    sms = multi_processor_count(torch.device(DEVICE))
+    out = {}
+    for what, flags, env, bq in (
+            ("stage 1", dict(STAGE1_ARGS, compute_dtype="bf16"), {"CODA_BQ_ALGO": "adaptive"},
+             "ball_query_tile"),
+            ("baseline", dict(compute_dtype="bf16"), {"CODA_BQ_FUSED_GATHER": "1"},
+             "ball_query_group")):
+        with bq_env(**env):
+            model, criterion, optimizer, schedule = train_objects(torch, cfg, True, DEVICE,
+                                                                  SEED + 20, flags)
+            if model.compute_dtype != torch.bfloat16:
+                fail(f"{what}: the model is {model.compute_dtype}")
+            if what == "stage 1":
+                ctx = StageContext(types.SimpleNamespace(**flags), cfg, device=DEVICE,
+                                   generator=torch.Generator(device=DEVICE).manual_seed(SEED + 7))
+                if ctx.clip_model.dtype != torch.bfloat16:
+                    fail(f"--compute_dtype bf16: the tower is {ctx.clip_model.dtype}")
+                step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+            else:
+                step = make_train_step(model, criterion, optimizer, lr_schedule=schedule)
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+            step(batches[0], gen)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses, per_step = [], [], []
+            for batch in batches[1:]:
+                _kernels.reset_launches()
+                t0 = time.perf_counter()
+                metrics = step(batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["loss"]))
+                per_step.append(dict(_kernels.LAUNCHES))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expected = expected_bf16_launches(model, TRAIN_BATCH, sms)
+        print(f"  {what} bf16 step: losses {losses!r}")
+        print(f"    launches a step: {per_step[0]}")
+        if not all(map(math.isfinite, losses)):
+            fail(f"{what} bf16 training loss not finite: {losses}")
+        if not all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in model.parameters()):
+            fail(f"{what}: parameters not fp32 and finite after the bf16 steps")
+        for launches in per_step:
+            if launches["attention_bf16"] != expected or launches["attention"]:
+                fail(f"{what}: D-bf16 launched {launches['attention_bf16']} times a step "
+                     f"(expected {expected}), kernel D {launches['attention']}")
+            for name in ("fps", bq, "gather"):
+                if launches[name] <= 0:
+                    fail(f"kernel {name} was not launched on the bf16 {what} step")
+            if what == "stage 1" and (launches["vit_attention_bf16"] != CLIP_LAYERS
+                                      or launches["vit_attention"]):
+                fail(f"stage 1: vit_attention_bf16 launched {launches['vit_attention_bf16']} "
+                     f"times a step, expected {CLIP_LAYERS}")
+        med = statistics.median(times)
+        fp32 = STEP_TIMES.get("phase 10" if what == "stage 1" else "phase 8", {})
+        tower = STEP_TIMES.get("phase 18 (c)", {}) if what == "stage 1" else {}
+        print(f"    bf16 {what} step ms: median {med!r} min {min(times)!r} max {max(times)!r}; "
+              f"scenes/s {TRAIN_BATCH / med * 1e3!r}; peak memory {peak_gb!r} GB; D-bf16 "
+              f"{expected} launches a step")
+        print(f"    beside it in this run: fp32 step median {fp32.get('median')!r} ms, peak "
+              f"{fp32.get('peak_gb')!r} GB" + (
+                  f"; the bf16-tower fp32 detector's step (phase 18 (c)) {tower.get('median')!r} ms"
+                  if tower else ""))
+        out[what] = dict(launches=per_step[0], median=med)
+    return out
+
+
+class TieMatcher:
+    """The matcher, returning `want`'s assignments (L, B, nq) where its own
+    differ and their cost under this matcher's costs exceeds its own by at
+    most BF16_TIE_COST on each such (layer, scene); `rows` and `excess` keep
+    how many rows that concerned and the largest excess."""
+
+    def __init__(self, matcher, want):
+        self.matcher, self.want, self.rows, self.excess = matcher, want, 0, 0.0
+        self.last_host_ms = 0.0
+
+    def __call__(self, outputs, targets):
+        import torch
+
+        own = self.matcher(outputs, targets)
+        m = self.matcher
+        want = {k: v.to(own[k].device) for k, v in self.want.items()}
+        index = targets["gt_box_sem_cls_label"].long()[None, :, None, :].expand(
+            *outputs["sem_cls_prob"].shape[:3], -1)
+        cost = (m.cost_class * -torch.gather(outputs["sem_cls_prob"], -1, index)
+                + m.cost_objectness * -outputs["objectness_prob"][..., None]
+                + m.cost_center * outputs["center_dist"] + m.cost_giou * -outputs["gious"]).detach()
+
+        def total(a):
+            sel = torch.gather(cost, -1, a["per_prop_gt_inds"][..., None])[..., 0]
+            return (sel * a["proposal_matched_mask"]).sum(-1)
+
+        differ = ((own["per_prop_gt_inds"] != want["per_prop_gt_inds"])
+                  | (own["proposal_matched_mask"] != want["proposal_matched_mask"])).any(-1)
+        self.rows = int(differ.sum())
+        self.excess = float((total(want) - total(own))[differ].max()) if self.rows else 0.0
+        if self.excess > BF16_TIE_COST:
+            fail(f"the matcher's own assignment is cheaper than the other device's by "
+                 f"{self.excess!r} > {BF16_TIE_COST}: not a tie")
+        return want
+
+
+def bf16_cpu_phase(torch, cfg, batch):
+    """Phase 20 (d): one bf16 baseline step, dropout 0, on 2 scenes from the
+    same weights, GPU vs CPU (plain PyTorch)."""
+    from coda_neurips2023_tpu_torch.engine import make_train_step
+
+    small = {k: v[:2] for k, v in batch.items()}
+    runs = {}
+    for name, device in (("gpu", DEVICE), ("cpu", "cpu")):
+        model, criterion, optimizer, schedule = train_objects(
+            torch, cfg, False, device, SEED + 22, {"compute_dtype": "bf16"})
+        if name == "cpu":
+            criterion.matcher = tie = TieMatcher(criterion.matcher, runs["gpu"][2])
+        step = make_train_step(model, criterion, optimizer, lr_schedule=schedule)
+        t0 = time.perf_counter()
+        metrics = step({k: v.to(device) for k, v in small.items()})
+        grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+                 for n, p in model.named_parameters()}
+        asg = {k: v.cpu() for k, v in criterion.last_assignments.items()}
+        runs[name] = (float(metrics["loss"]), grads, asg)
+        print(f"  {name}: loss {runs[name][0]!r} in {time.perf_counter() - t0:.2f} s")
+    (gl, gg, _), (cl, cg, _) = runs["gpu"], runs["cpu"]
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in cg.values())).item()
+    diff = torch.sqrt(sum(((gg[n] - cg[n]).double() ** 2).sum() for n in cg)).item() / norm
+    worst = max(((gg[n] - cg[n]).abs().max().item() / norm, n) for n in cg)
+    rel = abs(gl - cl) / abs(cl)
+    print(f"  the CPU took the GPU's assignments on {tie.rows} (layer, scene) rows (cost excess "
+          f"{tie.excess!r}); loss relative difference {rel!r}; gradients' difference "
+          f"{diff!r} of their norm ({norm!r}), largest element {worst[0]!r} of it ({worst[1]})")
+    if not rel <= BF16_STEP_RTOL:
+        fail(f"bf16 step GPU vs CPU: loss differs by {rel!r} of its size > {BF16_STEP_RTOL}")
+    if not (diff <= BF16_GRAD_NORM_RTOL and worst[0] <= BF16_GRAD_RTOL):
+        fail(f"bf16 step GPU vs CPU: the gradients' difference {diff!r} of their norm (> "
+             f"{BF16_GRAD_NORM_RTOL}?), {worst[0]!r} in {worst[1]} (> {BF16_GRAD_RTOL}?)")
+
+
+def bf16_train_cli_phase(torch, root, smi):
+    """Phase 20 (e): `main` with scripts/coda_sunrgbd_stage1.sh's flags and
+    --compute_dtype bf16 for one epoch (phase 14's data and cuts), then one
+    `main --compute_dtype bf16 --test_only --show_only` from its checkpoint."""
+    import shutil
+
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.main import main as cli_main
+
+    out_dir = _kernels.BUILD_DIR.parent / "phase20"
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    argv = script_argv(root, "coda_sunrgbd_stage1.sh", STAGE1_CUTS) + [
+        "--synthetic_num_scenes", str(TRAIN_CLI_SCENES), "--checkpoint_dir", str(out_dir),
+        "--compute_dtype", "bf16"]
+    print(f"  main {' '.join(argv)}")
+    probe = TrainCliProbe(torch)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    with probe.installed():
+        model = cli_main(argv)
+    print(f"  stage 1 in bf16: main() {time.perf_counter() - t0!r} s")
+    probe.report("stage 1 in bf16", smi)
+    if model.compute_dtype != torch.bfloat16:
+        fail(f"main --compute_dtype bf16 trained a {model.compute_dtype} detector")
+    launches = dict(_kernels.LAUNCHES)
+    for s in probe.steps:
+        if s["launches"]["attention_bf16"] <= 0 or s["launches"]["attention"]:
+            fail(f"a bf16 CLI step launched D-bf16 {s['launches']['attention_bf16']} times, "
+                 f"kernel D {s['launches']['attention']}")
+    if not (out_dir / "last_checkpoint.pth").is_file():
+        fail("the bf16 stage-1 run wrote no last_checkpoint.pth")
+    show_dir = out_dir / "show_only"
+    t0 = time.perf_counter()
+    written = cli_main(script_argv(root, "coda_sunrgbd_stage1.sh", STAGE1_CUTS) + [
+        "--synthetic_num_scenes", str(TRAIN_CLI_SCENES), "--checkpoint_dir", str(show_dir),
+        "--compute_dtype", "bf16", "--test_only", "--show_only",
+        "--test_ckpt", str(out_dir / "checkpoint.pth")])
+    files = os.listdir(show_dir / "show") if (show_dir / "show").is_dir() else []
+    print(f"  main --compute_dtype bf16 --test_only --show_only: {written} scenes, {len(files)} "
+          f"files in {time.perf_counter() - t0!r} s")
+    if not written or not files:
+        fail("the bf16 --show_only run wrote nothing")
+    from coda_neurips2023_tpu_torch.utils import ap_calculator
+
+    ap_calculator.close_pool()
+    return launches
+
+
+def bf16_train_phase(torch, cfg, root, smi, results):
+    """Phase 20: the bf16 detector's training; returns D-bf16's and
+    E-bf16's launches a bf16 stage-1 step, D-bf16's a baseline step and the
+    CLI run's."""
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+
+    t0 = time.perf_counter()
+    print(f"phase 20 (a): kernel D-bf16 with attention-weight dropout {BF16_DROPOUT} vs its "
+          f"plain bf16 version, the same seed")
+    with torch.inference_mode():
+        bf16_dropout_kernel_phase(torch, results)
+    t_a = time.perf_counter()
+    print("phase 20 (b): the bf16 backward vs the fp32 backward on the card")
+    bf16_backward_phase(torch, results)
+    t_b = time.perf_counter()
+    ds = SyntheticDetectionDataset(cfg, num_scenes=(TRAIN_STEPS + 1) * TRAIN_BATCH,
+                                   num_points=NUM_POINTS, seed=SEED, with_images=True,
+                                   image_hw=IMAGE_HW)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in make_batch(ds, i * TRAIN_BATCH, TRAIN_BATCH).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    print(f"phase 20 (c): the bf16 stage-1 and baseline training steps, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {NUM_POINTS} points at full width, dropout as shipped")
+    steps = bf16_train_steps_phase(torch, cfg, batches)
+    t_c = time.perf_counter()
+    print("phase 20 (d): one bf16 training step on 2 scenes, GPU vs CPU, dropout 0")
+    bf16_cpu_phase(torch, cfg, batches[0])
+    del batches
+    t_d = time.perf_counter()
+    print(f"phase 20 (e): main with scripts/coda_sunrgbd_stage1.sh's flags and --compute_dtype "
+          f"bf16, one epoch of {TRAIN_CLI_SCENES} scenes, then --test_only --show_only")
+    cli = bf16_train_cli_phase(torch, root, smi)
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s: (a) {t_a - t0:.1f}, (b) "
+          f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, (e) "
+          f"{time.perf_counter() - t_d:.1f}")
+    return {
+        "attention_bf16": dict(train_launches=steps["stage 1"]["launches"]["attention_bf16"],
+                               baseline_train_launches=steps["baseline"]["launches"][
+                                   "attention_bf16"],
+                               train_cli_launches=cli["attention_bf16"]),
+        "vit_attention_bf16": dict(
+            train_launches=steps["stage 1"]["launches"]["vit_attention_bf16"],
+            train_cli_launches=cli["vit_attention_bf16"]),
+    }
+
+
 def main():
     started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3908,6 +4393,7 @@ def main():
     ddp_launches = ddp_phase(torch, root, smi, ckpt4, eval13)
     bf16_launches = bf16_phase(torch, cfg, ckpt4, results)
     masked_launches, masked_cli, masked_stage1 = masked_phase(torch, cfg, text, results)
+    train20 = bf16_train_phase(torch, cfg, root, smi, results)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -3933,7 +4419,7 @@ def main():
     ] + [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            **bf16_launches[name], "max_abs_err": results[name]["max_abs_err"],
+            **bf16_launches[name], **train20[name], "max_abs_err": results[name]["max_abs_err"],
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in BF16_KERNELS.items()

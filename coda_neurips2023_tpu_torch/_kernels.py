@@ -69,7 +69,7 @@ _SIGNATURES = {
     "coda_attention_combine": ("attention", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "coda_attention_bf16": (
         "attention_bf16",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _F, _I, _I, _I, _P],
     ),
     "coda_vit_attention": ("vit_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
     "coda_vit_attention_bf16": ("vit_attention_bf16", [_P, _P, _P, _P, _I, _I, _I, _F, _P]),
@@ -196,8 +196,8 @@ def launch(fn: str, *args, count_as: str | None = None) -> None:
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that would need a gradient, for kernels without a
-    backward (A, B, E, F, G, D-bf16, E-bf16: point coordinates, the frozen
-    CLIP tower and the bf16 detector at eval take none).  Kernels C and D
-    have one, through their autograd Functions."""
+    backward (A, B, E, F, G, E-bf16: point coordinates and the frozen CLIP
+    tower take none).  Kernels C, D and D-bf16 have one, through their
+    autograd Functions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; its inputs must not require grad")

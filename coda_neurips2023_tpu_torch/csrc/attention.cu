@@ -67,10 +67,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout_hash.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
+using coda_dropout::mix32;
 using coda_tf32::mma_3xtf32;
 using coda_tf32::split_tf32;
 
@@ -96,15 +98,6 @@ struct Cfg {
       (size_t)((Q_SPLIT ? 2 : 1) * TQ * QS + 4 * TQ + 2 * STAGE) * sizeof(float);
 };
 
-// lowbias32 (C. Wellons): a bijective 32-bit mixer
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
 
 // (a0*b0 + a1*b1) + a2*b2, rounded step by step (no FMA contraction), the
 // order of the plain PyTorch version: the mask is decided on identical bits.

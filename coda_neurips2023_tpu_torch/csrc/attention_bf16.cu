@@ -7,8 +7,8 @@ namespace coda_d_bf16 {
 // built in attention_bf16_d{16,32,64,128}.cu
 #define CODA_EXTERN_LAUNCH(D, T)                                                               \
   extern template int launch<D, T>(const bf16*, const bf16*, const bf16*, const float*,       \
-                                   const float*, T*, float*, float*, int, int, int, int, int,   \
-                                   float, int, int, cudaStream_t);
+                                   const float*, const int64_t*, T*, float*, float*, int, int,  \
+                                   int, int, int, float, uint32_t, float, int, int, cudaStream_t);
 CODA_EXTERN_LAUNCH(16, bf16)
 CODA_EXTERN_LAUNCH(16, float)
 CODA_EXTERN_LAUNCH(32, bf16)
@@ -21,13 +21,14 @@ CODA_EXTERN_LAUNCH(128, float)
 
 template <typename OutT>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const float* qxyz,
-             const float* kxyz_t, OutT* out, float* o_part, float* ml_part, int b, int h, int sq,
-             int skv, int ldk, int d, float radius, int splits, int chunk, cudaStream_t stream) {
+             const float* kxyz_t, const int64_t* seed, OutT* out, float* o_part, float* ml_part,
+             int b, int h, int sq, int skv, int ldk, int d, float radius, uint32_t drop_threshold,
+             float keep_mult, int splits, int chunk, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16>(q, k, v, qxyz, kxyz_t, out, o_part, ml_part, b, h, sq, skv, ldk, radius, splits, chunk, stream);
-    case 32: return launch<32>(q, k, v, qxyz, kxyz_t, out, o_part, ml_part, b, h, sq, skv, ldk, radius, splits, chunk, stream);
-    case 64: return launch<64>(q, k, v, qxyz, kxyz_t, out, o_part, ml_part, b, h, sq, skv, ldk, radius, splits, chunk, stream);
-    case 128: return launch<128>(q, k, v, qxyz, kxyz_t, out, o_part, ml_part, b, h, sq, skv, ldk, radius, splits, chunk, stream);
+    case 16: return launch<16>(q, k, v, qxyz, kxyz_t, seed, out, o_part, ml_part, b, h, sq, skv, ldk, radius, drop_threshold, keep_mult, splits, chunk, stream);
+    case 32: return launch<32>(q, k, v, qxyz, kxyz_t, seed, out, o_part, ml_part, b, h, sq, skv, ldk, radius, drop_threshold, keep_mult, splits, chunk, stream);
+    case 64: return launch<64>(q, k, v, qxyz, kxyz_t, seed, out, o_part, ml_part, b, h, sq, skv, ldk, radius, drop_threshold, keep_mult, splits, chunk, stream);
+    case 128: return launch<128>(q, k, v, qxyz, kxyz_t, seed, out, o_part, ml_part, b, h, sq, skv, ldk, radius, drop_threshold, keep_mult, splits, chunk, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -49,20 +50,22 @@ using coda_d_bf16::div_check_kernel;
 // out: bf16 where out_bf16, else fp32.  splits > 1 needs o_part (splits * b
 // * h * sq * d floats) and ml_part (splits * b * h * sq * 2 floats) and
 // leaves `out` to coda_attention_combine.  q, k, v, kxyz_t 16-byte aligned;
-// ldk a multiple of 8.
+// ldk a multiple of 8.  seed: one int64 on the device, read only when
+// keep_mult > 0 (dropout; 0: none).
 extern "C" int coda_attention_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                   const float* qxyz, const float* kxyz_t, void* out,
-                                   float* o_part, float* ml_part, int b, int h, int sq, int skv,
-                                   int ldk, int d, float radius, int out_bf16, int splits,
-                                   int chunk, cudaStream_t stream) {
+                                   const float* qxyz, const float* kxyz_t, const int64_t* seed,
+                                   void* out, float* o_part, float* ml_part, int b, int h, int sq,
+                                   int skv, int ldk, int d, float radius, unsigned drop_threshold,
+                                   float keep_mult, int out_bf16, int splits, int chunk,
+                                   cudaStream_t stream) {
   if (sq < 1 || skv < 1 || ldk < skv || ldk % 8 != 0 || splits < 1 || splits > 65535 ||
       (long long)b * h > 65535 || (splits > 1 && (o_part == nullptr || ml_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (out_bf16)
-    return dispatch(q, k, v, qxyz, kxyz_t, static_cast<bf16*>(out), o_part, ml_part, b, h, sq,
-                    skv, ldk, d, radius, splits, chunk, stream);
-  return dispatch(q, k, v, qxyz, kxyz_t, static_cast<float*>(out), o_part, ml_part, b, h, sq,
-                  skv, ldk, d, radius, splits, chunk, stream);
+    return dispatch(q, k, v, qxyz, kxyz_t, seed, static_cast<bf16*>(out), o_part, ml_part, b, h,
+                    sq, skv, ldk, d, radius, drop_threshold, keep_mult, splits, chunk, stream);
+  return dispatch(q, k, v, qxyz, kxyz_t, seed, static_cast<float*>(out), o_part, ml_part, b, h,
+                  sq, skv, ldk, d, radius, drop_threshold, keep_mult, splits, chunk, stream);
 }
 
 // The kernel's division against __fdiv_rn on n pairs (e, l), not a launch of

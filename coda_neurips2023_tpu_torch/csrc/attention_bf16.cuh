@@ -13,6 +13,19 @@
 // before the PV product, which sums in fp32; the output is rounded to the
 // output dtype once.
 //
+// Training: with keep_mult > 0 the attention weights are dropped as flax's
+// bf16 MultiHeadDotProductAttention drops them (broadcast_dropout), after p
+// is rounded to bf16: one keep mask over (query, key), shared by every
+// batch row and head, the kept p times keep_mult (flax's bf16 multiplier
+// bf16(1) / bf16(1 - rate), from the wrapper) and that product rounded to
+// bf16 again (exact in fp32 before that rounding: both factors hold 8
+// significant bits).  The mask is kernel D's (dropout_hash.cuh, the same
+// mask for the same seed): keep where mix32(mix32(seed) ^ (i * S_kv + j))
+// >= drop_threshold, j the key's index in the whole row (a split chunk's
+// offset plus its own index) and S_kv the true key count, not the padded
+// `ldk`; the seed one int64 read from device memory (no host sync), read
+// only where keep_mult > 0.  The sum l takes the weights before the drop.
+//
 // Two passes over the block's keys, which the rounding point forces (an
 // online softmax keeps p unnormalized to the end, and a row of 2048 keys
 // does not fit in registers): pass 0 forms the scores for the rows' max m
@@ -69,7 +82,13 @@
 //   * No call anywhere in the kernel, and no accumulator or A register
 //     written while a product is in flight: either makes ptxas serialize
 //     every wgmma (its C7510-C7515 notes in the build log).
-// No dropout: the bf16 detector runs this only at eval.
+//   * The keep test is branch-free integer work a pair (one add to a row's
+//     base index, the mixer's two multiplies and three shifts, a compare and
+//     a select), inlined; p is rounded to bf16 two at a time by the packed
+//     conversion and widened back by a shift.  Dropout is a template
+//     parameter: the kernel without it is the eval kernel opcode for opcode
+//     (a uniform branch a tile that picked a version made the eval kernel
+//     6% slower on the card).
 //
 // This header holds the kernel and its launch; attention_bf16_d{16,32,64,128}.cu
 // instantiate them a head width each, so nvcc builds the four at once, and
@@ -88,6 +107,7 @@
 #include <type_traits>
 
 #include "bf16_mma.cuh"
+#include "dropout_hash.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -96,6 +116,7 @@ namespace coda_d_bf16 {
 using coda_bf16::ex2;
 using coda_bf16::pack_bf16;
 using coda_bf16::rcp_rn;
+using coda_dropout::mix32;
 using bf16 = __nv_bfloat16;
 
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 query rows each
@@ -165,15 +186,16 @@ __device__ __forceinline__ float div_by(float e, float l, float r) {
   return div_exact(e) ? div_fast(e, l, r) : div_small(e, l, r);
 }
 
-template <int D, typename OutT>
+template <int D, typename OutT, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ qxyz,
-                      OutT* __restrict__ out, float* __restrict__ o_part,
-                      float* __restrict__ ml_part, int h, int sq, int skv, int chunk,
-                      float d2_below, int use_bits) {
+                      const int64_t* __restrict__ seed_ptr, OutT* __restrict__ out,
+                      float* __restrict__ o_part, float* __restrict__ ml_part, int h, int sq,
+                      int skv, int chunk, float d2_below, int use_bits, uint32_t drop_threshold,
+                      float keep_mult) {
   using C = Cfg<D>;
   constexpr int TK = C::TK;
   extern __shared__ unsigned char smem_raw[];
@@ -248,6 +270,8 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int g = lane >> 2;   // the accumulator rows 16w + g and 16w + g + 8
     const int t = lane & 3;    // its columns 8j + 2t and 8j + 2t + 1
     const int row0 = q0 + 64 * cw + 16 * w + g;
+    uint32_t seed = 0u;
+    if constexpr (DROP) seed = mix32((uint32_t)(*seed_ptr));
 
     float qx[2][4];  // x, y, z, |q|^2 of the thread's two rows
     if (masked) {
@@ -420,10 +444,17 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     };
     // pass 1 on tile `tile`: p = e / l rounded to bf16, P's A fragments (16
-    // keys a k-step: the accumulators of column groups 2 kk, 2 kk + 1)
+    // keys a k-step: the accumulators of column groups 2 kk, 2 kk + 1); with
+    // DROP each p kept times keep_mult, rounded again, or 0
     auto probs = [&](float (&sc)[C::KSUB][32], uint32_t (&pa)[TK / 16][4], int tile) {
       mask(sc, tile, true);
       bool small = false;
+      // the hash's (i * S_kv + j) at the thread's two rows and its first key
+      // of the tile: element e of k-step kk lies 16 kk + 8 (e >> 2) + (e & 1)
+      // keys further
+      const uint32_t key0 = (uint32_t)(kbeg + tile * TK + 2 * t);
+      const uint32_t ij0[2] = {(uint32_t)row0 * (uint32_t)skv + key0,
+                               (uint32_t)(row0 + 8) * (uint32_t)skv + key0};
       auto pack = [&](bool exact_only) {
 #pragma unroll
         for (int kk = 0; kk < TK / 16; ++kk) {
@@ -438,6 +469,17 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
               q[e] = div_fast(ex, l_run[i], r_l[i]);
             } else {
               q[e] = div_by(ex, l_run[i], r_l[i]);
+            }
+          }
+          if constexpr (DROP) {
+#pragma unroll
+            for (int e = 0; e < 8; e += 2) {
+              const uint32_t two = pack_bf16(q[e], q[e + 1]);  // p rounded to bf16
+              const uint32_t ij = ij0[(e >> 1) & 1] + (uint32_t)(16 * kk + 8 * (e >> 2));
+              q[e] = mix32(seed ^ ij) >= drop_threshold
+                         ? __uint_as_float(two << 16) * keep_mult : 0.0f;
+              q[e + 1] = mix32(seed ^ (ij + 1u)) >= drop_threshold
+                             ? __uint_as_float(two & 0xffff0000u) * keep_mult : 0.0f;
             }
           }
           pa[kk][0] = pack_bf16(q[0], q[1]);
@@ -572,11 +614,12 @@ inline float sqrt_threshold(float radius) {
 
 template <int D, typename OutT>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* qxyz, const float* kxyz_t,
-           OutT* out, float* o_part, float* ml_part, int b, int h, int sq, int skv, int ldk,
-           float radius, int splits, int chunk, cudaStream_t stream) {
+           const int64_t* seed, OutT* out, float* o_part, float* ml_part, int b, int h, int sq,
+           int skv, int ldk, float radius, uint32_t drop_threshold, float keep_mult, int splits,
+           int chunk, cudaStream_t stream) {
   using C = Cfg<D>;
   if (chunk % C::TK != 0 || (long long)(splits - 1) * chunk >= skv ||
-      (long long)splits * chunk < skv)
+      (long long)splits * chunk < skv || (keep_mult > 0.0f && seed == nullptr))
     return (int)cudaErrorInvalidValue;  // every chunk must hold a key, and all keys a chunk
   const bool masked = radius > 0.0f;
   const long long bh = (long long)b * h;
@@ -590,13 +633,18 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* qxyz, const
   const int use_bits = masked && C::FIXED + bits_bytes(chunk) <= kMaxSmemBytes;
   const int smem = C::FIXED + (use_bits ? bits_bytes(chunk) : 0);
   // once an instantiation: the limit, not this call's bytes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bf16_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(attention_bf16_kernel<D, OutT, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes),
+      cudaFuncSetAttribute(attention_bf16_kernel<D, OutT, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes)};
+  const bool drop = keep_mult > 0.0f;
+  if (attr[drop] != cudaSuccess) return (int)attr[drop];
   const dim3 grid((unsigned)((sq + C::TQ - 1) / C::TQ), (unsigned)bh, (unsigned)splits);
-  attention_bf16_kernel<D, OutT><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, tx, qxyz, out, o_part, ml_part, h, sq, skv, chunk,
-      masked ? sqrt_threshold(radius) : 0.0f, use_bits);
+  auto kernel = drop ? attention_bf16_kernel<D, OutT, true> : attention_bf16_kernel<D, OutT, false>;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, tx, qxyz, seed, out, o_part, ml_part, h, sq, skv, chunk,
+      masked ? sqrt_threshold(radius) : 0.0f, use_bits, drop_threshold, keep_mult);
   return (int)cudaGetLastError();
 }
 

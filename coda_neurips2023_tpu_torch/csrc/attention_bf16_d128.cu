@@ -4,11 +4,11 @@
 
 namespace coda_d_bf16 {
 
-template int launch<128, bf16>(const bf16*, const bf16*, const bf16*, const float*, const float*,
-                             bf16*, float*, float*, int, int, int, int, int, float, int, int,
-                             cudaStream_t);
-template int launch<128, float>(const bf16*, const bf16*, const bf16*, const float*, const float*,
-                              float*, float*, float*, int, int, int, int, int, float, int, int,
-                              cudaStream_t);
+template int launch<128, bf16>(const bf16*, const bf16*, const bf16*, const float*,
+                              const float*, const int64_t*, bf16*, float*, float*, int, int,
+                              int, int, int, float, uint32_t, float, int, int, cudaStream_t);
+template int launch<128, float>(const bf16*, const bf16*, const bf16*, const float*,
+                              const float*, const int64_t*, float*, float*, float*, int, int,
+                              int, int, int, float, uint32_t, float, int, int, cudaStream_t);
 
 }  // namespace coda_d_bf16

@@ -48,7 +48,7 @@ TARGET_KEYS = (
     "gt_box_corners", "gt_box_centers_normalized", "gt_box_sizes_normalized",
     "gt_box_angles", "gt_angle_class_label", "gt_angle_residual_label",
     "gt_box_sem_cls_label", "gt_box_present", "gt_box_seen_sem_cls_label",
-    "gt_box_seen_sem_cls_confi",
+    "gt_box_seen_sem_cls_confi", "discovery_novel",
 )
 
 # the last layer's box quantities the stage-2 discovery pass reads

@@ -114,11 +114,12 @@ def make_args_parser():
     parser.add_argument("--use_color", default=False, action="store_true")
     parser.add_argument(
         "--compute_dtype", default="float32", choices=["float32", "bf16", "bfloat16"],
-        help="the detector's compute dtype (params stay f32): bf16 runs the pre-encoder's "
-             "convs, the encoder (kernel D-bf16), the decoder and the heads in bf16, with "
-             "BatchNorm, LayerNorm and the residual stream in f32, and the CLIP tower in bf16 "
-             "as --clip_dtype bf16; with --test_only only (the bf16 detector's training is "
-             "ROADMAP Queue 1 item 10); not a reference flag",
+        help="the detector's compute dtype (params, AdamW's state and the gradients stay "
+             "f32): bf16 runs the pre-encoder's convs, the vanilla encoder (kernel D-bf16, "
+             "with its attention-weight dropout and backward in training), the decoder and "
+             "the heads in bf16, with BatchNorm, LayerNorm and the residual stream in f32, and "
+             "the CLIP tower in bf16 as --clip_dtype bf16; in training, --test_only and every "
+             "mode; not a reference flag",
     )
     parser.add_argument(
         "--clip_dtype", default="float32", choices=["float32", "bf16", "bfloat16"],
@@ -837,11 +838,6 @@ def main(argv=None, device="cuda", cpu_devices=None):
     args = parser.parse_args(argv)
     reject_inert_flags(parser, args)
     mode = any(getattr(args, name) for name in _MODE_FLAGS)
-    if args.compute_dtype in ("bf16", "bfloat16") and (mode or not args.test_only):
-        raise NotImplementedError(
-            "--compute_dtype bf16 runs with --test_only only: the bf16 detector's training "
-            "(flax's stock bf16 attention with weight dropout, a bf16 backward, kernel "
-            "D-bf16's backward) is not ported (ROADMAP Queue 1 item 10)")
     if args.minitest_only:
         # the reference accepts this flag, but its build_dataset never makes
         # the minitest split

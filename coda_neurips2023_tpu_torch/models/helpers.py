@@ -18,8 +18,10 @@ BatchNorm and dropout follow flax in training mode (`train()`):
     all-reduce of (sum x, sum x^2, count), so the running statistics move
     alike on every rank.
   * Dropout keeps an element with probability 1 - rate and scales it by
-    1 / (1 - rate), drawing its mask from the explicit `torch.Generator`
-    the forward is given (the default generator when None).
+    1 / (1 - rate), drawing its mask (uniform fp32 draws) from the explicit
+    `torch.Generator` the forward is given (the default generator when
+    None).  On a bf16 tensor it divides by 1 - rate rounded to bf16 and
+    rounds the quotient, as flax's Dropout does at the input's dtype.
 
 A compute dtype (`dtype`, bf16 for --compute_dtype bf16) follows flax's
 `dtype`: `Dense` casts its input and weight at use, rounds the product and
@@ -95,12 +97,14 @@ def flax_softmax(x: torch.Tensor) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax nn.Dropout: where(keep, x / keep_prob, 0); identity at eval or rate 0."""
+    """flax nn.Dropout: where(keep, x / keep_prob, 0), keep_prob rounded to
+    x's dtype; identity at eval or rate 0."""
     if not training or rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / rounded(keep_prob, x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):

@@ -27,9 +27,14 @@ pre-encoder's convs, the vanilla encoder, the decoder and the heads, as in
 JAX model_3detr.py:65-176; the masked encoder with its interim SA,
 `encoder_to_decoder_projection`, `pos_embedding` and `query_projection` stay
 fp32, and every head's output is fp32 again.  The parameters stay fp32.
+In training mode the bf16 forward keeps these: BatchNorm's batch
+statistics and its running averages in fp32 (JAX helpers.py:53-56,
+pointnet.py:40-43), the heads' dropout on their fp32 BatchNorm outputs,
+the transformer's dropouts on its bf16 activations (models/transformer.py),
+the masked encoder in fp32; the parameters and so their gradients stay
+fp32, each bf16 product's backward rounding as flax's does.
 `remat` (--remat) checkpoints each encoder and decoder layer in training
-(models/transformer.py).  bf16 is an eval path: a bf16 forward in training
-mode raises (the bf16 detector's training is ROADMAP Queue 1 item 10).
+(models/transformer.py), in fp32 and bf16 alike.
 """
 
 from __future__ import annotations
@@ -200,9 +205,6 @@ class CoDA3DETR(nn.Module):
     def forward(self, inputs: dict, generator=None):
         """`generator` feeds dropout in training mode (the default generator
         when None); the eval forward draws nothing."""
-        if self.training and self.compute_dtype != torch.float32:
-            raise NotImplementedError("the bf16 detector runs at eval only: its training is "
-                                      "not ported (ROADMAP Queue 1 item 10)")
         enc_xyz, enc_features, enc_inds = self.run_encoder(inputs["point_clouds"], generator)
         enc_features = self.encoder_to_decoder_projection(enc_features)
         point_cloud_dims = (inputs["point_cloud_dims_min"], inputs["point_cloud_dims_max"])

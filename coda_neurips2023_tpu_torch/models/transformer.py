@@ -12,8 +12,8 @@ cross-attention run through `ops.masked_attention` (kernel D on CUDA) at
 every size; the decoder's self-attention over the queries stays plain
 PyTorch, as flax MHA stays outside any kernel in the JAX package.
 
-With a bf16 compute dtype (--compute_dtype bf16, eval only) each layer
-runs as the JAX package's bf16 layer (transformer.py:138-191, 306-358):
+With a bf16 compute dtype (--compute_dtype bf16) each layer runs as the
+JAX package's bf16 layer (transformer.py:138-191, 306-358):
 LayerNorms and the residual stream stay fp32; the projections, the out
 projection, linear1 and linear2 take bf16 inputs and weights (flax's
 `dtype`); q is scaled in bf16; encoder self-attention and decoder
@@ -21,7 +21,15 @@ cross-attention run kernel D-bf16 (compute_dtype "bfloat16"); the decoder's
 self-attention over the queries is flax's stock MHA in bf16 (bf16 scores
 and softmax, `dot_product_attention_weights` with force_fp32_for_softmax
 False), which the JAX package takes there even on a TPU (its fused gate
-needs 1,024 tokens); and each layer's output is fp32 again.
+needs 1,024 tokens); and each layer's output is fp32 again.  In training
+the JAX package takes flax's stock bf16 MHA in every attention; the port
+keeps kernel D-bf16 (its fp32 scores and softmax, p rounded to bf16) with
+its attention-weight dropout in flax's bf16 order and its backward
+(ops/masked_attention.py), as the fp32 detector keeps kernel D where the
+JAX package takes flax; the decoder's self-attention drops its bf16
+weights in the same order, with the same hash mask.  The other dropouts
+act on the bf16 activations (after the FFN activation, on the attention
+and FFN outputs) as flax's Dropout does, the residual stream staying fp32.
 
 `MaskedTransformerEncoder` (--enc_type masked, JAX transformer.py:230-303)
 runs three layers whose self-attention allows a key only where the
@@ -70,6 +78,8 @@ from coda_neurips2023_tpu_torch.models.helpers import (
 )
 from coda_neurips2023_tpu_torch.models.pointnet import PointnetSAModuleVotes
 from coda_neurips2023_tpu_torch.ops.masked_attention import (
+    attention_keep_mask,
+    bf16_drop,
     masked_attention,
     masked_attention_plain,
 )
@@ -133,6 +143,12 @@ class MultiheadAttention(nn.Module):
         d = c // h
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
+        seed = None
+        if self.training and dropout > 0:
+            seed = torch.randint(0, 2 ** 62, (), dtype=torch.int64, device=query.device,
+                                 generator=generator)
+        else:
+            dropout = 0.0
         if self.dtype != torch.float32:
             if radius > 0:
                 raise ValueError("the radius-masked attention is fp32 (JAX model_3detr.py:97-108)")
@@ -142,21 +158,19 @@ class MultiheadAttention(nn.Module):
             k = linear(key, wk, bk, dt).reshape(b, skv, h, d).permute(0, 2, 3, 1).contiguous()
             v = linear(value, wv, bv, dt).reshape(b, skv, h, d).transpose(1, 2).contiguous()
             if use_kernel:
-                out = masked_attention(q, k, v, None, None, 0.0, "bfloat16")
+                out = masked_attention(q, k, v, None, None, 0.0, "bfloat16", dropout, seed)
             else:
-                out = torch.matmul(flax_softmax(torch.matmul(q, k)), v)
+                weights = flax_softmax(torch.matmul(q, k))
+                if dropout > 0:
+                    weights = bf16_drop(weights, attention_keep_mask(seed, sq, skv, dropout),
+                                        dropout)
+                out = torch.matmul(weights, v)
             return self.out_proj(out.transpose(1, 2).reshape(b, sq, c))
         q = nn.functional.linear(query, wq, bq).reshape(b, sq, h, d).transpose(1, 2)
         q = (q / math.sqrt(d)).contiguous()  # (B, H, Sq, D), flax scales first
         k = nn.functional.linear(key, wk, bk).reshape(b, skv, h, d).permute(0, 2, 3, 1)
         v = nn.functional.linear(value, wv, bv).reshape(b, skv, h, d).transpose(1, 2)
         attend = masked_attention if use_kernel else masked_attention_plain
-        seed = None
-        if self.training and dropout > 0:
-            seed = torch.randint(0, 2 ** 62, (), dtype=torch.int64, device=query.device,
-                                 generator=generator)
-        else:
-            dropout = 0.0
         qxyz = kxyz_t = None
         if radius > 0:
             qxyz = xyz.contiguous()

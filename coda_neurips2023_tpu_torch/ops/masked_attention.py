@@ -43,20 +43,26 @@ sum; the combine casts once to the output dtype.
 
 In training, `dropout` > 0 drops attention weights as flax's
 MultiHeadDotProductAttention does by default (broadcast_dropout): one keep
-mask over (query, key) shared by every batch row and head, kept weights
-scaled by 1 / (1 - dropout), the softmax normalized before the drop.  The
-mask comes from a counter-based hash of (i * Skv + j) and `seed`, a 0-d
-int64 tensor on the inputs' device (drawn from a generator without a host
-sync); kernel D and `masked_attention_plain` form the same mask.
+mask over (query, key) shared by every batch row and head, the softmax
+normalized before the drop.  The mask comes from a counter-based hash of
+(i * Skv + j) and `seed`, a 0-d int64 tensor on the inputs' device (drawn
+from a generator without a host sync); kernels D and D-bf16 and
+`masked_attention_plain` form the same mask.  In fp32 the kept weights are
+scaled by 1 / (1 - dropout).  In bf16 the order is flax's bf16 one
+(dot_product_attention_weights at dtype bf16): p, normalized and rounded to
+bf16, is multiplied where kept by flax's multiplier bf16(1) / bf16(1 -
+dropout) (`bf16_dropout_multiplier`: 1.109375 at 0.1, not 1 / 0.9) and the
+product rounded to bf16.  Flax also rounds the scores and the softmax to
+bf16, which kernel D-bf16 (the JAX Pallas kernel's numerics) does not, and
+draws its mask from its own generator: the two differ there by design.
 
-`MaskedAttention` is the autograd Function around them, with the JAX
-package's backward design (pallas_masked_attention.py:182-200): recompute
-the forward through `masked_attention_plain` and pull dq, dk and dv back
-through it with autograd.  The coordinates take no gradient.  The backward
-is plain PyTorch on both devices; a hand-written backward kernel is later,
-measured work.  It is fp32 only: the bf16 mode runs at eval, and refuses
-inputs that need a gradient and attention-weight dropout (the bf16
-detector's training is ROADMAP Queue 1 item 10).
+`MaskedAttention` is the autograd Function around them, in fp32 and in
+bf16, with the JAX package's backward design (pallas_masked_attention.py:
+182-200): recompute the forward through `masked_attention_plain` at the
+same compute dtype, with the same mask, and pull dq, dk and dv back through
+it with autograd.  The coordinates take no gradient.  The backward is plain
+PyTorch on both devices; a hand-written backward kernel is later, measured
+work.
 """
 
 from __future__ import annotations
@@ -175,20 +181,30 @@ def _bf16_scores(q, k, qxyz, kxyz_t, radius: float) -> torch.Tensor:
                    radius)
 
 
-def _no_bf16_dropout(dropout: float) -> None:
-    if dropout > 0:
-        raise NotImplementedError("attention-weight dropout in bf16: the bf16 detector's "
-                                  "training is not ported (ROADMAP Queue 1 item 10)")
+def bf16_dropout_multiplier(dropout: float) -> float:
+    """flax's bf16 dropout multiplier: bf16(1) / bf16(1 - dropout), the
+    quotient rounded to bf16."""
+    keep_prob = torch.tensor(1.0 - dropout, dtype=torch.bfloat16)
+    return float(torch.tensor(1.0, dtype=torch.bfloat16) / keep_prob)
+
+
+def bf16_drop(p: torch.Tensor, keep: torch.Tensor, dropout: float) -> torch.Tensor:
+    """bf16 weights `p` dropped in flax's bf16 order: kept ones times
+    `bf16_dropout_multiplier`, the product rounded to bf16 (exact in fp32
+    before that: both factors hold 8 significant bits); 0 elsewhere."""
+    kept = (p.float() * bf16_dropout_multiplier(dropout)).to(torch.bfloat16)
+    return torch.where(keep, kept, torch.zeros((), dtype=torch.bfloat16, device=p.device))
 
 
 def masked_attention_plain(q, k, v, qxyz, kxyz_t, radius: float, compute_dtype="float32",
                            dropout: float = 0.0, seed=None) -> torch.Tensor:
     """Plain PyTorch version of `masked_attention`, on any device."""
     if _compute_dtype(compute_dtype) == torch.bfloat16:
-        _no_bf16_dropout(dropout)
         scores = _bf16_scores(q, k, qxyz, kxyz_t, radius)
         e = torch.exp(scores - scores.amax(-1, keepdim=True))
         p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+        if dropout > 0:
+            p = bf16_drop(p, attention_keep_mask(seed, q.shape[2], v.shape[2], dropout), dropout)
         return torch.matmul(p.float(), v.to(torch.bfloat16).float()).to(q.dtype)
     weights = torch.softmax(_scores(q, k, qxyz, kxyz_t, radius), dim=-1)
     if dropout > 0:
@@ -213,12 +229,11 @@ def masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius: float, chunk: in
     """`masked_attention_plain` by kernel D's split-key scheme: the keys in
     chunks of `chunk`, each chunk's (max, sum, unnormalized output), then
     `combine_partials`.  The sum takes the weights before the drop.  In
-    bf16 (kernel D-bf16's scheme) a chunk's p is normalized by its own sum
-    and rounded to bf16, and its output, an fp32 sum, is multiplied by that
-    sum again for the combine."""
+    bf16 (kernel D-bf16's scheme) a chunk's p is normalized by its own sum,
+    rounded to bf16 and dropped, and its output, an fp32 sum, is multiplied
+    by that sum again for the combine."""
     bf16 = _compute_dtype(compute_dtype) == torch.bfloat16
     if bf16:
-        _no_bf16_dropout(dropout)
         scores = _bf16_scores(q, k, qxyz, kxyz_t, radius)
         v = v.to(torch.bfloat16).float()
     else:
@@ -233,7 +248,10 @@ def masked_attention_split_plain(q, k, v, qxyz, kxyz_t, radius: float, chunk: in
         p = torch.exp(s - m[..., None])
         l = p.sum(-1)
         if bf16:
-            p = (p / l[..., None]).to(torch.bfloat16).float()
+            p = (p / l[..., None]).to(torch.bfloat16)
+            if keep is not None:
+                p = bf16_drop(p, keep[:, c0:c0 + chunk], dropout)
+            p = p.float()
             parts.append((m, l, torch.matmul(p, v[..., c0:c0 + chunk, :]) * l[..., None]))
             continue
         if keep is not None:
@@ -278,15 +296,12 @@ def masked_attention(q, k, v, qxyz=None, kxyz_t=None, radius: float = 0.0,
                      compute_dtype="float32", dropout: float = 0.0, seed=None) -> torch.Tensor:
     """Radius-masked (radius > 0) or plain (radius <= 0) softmax attention
     with `compute_dtype` operands, the attention weights dropped at rate
-    `dropout` (fp32 only) -> (B, H, Sq, D) in q's dtype."""
+    `dropout` -> (B, H, Sq, D) in q's dtype."""
     radius, dropout = float(radius), float(dropout)
     bf16 = _compute_dtype(compute_dtype) == torch.bfloat16
     _check(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
     if q.dtype == torch.bfloat16 and not bf16:
         raise ValueError("bf16 inputs need compute_dtype='bfloat16'")
-    if bf16:
-        _no_bf16_dropout(dropout)
-        _kernels.check_no_grad("masked_attention in bf16", q, k, v)
     if q.device.type == "cuda":
         d = q.shape[-1]
         if d not in KERNEL_HEAD_DIMS:
@@ -296,11 +311,9 @@ def masked_attention(q, k, v, qxyz=None, kxyz_t=None, radius: float = 0.0,
             raise ValueError("masked_attention: inputs must be contiguous")
     elif q.device.type != "cpu":
         raise ValueError(f"masked_attention: unsupported device {q.device}")
-    if bf16:
-        if q.device.type == "cpu":
-            return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, "bfloat16")
-        return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, bf16=True)
-    return MaskedAttention.apply(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return MaskedAttention.apply(q, k, v, qxyz, kxyz_t, radius, dropout, seed, bf16)
+    return _attention_forward(q, k, v, qxyz, kxyz_t, radius, dropout, seed, bf16)
 
 
 def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0, seed=None,
@@ -317,6 +330,7 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0
         o_part = torch.empty((splits, b, h, sq, d), dtype=torch.float32, device=q.device)
         ml_part = torch.empty((splits, b, h, sq, 2), dtype=torch.float32, device=q.device)
     out_bf16 = int(q.dtype == torch.bfloat16)
+    seed = seed if dropout > 0 else None
     if bf16:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))  # no copy where already bf16
         # the TMA copies read rows of 16-byte multiples at 16-byte aligned
@@ -327,37 +341,40 @@ def _attention_kernel(q, k, v, qxyz, kxyz_t, radius: float, dropout: float = 0.0
             kx = None if kx is None else torch.nn.functional.pad(kx, (0, ldk - skv))
         q, k, v, kx = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
                        for t in (q, k, v, kx))
-        _kernels.launch("coda_attention_bf16", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq,
-                        skv, ldk, d, radius, out_bf16, splits, chunk)
+        threshold = dropout_constants(dropout)[0] if dropout > 0 else 0
+        mult = bf16_dropout_multiplier(dropout) if dropout > 0 else 0.0
+        _kernels.launch("coda_attention_bf16", q, k, v, qx, kx, seed, out, o_part, ml_part, b, h,
+                        sq, skv, ldk, d, radius, threshold, mult, out_bf16, splits, chunk)
     else:
         threshold, scale = dropout_constants(dropout) if dropout > 0 else (0, 0.0)
         _kernels.launch("coda_attention", q, k, v, qx, kx, out, o_part, ml_part, b, h, sq, skv,
-                        d, radius, seed if dropout > 0 else None, threshold, scale, splits, chunk)
+                        d, radius, seed, threshold, scale, splits, chunk)
     if splits > 1:
         _kernels.launch("coda_attention_combine", o_part, ml_part, out, b, h, sq, d, splits,
                         out_bf16, count_as="attention_bf16" if bf16 else "attention")
     return out
 
 
-def _attention_forward(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed):
+def _attention_forward(q, k, v, qxyz, kxyz_t, radius: float, dropout: float, seed, bf16: bool):
+    """Kernel D (with `bf16`, D-bf16) on a CUDA tensor, `masked_attention_plain`
+    on a CPU one."""
     if q.device.type == "cpu":
-        return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius, dropout=dropout, seed=seed)
-    return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+        return masked_attention_plain(q, k, v, qxyz, kxyz_t, radius,
+                                      "bfloat16" if bf16 else "float32", dropout, seed)
+    return _attention_kernel(q, k, v, qxyz, kxyz_t, radius, dropout, seed, bf16)
 
 
 class MaskedAttention(torch.autograd.Function):
-    """Forward: kernel D on a CUDA tensor, `masked_attention_plain` on a CPU
-    one.  Backward: autograd of `masked_attention_plain`, recomputed.  Not
-    in bf16."""
+    """Forward: `_attention_forward`.  Backward: autograd of
+    `masked_attention_plain` at the same compute dtype, recomputed.
+    `masked_attention` takes it where q, k or v needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, qxyz, kxyz_t, radius, dropout=0.0, seed=None):
-        if q.dtype == torch.bfloat16:
-            raise NotImplementedError("MaskedAttention is fp32: the bf16 detector's training "
-                                      "is not ported (ROADMAP Queue 1 item 10)")
+    def forward(ctx, q, k, v, qxyz, kxyz_t, radius, dropout=0.0, seed=None, bf16=False):
         ctx.save_for_backward(q, k, v, qxyz, kxyz_t, seed)
         ctx.radius, ctx.dropout = radius, dropout
-        return _attention_forward(q, k, v, qxyz, kxyz_t, radius, dropout, seed)
+        ctx.compute_dtype = "bfloat16" if bf16 else "float32"
+        return _attention_forward(q, k, v, qxyz, kxyz_t, radius, dropout, seed, bf16)
 
     @staticmethod
     def backward(ctx, grad):
@@ -365,9 +382,9 @@ class MaskedAttention(torch.autograd.Function):
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need)
                       for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
-            out = masked_attention_plain(*leaves, qxyz, kxyz_t, ctx.radius, dropout=ctx.dropout,
-                                         seed=seed)
+            out = masked_attention_plain(*leaves, qxyz, kxyz_t, ctx.radius, ctx.compute_dtype,
+                                         ctx.dropout, seed)
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
         return (*(next(grads) if t.requires_grad else None for t in leaves),
-                None, None, None, None, None)
+                None, None, None, None, None, None)

@@ -11,9 +11,14 @@ against SDPA; this script imports its timing from there.
    the decoder's cross-attention (32 x 4 x 128 x 2048 x 128) and the
    radius-masked encoder's shapes, E-bf16 at 128 and 256 crops x 12 x 197
    x 64, each against DIR's kernel (its library built from its own sources,
-   called through the C interface of the mma.sync kernels, before the
-   `ldk` argument), in turns; the radius case also with kernel D and SDPA
-   in fp32 (the boolean mask made outside the timed window).
+   called through the C interface of the wgmma kernel before its dropout
+   arguments, with that kernel's key split), in turns; D-bf16 without
+   dropout and with the transformer's 0.1, and without dropout also
+   through its own C interface as the parent is called (no Python wrapper);
+   the radius case also with kernel D and SDPA in fp32 (the boolean mask
+   made outside the timed window).  Then the SASS (cuobjdump) of D-bf16's
+   instances without dropout against the parent's, instruction by
+   instruction.
 2. Unless --no-sweep: D-bf16 at the decoder's cross-attention shape as
    `main --test_only --compute_dtype bf16 --batchsize_per_gpu_test B` runs
    it (Sq = 128 queries, Skv = 2048 keys, 4 heads of 128), at B = 8, 16, 24
@@ -26,7 +31,9 @@ Needs a GPU and nvcc.
 
 import argparse
 import ctypes
+import difflib
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,17 +67,18 @@ def parent_library(parent):
         cwd=parent, check=True, stdout=subprocess.PIPE, text=True)
     lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.coda_attention_bf16.argtypes = [P] * 8 + [I] * 5 + [F, I, I, I, P]
+    lib.coda_attention_bf16.argtypes = [P] * 8 + [I] * 6 + [F, I, I, I, P]
     lib.coda_attention_combine.argtypes = [P, P, P, I, I, I, I, I, I, P]
     lib.coda_vit_attention_bf16.argtypes = [P, P, P, P, I, I, I, F, P]
     return lib
 
 
 def parent_d(lib, q, k, v, qx, kx, radius, sms):
-    """The earlier kernel D-bf16 on the same inputs, with kernel D's split."""
+    """The earlier kernel D-bf16 on the same inputs, with its own split (Skv
+    a multiple of 8: no padding)."""
     b, h, sq, d = q.shape
     skv = v.shape[2]
-    splits, chunk = ma.attention_splits(b, h, sq, skv, d, sms)
+    splits, chunk = ma.attention_splits(b, h, sq, skv, d, sms, bf16=True)
     out = torch.empty_like(q)
     op = torch.empty((splits, b, h, sq, d), device="cuda") if splits > 1 else None
     ml = torch.empty((splits, b, h, sq, 2), device="cuda") if splits > 1 else None
@@ -79,13 +87,76 @@ def parent_d(lib, q, k, v, qx, kx, radius, sms):
     def run():
         stream = torch.cuda.current_stream().cuda_stream
         assert lib.coda_attention_bf16(ptr(q), ptr(k), ptr(v), ptr(qx), ptr(kx), ptr(out),
-                                       ptr(op), ptr(ml), b, h, sq, skv, d, radius, 1, splits,
+                                       ptr(op), ptr(ml), b, h, sq, skv, skv, d, radius, 1, splits,
                                        chunk, stream) == 0
         if splits > 1:
             assert lib.coda_attention_combine(ptr(op), ptr(ml), ptr(out), b, h, sq, d, splits, 1,
                                               stream) == 0
         return out
     return run
+
+
+def own_d(q, k, v, sms):
+    """This checkout's D-bf16 without dropout through its C interface, as
+    `parent_d` calls the parent's (Skv a multiple of 8, no radius)."""
+    lib = _kernels.library()
+    b, h, sq, d = q.shape
+    skv = v.shape[2]
+    splits, chunk = ma.attention_splits(b, h, sq, skv, d, sms, bf16=True)
+    out = torch.empty_like(q)
+    op = torch.empty((splits, b, h, sq, d), device="cuda") if splits > 1 else None
+    ml = torch.empty((splits, b, h, sq, 2), device="cuda") if splits > 1 else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        assert lib.coda_attention_bf16(ptr(q), ptr(k), ptr(v), None, None, None, ptr(out),
+                                       ptr(op), ptr(ml), b, h, sq, skv, skv, d, 0.0, 0, 0.0, 1,
+                                       splits, chunk, stream) == 0
+        if splits > 1:
+            assert lib.coda_attention_combine(ptr(op), ptr(ml), ptr(out), b, h, sq, d, splits, 1,
+                                              stream) == 0
+        return out
+    return run
+
+
+def sass(path):
+    """{mangled kernel name: its SASS instructions} of a library (cuobjdump)."""
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", path], check=True, stdout=subprocess.PIPE,
+                          text=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        else:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m and name:
+                funcs[name].append(m.group(1))
+    return funcs
+
+
+def compare_sass(parent):
+    """D-bf16's instances without dropout against the parent's, by opcode
+    and by whole instruction (the constant bank's parameter offsets move
+    with the new parameters)."""
+    mine, theirs = sass(str(_kernels.LIBRARY)), sass(parent._name)
+
+    def opcodes(xs):
+        return [" ".join(x.split()[:2]) if x.startswith("@") else x.split()[0] for x in xs]
+
+    for d in (16, 32, 64, 128):
+        for t in ("13__nv_bfloat16", "f"):
+            a = next(v for k, v in mine.items() if f"attention_bf16_kernelILi{d}E{t}Lb0E" in k)
+            b = next(v for k, v in theirs.items() if f"attention_bf16_kernelILi{d}E{t}E" in k)
+            differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            print(f"D-bf16 SASS D={d} out {'bf16' if t != 'f' else 'f32'}, no dropout: "
+                  f"{len(a)} instructions, parent {len(b)}; opcodes equal "
+                  f"{opcodes(a) == opcodes(b)}; instructions that differ {differ}")
+            for line in list(difflib.unified_diff(opcodes(b), opcodes(a), lineterm="", n=0))[2:12]:
+                print(f"    {line}")
 
 
 def parent_times(g, parent):
@@ -97,9 +168,14 @@ def parent_times(g, parent):
                                       ("radius", 2048, 2048, 64, 1.2 ** 2)):
         q, k, v = d_inputs(g, 32, 4, sq, skv, d)
         qx, kx = centres[:, :sq].contiguous(), centres.transpose(1, 2).contiguous()
+        seed = torch.randint(0, 2 ** 62, (), dtype=torch.int64, device="cuda", generator=g)
         fns = [lambda: ma.masked_attention(q, k, v, qx, kx, radius, "bfloat16"),
-               parent_d(parent, q, k, v, qx, kx, radius, sms)]
-        names = ["kernel", "parent"]
+               parent_d(parent, q, k, v, qx, kx, radius, sms),
+               lambda: ma.masked_attention(q, k, v, qx, kx, radius, "bfloat16", 0.1, seed)]
+        names = ["kernel", "parent", "kernel_dropout"]
+        if radius == 0:
+            fns.append(own_d(q, k, v, sms))
+            names.append("kernel_c_interface")
         if radius > 0:  # kernel D (fp32) on the same inputs, and fp32 SDPA with the mask
             allowed = (ma._scores(q[:, :1].float(), k[:, :1].float(), qx, kx, radius)
                        != torch.finfo(torch.float32).min)
@@ -186,7 +262,9 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         if args.parent:
-            parent_times(g, parent_library(args.parent))
+            parent = parent_library(args.parent)
+            parent_times(g, parent)
+            compare_sass(parent)
         if not args.no_sweep:
             split_sweep(g)
 

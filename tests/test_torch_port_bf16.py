@@ -48,6 +48,7 @@ reason:
 """
 
 import math
+import os
 import types
 
 import numpy as np
@@ -258,13 +259,19 @@ def test_combine_partials_weights_chunks_by_their_max_bf16():
 
 
 def test_bf16_attention_refuses_training():
+    """The bf16 attention refused a gradient and attention-weight dropout
+    until the bf16 detector's training was ported; it now takes both (its
+    backward and the dropout's order: tests/test_torch_port_bf16_train.py).
+    bf16 inputs still need compute_dtype bfloat16."""
     q = torch.randn(1, 2, 16, 8, requires_grad=True)
     k, v = torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8)
-    with pytest.raises(RuntimeError, match="no backward"):
-        masked_attention(q, k, v, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        masked_attention(q.detach(), k, v, compute_dtype="bfloat16", dropout=0.1,
-                         seed=torch.tensor(1))
+    masked_attention(q, k, v, compute_dtype="bfloat16").sum().backward()
+    assert q.grad.dtype == torch.float32 and torch.isfinite(q.grad).all() and q.grad.abs().sum() > 0
+    seed = torch.tensor(1)
+    got = masked_attention(q.detach(), k, v, compute_dtype="bfloat16", dropout=0.1, seed=seed)
+    assert torch.equal(got, masked_attention_plain(q.detach(), k, v, None, None, 0.0, "bfloat16",
+                                                   0.1, seed))
+    assert not torch.equal(got, masked_attention(q.detach(), k, v, compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="compute_dtype"):
         masked_attention(*(t.detach().to(BF16) for t in (q, k, v)))
 
@@ -377,12 +384,22 @@ def test_bf16_detector_matches_jax_through_the_fused_path(monkeypatch, bf16_dete
 
 
 def test_bf16_detector_refuses_training(bf16_detector):
+    """The bf16 detector refused training mode until its training was
+    ported; its training forward now runs: fp32 outputs, finite, with a
+    gradient, and BatchNorm's running statistics moved in fp32."""
     tm = bf16_detector["tm"]
     batch = {k: torch.from_numpy(np.asarray(v)) for k, v in bf16_detector["batch"].items()}
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tm.train()(batch)
+        out = tm.train()(batch, generator=torch.Generator().manual_seed(0))
+        assert out["sem_cls_logits"].dtype == torch.float32
+        assert all(torch.isfinite(v).all() for v in out.values() if v.is_floating_point())
+        assert out["sem_cls_logits"].requires_grad
+        stats = [k for k in before if k.endswith("running_var")]
+        assert all(tm.state_dict()[k].dtype == torch.float32 for k in stats)
+        assert any(not torch.equal(tm.state_dict()[k], before[k]) for k in stats)
     finally:
+        tm.load_state_dict(before)
         tm.eval()
 
 
@@ -433,12 +450,27 @@ def test_cli_test_only_in_bf16_matches_test_model(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--compute_dtype", "bf16"],
+    ["--compute_dtype", "bf16", "--max_epoch", "1", "--model_name", "3detrmulticlasshead",
+     "--if_with_clip", "--if_input_image"],
     ["--compute_dtype", "bfloat16", "--test_only", "--show_only"],
 ], ids=["training", "mode"])
-def test_cli_bf16_detector_only_at_eval(extra):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.main(_cli_args(extra), device="cpu")
+def test_cli_bf16_detector_only_at_eval(extra, tmp_path, monkeypatch):
+    """`main --compute_dtype bf16` ran only with --test_only and no mode
+    until the bf16 detector's training was ported; training and a mode now
+    run: one epoch trains the baseline's bf16 detector (fp32 parameters, no
+    text head) and writes its checkpoints (stage 1 and stage 2 through main:
+    tests/test_torch_port_bf16_train.py); --show_only writes each test
+    scene's files."""
+    monkeypatch.setenv("CODA_AP_WORKERS", "0")
+    _tiny_context(monkeypatch)
+    got = tmain.main(_cli_args(extra + ["--checkpoint_dir", str(tmp_path)]), device="cpu")
+    if "--show_only" in extra:
+        assert got == 2  # synthetic_num_scenes 8 -> a test split of 2
+        assert {"000000_pc.ply", "000001_pc.ply"} <= set(os.listdir(tmp_path / "show"))
+    else:
+        assert got.compute_dtype == BF16 and "text_correlation_head" not in got.mlp_heads
+        assert all(p.dtype == torch.float32 for p in got.parameters())
+        assert {"checkpoint.pth", "metrics.jsonl"} <= set(os.listdir(tmp_path))
 
 
 def test_stage1_step_with_bf16_tower():

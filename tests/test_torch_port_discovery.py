@@ -280,8 +280,8 @@ def test_stage2_loss_types_differ():
     confidence: the two losses differ on the same inputs."""
     from coda_neurips2023_tpu_torch.criterion import SetCriterion
 
-    assert "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi" not in \
-        __import__("coda_neurips2023_tpu_torch.criterion", fromlist=["x"]).UNPORTED_LOSSES
+    assert "loss_feat_seen_softmax_weakly_loss_with_novel_cate_confi" in \
+        __import__("coda_neurips2023_tpu_torch.criterion", fromlist=["x"]).LOSSES
     rng = np.random.default_rng(7)
     outs = {"text_correlation_embedding": torch.from_numpy(
         rng.standard_normal((2, 1, 4, 8)).astype(np.float32))}

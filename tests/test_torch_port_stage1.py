@@ -319,11 +319,14 @@ def test_stage1_losses_match_jax(weights):
 
 
 def test_unported_stage2_losses_still_raise():
-    with pytest.raises(NotImplementedError,
-                       match="loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi"):
-        build_criterion(
-            _args(loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi_weight=1.0),
-            SunrgbdAnonymousConfig())
+    """The stage-2 weak-label loss by IoU match raised until the rest of the
+    criterion was ported: it now builds and is active, in the JAX
+    registry's place."""
+    name = "loss_feat_seen_softmax_iou_match_weakly_loss_with_novel_cate_confi"
+    crit = build_criterion(_args(**{name + "_weight": 1.0}), SunrgbdAnonymousConfig())
+    assert crit._active(name)
+    jcrit = jcriterion.build_criterion(_args(**{name + "_weight": 1.0}), JaxConfig())
+    assert list(crit.loss_functions).index(name) == list(jcrit.loss_functions).index(name)
 
 
 # ---------------------------------------------------------------- (d) whole step

@@ -361,14 +361,20 @@ def test_every_loss_matches_jax(empty_scene):
 
 
 def test_unported_losses_raise():
-    """Stage 2's losses are not ported yet (stage 1's are, in
-    tests/test_torch_port_stage1.py): a weight for one of them raises."""
-    with pytest.raises(NotImplementedError, match="loss_sem_focal_cls"):
-        build_criterion(_args(loss_sem_focal_cls_weight=1.0), SunrgbdAnonymousConfig())
-    with pytest.raises(NotImplementedError,
-                       match="loss_sem_cls_softmax_skip_none_gt_sample_en_discovery_objectness"):
-        build_criterion(_args(loss_sem_cls_softmax_skip_none_gt_sample_en_discovery_objectness_weight=1.0),
-                        SunrgbdAnonymousConfig())
+    """A weight for these two losses raised until the rest of the criterion
+    was ported: each now builds, is active, and gives its term on every
+    layer (held against the JAX package in
+    tests/test_torch_port_criterion_rest.py)."""
+    batch = _scenes(2, seed=4)
+    outs = {k: torch.from_numpy(v) for k, v in _outputs_near_targets(batch, 3, 16, 5).items()}
+    targets = {k: torch.from_numpy(batch[k]) for k in JAX_TARGET_KEYS if k in batch}
+    for name in ("loss_sem_focal_cls",
+                 "loss_sem_cls_softmax_skip_none_gt_sample_en_discovery_objectness"):
+        crit = build_criterion(_args(**{name + "_weight": 1.0}), SunrgbdAnonymousConfig())
+        assert crit._active(name)
+        _, losses = crit(outs, targets)
+        assert {name, name + "_0", name + "_1"} <= set(losses)
+        assert all(torch.isfinite(losses[k]) for k in (name, name + "_0", name + "_1"))
 
 
 # ---------------------------------------------------------------- (f) LR + optimizer
