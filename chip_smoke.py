@@ -271,6 +271,26 @@ result):
      (ms, plain, bound, library, nodrop) and backward_* (its ms, the fp32
      backward's, bound, SDPA's, the largest relative error); E-bf16
      train_launches and train_cli_launches.
+ 21. Tensor parallelism (parallel/tp.py).  Stage 1's step at full width
+     (phase 17 (a)'s flags: dropout 0, the crops pinned, a random ViT-B/16
+     teacher from a seed) at a global batch of TP_BATCH for TP_STEPS steps,
+     first in one process, then (a) on a grid of dp 1 x mp 2, two ranks on
+     the one card over gloo, and (b) with four or more cards, dp 2 x mp 2
+     over NCCL, one card a rank: the detector's
+     attention heads and FFN and the teacher's heads and MLP sharded over
+     mp.  Held: each step's loss within TP_LOSS_TOL of one process's and
+     its gradients' global norm (the clip's) within TP_NORM_RTOL; the
+     gathered weights within TP_WEIGHT_TOL of their norm; the replicated
+     parameters bit-equal on every rank and each shard on its dp peers;
+     kernel D called at 2 heads and E at 6 on every rank, A-E launched
+     every step; the mp all-reduces a step, forward and backward, as many
+     as the blocks switched to the grid call for.  Printed: each rank's
+     step ms, the bytes of the mp all-reduces a step and their ms replayed
+     alone, the dp gradient all-reduce's bytes and ms, peak memory.  Then D
+     (encoder, decoder) and E (256 crops) against their plain versions at
+     the local heads, timed beside SDPA.  The kernels line gives each
+     kernel tp_launches (rank 0's over (a)'s steps), and D and E a "tp"
+     entry of those rows.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -4210,6 +4230,375 @@ def bf16_train_phase(torch, cfg, root, smi, results):
     }
 
 
+# phase 21: tensor parallelism (parallel/tp.py).  Stage 1's step at full
+# width (scripts/coda_sunrgbd_stage1.sh's flags as phase 17 (a) runs them:
+# dropout 0, the crops pinned; the CLIP teacher a random ViT-B/16 from a
+# seed) at a global batch of TP_BATCH for TP_STEPS steps on a (dp, mp) grid
+# of TP_MP shards, against one process at the global batch from the same
+# seed: (a) two ranks on the one card over gloo (NCCL takes one card a
+# rank), dp 1 x mp 2; (b) with four or more cards, four NCCL ranks, one a
+# card, dp 2 x mp 2
+TP_MP = 2
+TP_BATCH = TRAIN_BATCH
+TP_STEPS = DDP_STEPS
+TP_KERNELS = ("fps", "ball_query", "gather", "attention", "vit_attention")
+TP_HEADS = {"attention": FLAGSHIP_ARGS["enc_nhead"] // TP_MP, "vit_attention": 12 // TP_MP}
+# a grid's step against one process's differs only in the order of the
+# row-parallel sums: measured on an H100 80GB HBM3 at 700 W, losses within
+# 7.6e-6 (gloo, one card) and 1.7e-5 (NCCL, four cards), weights within
+# 4.5e-7 and 8.0e-7 of their norm, the gradients' global norm within 2.9e-5
+# at the first step and 4.7e-4 at the second (gloo; BatchNorm's training
+# backward amplifies the weights' difference); gradients mp times too
+# large, or a clip norm over one shard, move that norm by tens of percent
+TP_LOSS_TOL = 1e-4
+TP_WEIGHT_TOL = 5e-6
+TP_NORM_RTOL = 3e-3
+
+
+def expected_mp_reduces(model, clip):
+    """(forward, backward) mp all-reduces of one stage-1 step, counted from
+    the blocks switched to the grid: forward, one after each attention's
+    out_proj and each FFN's linear2 (the detector's and the image tower's,
+    which runs once a step, under no_grad); backward, copy_to_mp's
+    gradient once for each distinct input of a column-parallel product: an
+    encoder layer's self-attention takes one tensor (the vanilla encoder
+    adds no position embedding), a decoder layer's two (the queries with and
+    without their embedding) and its cross-attention three; each linear1
+    one."""
+    from coda_neurips2023_tpu_torch.models.transformer import (
+        TransformerDecoderLayer,
+        TransformerEncoderLayer,
+    )
+
+    forward = backward = 0
+    for layer in model.modules():
+        if isinstance(layer, TransformerEncoderLayer):
+            parts = ((layer.self_attn.grid, 1), (layer.grid, 1))
+        elif isinstance(layer, TransformerDecoderLayer):
+            parts = ((layer.self_attn.grid, 2), (layer.multihead_attn.grid, 3), (layer.grid, 1))
+        else:
+            continue
+        forward += sum(g is not None for g, _ in parts)
+        backward += sum(n for g, n in parts if g is not None)
+    for block in clip.visual.transformer.resblocks:
+        forward += (block.attn.grid is not None) + (block.mlp.grid is not None)
+    return forward, backward
+
+
+def tp_run(torch, grid=None):
+    """Phase 21's TP_STEPS stage-1 steps in this process: on `grid`, the
+    detector and the CLIP teacher sharded and this dp block's rows; without
+    one, one process at the global batch.  Records each step's loss, device
+    ms, kernel launches, mp all-reduce counts, the heads kernels D and E
+    were called with, the dp gradient all-reduce's bytes and ms, and the
+    last step's mp all-reduces (kind, elements, dtype), the peak memory,
+    the parameters' digests and the whole state after the steps."""
+    import hashlib
+
+    from coda_neurips2023_tpu_torch import _kernels, engine
+    from coda_neurips2023_tpu_torch.criterion import build_criterion
+    from coda_neurips2023_tpu_torch.datasets.config import SunrgbdAnonymousConfig
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+    from coda_neurips2023_tpu_torch.models import clip as clip_mod
+    from coda_neurips2023_tpu_torch.models import transformer
+    from coda_neurips2023_tpu_torch.parallel import ddp, tp
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
+    from coda_neurips2023_tpu_torch.stages import StageContext
+
+    cfg = SunrgbdAnonymousConfig()
+    flags = {**FLAGSHIP_ARGS, **TRAIN_ARGS, **STAGE1_ARGS}
+    ctx = StageContext(types.SimpleNamespace(**flags), cfg, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(SEED + 21))
+    model, _, optimizer, schedule = train_objects(torch, cfg, False, DEVICE, SEED + 22,
+                                                  STAGE1_ARGS)
+    args = types.SimpleNamespace(**flags)
+    criterion = build_criterion(args, cfg, num_replicas=pdist.get_world_size())
+    if grid is not None:
+        tp.shard_state_tp(grid, model, optimizer)
+        tp.shard_state_tp(grid, ctx.clip_model)
+    want_mp = expected_mp_reduces(model, ctx.clip_model)
+    n = args.distillation_box_num
+    ctx.select_boxes = lambda last, batch, generator=None: torch.arange(
+        n, device=DEVICE).expand(last["objectness_prob"].shape[0], n)
+    step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+    ds = SyntheticDetectionDataset(cfg, num_scenes=TP_STEPS * TP_BATCH, num_points=NUM_POINTS,
+                                   seed=SEED, with_images=True, image_hw=IMAGE_HW)
+    dp, d = pdist.get_world_size(), pdist.get_rank()
+    b = TP_BATCH // dp
+    batches = [{k: torch.from_numpy(v[d * b:(d + 1) * b]).to(DEVICE)
+                for k, v in make_batch(ds, i * TP_BATCH, TP_BATCH).items()}
+               for i in range(TP_STEPS)]
+    record = dict(losses=[], step_ms=[], launches=[], counts=[], want_mp=want_mp,
+                  heads={"attention": set(), "vit_attention": set()}, allreduce=[], sizes=[],
+                  norms=[])
+    update = optimizer.step
+
+    def clipped(lr):  # the gradients' global norm, read after the step
+        norm = update(lr)
+        record["norms"].append(norm.detach().clone())
+        return norm
+
+    optimizer.step = clipped
+
+    def seen(name, fn):
+        def call(q, *a, **kw):
+            record["heads"][name].add(q.shape[1])
+            return fn(q, *a, **kw)
+        return call
+
+    all_reduce, mp_reduce = ddp.all_reduce_gradients, tp._all_reduce
+
+    def timed(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = all_reduce(params)
+        torch.cuda.synchronize()
+        record["allreduce"].append((nbytes, (time.perf_counter() - t0) * 1e3))
+        return nbytes
+
+    def sized(tensor, g, kind):
+        record["sizes"][-1].append((kind, tensor.numel(), tensor.dtype))
+        return mp_reduce(tensor, g, kind)
+
+    saved = (transformer.masked_attention, clip_mod.vit_attention)
+    transformer.masked_attention = seen("attention", transformer.masked_attention)
+    clip_mod.vit_attention = seen("vit_attention", clip_mod.vit_attention)
+    ddp.all_reduce_gradients, tp._all_reduce = timed, sized
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for batch in batches:
+            gen = engine.step_generator(SEED, optimizer.count, DEVICE, d)
+            record["sizes"].append([])
+            tp.reset_counts()
+            before = dict(_kernels.LAUNCHES)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(batch, gen)
+            end.record()
+            torch.cuda.synchronize()
+            record["step_ms"].append(start.elapsed_time(end))
+            record["losses"].append(float(metrics["loss"]))
+            record["launches"].append({k: v - before[k] for k, v in _kernels.LAUNCHES.items()})
+            record["counts"].append(dict(tp.COUNTS))
+    finally:
+        transformer.masked_attention, clip_mod.vit_attention = saved
+        ddp.all_reduce_gradients, tp._all_reduce = all_reduce, mp_reduce
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["norms"] = [float(n) for n in record["norms"]]
+    record["sizes"] = record["sizes"][-1]
+    params = dict(model.named_parameters())
+    record["sharded"] = sorted(k for k, p in params.items() if hasattr(p, "tp_grid"))
+    record["digests"] = {k: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+                         for k, p in params.items()}
+    state = tp.gather_state_tp(grid, model) if grid is not None else model.state_dict()
+    record["state"] = {k: v.detach().cpu() for k, v in state.items()}
+    return record
+
+
+def tp_rank(out_dir, mp):
+    """One rank of phase 21: tp_run on the grid of mp shards, then the last
+    step's mp all-reduces replayed alone over the mp group (synchronized on
+    both sides, each size once); writes <out_dir>/rank<r>.pkl."""
+    import pickle
+
+    import torch
+    import torch.distributed as tdist
+
+    from coda_neurips2023_tpu_torch.parallel import dist as pdist
+    from coda_neurips2023_tpu_torch.parallel import tp
+
+    grid = tp.make_tp_grid(mp)
+    record = tp_run(torch, grid)
+    replay = {"forward": 0.0, "backward": 0.0, "norm": 0.0}
+    for kind, numel, dtype in record["sizes"]:
+        t = torch.ones(numel, dtype=dtype, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tdist.all_reduce(t, group=grid.mp_group)
+        torch.cuda.synchronize()
+        replay[kind] += (time.perf_counter() - t0) * 1e3
+    record["replay_ms"] = replay
+    record["grid"] = (grid.dp, grid.mp, grid.dp_rank, grid.mp_rank)
+    with open(os.path.join(out_dir, f"rank{pdist.process_rank()}.pkl"), "wb") as f:
+        pickle.dump(record, f)
+
+
+def tp_checks(torch, smi, world, backend, devices, one, tag):
+    """Phase 21's grid of `world` ranks on `devices` over `backend` against
+    the one-process record `one`; returns rank 0's launches over its steps."""
+    import pickle
+    import shutil
+
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.parallel import ddp
+
+    out_dir = _kernels.BUILD_DIR.parent / "phase21" / tag
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    dp = world // TP_MP
+    print(f"phase 21 ({tag}): {world} ranks on {sorted(set(devices))} over {backend}, a grid of "
+          f"dp {dp} x mp {TP_MP}: the stage-1 step at full width, global batch {TP_BATCH} "
+          f"({TP_BATCH // dp} rows a dp block), {TP_STEPS} steps, dropout 0, the crops pinned")
+    t0 = time.perf_counter()
+    ddp.launch(tp_rank, world, str(out_dir), TP_MP, devices=devices, backend=backend,
+               dist_url=ddp.free_url())
+    launch_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    want_fwd, want_bwd = ranks[0]["want_mp"]
+    if not (want_fwd > 0 and want_bwd > 0) or any(rec["want_mp"] != ranks[0]["want_mp"]
+                                                 for rec in ranks):
+        fail(f"the ranks' blocks switched to the grid call for {[r['want_mp'] for r in ranks]} "
+             f"(forward, backward) mp all-reduces a step")
+    for r, rec in enumerate(ranks):
+        if rec["grid"] != (dp, TP_MP, r // TP_MP, r % TP_MP):
+            fail(f"rank {r} sits at {rec['grid']} of the grid, not (dp {dp}, mp {TP_MP}, "
+                 f"{r // TP_MP}, {r % TP_MP})")
+        if not rec["sharded"]:
+            fail(f"rank {r}: the rules sharded no parameter")
+        if rec["heads"] != {k: {v} for k, v in TP_HEADS.items()}:
+            fail(f"rank {r}: kernels D and E were called at heads {rec['heads']}, not "
+                 f"{TP_HEADS}")
+        for k, (launched, counts) in enumerate(zip(rec["launches"], rec["counts"])):
+            missing = [n for n in TP_KERNELS if launched[n] <= 0]
+            if missing or launched["vit_attention"] != CLIP_LAYERS:
+                fail(f"rank {r} step {k}: kernels {missing} not launched, vit_attention "
+                     f"{launched['vit_attention']} times ({launched})")
+            if (counts["forward"], counts["backward"]) != (want_fwd, want_bwd):
+                fail(f"rank {r} step {k}: {counts['forward']} forward and {counts['backward']} "
+                     f"backward mp all-reduces, the model's blocks call for {want_fwd} and "
+                     f"{want_bwd}")
+    print(f"  every rank at its place on the grid; D called at {TP_HEADS['attention']} heads and "
+          f"E at {TP_HEADS['vit_attention']} on every rank, A-E launched every step (E "
+          f"{CLIP_LAYERS} times); {want_fwd} forward and {want_bwd} backward mp all-reduces a "
+          f"step, as the model's blocks call for")
+    losses = [rec["losses"] for rec in ranks]
+    if any(l != losses[0] for l in losses):
+        fail(f"the ranks' losses differ: {losses}")
+    err = max(abs(a - b) for a, b in zip(losses[0], one["losses"]))
+    print(f"  losses, the grid {losses[0]!r}; one process {one['losses']!r}; max |diff| {err!r}")
+    norm_err = max(abs(a - b) / b for rec in ranks for a, b in zip(rec["norms"], one["norms"]))
+    print(f"  gradients' global norm, the grid {ranks[0]['norms']!r}; one process "
+          f"{one['norms']!r}; max relative diff over the ranks {norm_err!r}")
+    got, want = ranks[0]["state"], one["state"]
+    names = [k for k in want if not k.endswith("num_batches_tracked")]
+    diff = math.sqrt(sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in names))
+    norm = math.sqrt(sum(float((want[k].double() ** 2).sum()) for k in names))
+    print(f"  the gathered weights and BatchNorm statistics after {TP_STEPS} steps: |diff| / |one| "
+          f"{diff / norm!r}")
+    if not err <= TP_LOSS_TOL:
+        fail(f"the grid's losses differ from one process's by {err!r} > {TP_LOSS_TOL}")
+    if not (len(ranks[0]["norms"]) == TP_STEPS and norm_err <= TP_NORM_RTOL):
+        fail(f"the grid's gradient norms differ from one process's by {norm_err!r} of theirs "
+             f"> {TP_NORM_RTOL}")
+    if not diff / norm <= TP_WEIGHT_TOL:
+        fail(f"the grid's weights differ from one process's by {diff / norm!r} of their norm "
+             f"> {TP_WEIGHT_TOL}")
+    sharded = set(ranks[0]["sharded"])
+    for name, digest in ranks[0]["digests"].items():
+        for r, rec in enumerate(ranks):
+            peer = ranks[r % TP_MP]["digests"][name] if name in sharded else digest
+            if rec["digests"][name] != peer:
+                fail(f"rank {r}'s {name} differs from its "
+                     f"{'dp peer' if name in sharded else 'replicas'}")
+    print(f"  {len(sharded)} sharded parameters bit-equal on each shard's dp peers, the other "
+          f"{len(ranks[0]['digests']) - len(sharded)} bit-equal on all {world} ranks")
+    note = ("gloo over one card's shared SMs: not a scaling number" if backend == "gloo"
+            else "NCCL, one card a rank")
+    for r, rec in enumerate(ranks):
+        c = rec["counts"][-1]
+        ar = rec["allreduce"]
+        print(f"  rank {r} [{smi}] ({note}): step ms {[round(x, 3) for x in rec['step_ms']]}; "
+              f"mp all-reduces a step {c['forward']} forward {c['forward_bytes']} bytes, "
+              f"{c['backward']} backward {c['backward_bytes']} bytes, replayed alone "
+              f"{rec['replay_ms']['forward']:.3f} + {rec['replay_ms']['backward']:.3f} ms, "
+              f"{c['norm']} for the clip's norm {rec['replay_ms']['norm']:.3f} ms; "
+              f"dp gradient all-reduce {ar[-1][0]} bytes {ar[-1][1]:.3f} ms; peak memory "
+              f"allocated {rec['peak_gb']!r} GB")
+    print(f"  one process at batch {TP_BATCH} [{smi}]: step ms "
+          f"{[round(x, 3) for x in one['step_ms']]}; peak {one['peak_gb']!r} GB; the {world}-rank "
+          f"launch {launch_s:.1f} s")
+    return {k: sum(l[k] for l in ranks[0]["launches"]) for k in ranks[0]["launches"][0]}
+
+
+def tp_kernel_rows(torch, results):
+    """Kernels D and E against their plain versions at the local head count
+    of phase 21's grid (mp 2): D at the stage-1 step's encoder and decoder
+    shapes (B=8), E at its 256 crops; kernel, plain, SDPA ms and bound."""
+    from coda_neurips2023_tpu_torch.ops.masked_attention import (
+        masked_attention,
+        masked_attention_plain,
+    )
+    from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention, vit_attention_plain
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    h, b = TP_HEADS["attention"], TP_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, device=DEVICE, generator=gen)
+
+    rows = []
+    for label, sq, skv, d in (("encoder", 2048, 2048, 64), ("decoder", 128, 2048, 128)):
+        q = randn(b, h, sq, d) / d ** 0.5
+        k, v = randn(b, h, d, skv), randn(b, h, skv, d)
+        kt = k.transpose(2, 3).contiguous()
+        rows.append(("attention", f"{label} B={b} H={h} Sq={sq} Skv={skv} D={d}",
+                     lambda q=q, k=k, v=v: masked_attention(q, k, v, None, None, 0.0),
+                     lambda q=q, k=k, v=v: masked_attention_plain(q, k, v, None, None, 0.0),
+                     lambda q=q, kt=kt, v=v: sdpa(q, kt, v, scale=1.0),
+                     attention_bound(b, h, sq, skv, d), ATTN_TOL, label))
+    crops, vh = TP_BATCH * N_SEL, TP_HEADS["vit_attention"]
+    q, k, v = (randn(crops, vh, 197, 64) for _ in range(3))
+    rows.append(("vit_attention", f"B={crops} crops H={vh} S=197 D=64",
+                 lambda: vit_attention(q, k, v), lambda: vit_attention_plain(q, k, v),
+                 lambda: sdpa(q, k, v), attention_bound(crops, vh, 197, 197, 64), VIT_ATTN_TOL,
+                 "stage1"))
+    with torch.inference_mode():
+        for name, label, kern, plain, library, bnd, tol, shape in rows:
+            want = plain()
+            err = (kern() - want).abs().max().item()
+            if not err <= tol:
+                fail(f"{name} at mp {TP_MP}'s {label}: max_abs_err {err!r} > {tol}")
+            if not (library() - want).abs().max().item() <= tol:
+                fail(f"scaled_dot_product_attention differs from the plain {name}")
+            ms, library_ms = time_in_turns(torch, kern, library)
+            plain_ms = time_ms(torch, plain)
+            results[name].setdefault("tp", {})[shape] = dict(
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=library_ms)
+            print(f"  {name:16s} mp {TP_MP}: {label:40s} max_abs_err={err!r} kernel_ms={ms!r} "
+                  f"plain_ms={plain_ms!r} bound_ms={bnd[0]!r} ({bnd[1]}) library_ms={library_ms!r}")
+
+
+def tp_phase(torch, smi, results):
+    """Phase 21: (a) a grid of two ranks on the one card over gloo; with four
+    or more cards, (b) dp 2 x mp 2 over NCCL; then D and E at the local
+    heads.  Returns (a)'s launches of rank 0."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"phase 21: one process, the stage-1 step at full width, batch {TP_BATCH}, "
+          f"{TP_STEPS} steps, dropout 0, the crops pinned (the grids' reference)")
+    one = tp_run(torch)
+    torch.cuda.empty_cache()
+    launches = tp_checks(torch, smi, TP_MP, "gloo", ["cuda:0"] * TP_MP, one, "a")
+    cards = torch.cuda.device_count()
+    if cards >= 2 * TP_MP:
+        tp_checks(torch, smi, 2 * TP_MP, "nccl", [f"cuda:{r}" for r in range(2 * TP_MP)], one,
+                  "b")
+    else:
+        print(f"  (b) dp 2 x mp {TP_MP} over NCCL did not run: {cards} card(s) visible, it takes "
+              f"{2 * TP_MP}, one a rank; this run is no pass of NCCL")
+    del one
+    print(f"phase 21: kernels D and E at mp {TP_MP}'s local heads vs plain PyTorch and SDPA")
+    tp_kernel_rows(torch, results)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s [{smi}]")
+    return launches
+
+
 def main():
     started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4394,6 +4783,7 @@ def main():
     bf16_launches = bf16_phase(torch, cfg, ckpt4, results)
     masked_launches, masked_cli, masked_stage1 = masked_phase(torch, cfg, text, results)
     train20 = bf16_train_phase(torch, cfg, root, smi, results)
+    tp_launches = tp_phase(torch, smi, results)
 
     # each kernel's count from the path it serves: A-D the detector eval
     # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
@@ -4413,6 +4803,7 @@ def main():
             "masked_launches": masked_launches.get(name, 0),
             "masked_cli_launches": masked_cli.get(name, 0),
             "masked_stage1_launches": masked_stage1.get(name, 0),
+            "tp_launches": tp_launches.get(name, 0),
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in KERNELS.items()
@@ -4420,6 +4811,7 @@ def main():
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             **bf16_launches[name], **train20[name], "max_abs_err": results[name]["max_abs_err"],
+            "tp_launches": tp_launches.get(name, 0),
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in BF16_KERNELS.items()

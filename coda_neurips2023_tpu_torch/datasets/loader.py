@@ -203,14 +203,18 @@ def make_loader(dataset, batch_size, shuffle=False, seed=0, drop_last=True,
 
 class RankLoader:
     """This rank's rows of each batch of `loader`, a loader of the global
-    batch (world x the per-rank batch): rank 0 iterates `loader` and sends
-    each other rank its rows; the others receive theirs, len(loader) times."""
+    batch (world x the per-rank batch): process 0 iterates `loader` and
+    sends each other process its rows; the others receive theirs,
+    len(loader) times.  The rows are the data-parallel rank's: on a
+    tensor-parallel grid every process of dp block d gets block d's rows."""
 
     def __init__(self, loader):
         from coda_neurips2023_tpu_torch.parallel import dist as pdist
 
         self.loader = loader
-        self.rank, self.world = pdist.get_rank(), pdist.get_world_size()
+        self.world, self.process = pdist.get_world_size(), pdist.process_rank()
+        # each process's data-parallel rank, whose rows it takes
+        self.blocks = [pdist.data_parallel_rank(r) for r in range(pdist.process_count())]
 
     @property
     def epoch(self):
@@ -226,21 +230,22 @@ class RankLoader:
     def __iter__(self) -> Iterator[dict]:
         from coda_neurips2023_tpu_torch.parallel import ddp
 
-        if self.rank != 0:
+        if self.process != 0:
             for _ in range(len(self.loader)):
                 yield ddp.receive_rows()
             return
         for batch in self.loader:
-            for r in range(1, self.world):
-                ddp.send_rows(r, ddp.rows(batch, r, self.world))
+            for r in range(1, len(self.blocks)):
+                ddp.send_rows(r, ddp.rows(batch, self.blocks[r], self.world))
             yield ddp.rows(batch, 0, self.world)
 
 
 def shard(loader):
-    """`loader` itself in one process; over several ranks, a RankLoader of it."""
+    """`loader` itself in one process; over several processes, a RankLoader
+    of it."""
     from coda_neurips2023_tpu_torch.parallel import dist as pdist
 
-    return RankLoader(loader) if pdist.is_distributed() else loader
+    return RankLoader(loader) if pdist.process_count() > 1 else loader
 
 
 def to_device(batch: dict, device) -> dict:

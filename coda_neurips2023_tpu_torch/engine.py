@@ -145,7 +145,11 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     summed over the ranks in one flat all-reduce before the optimizer (whose
     clip by global norm so sees the global gradient), and the loss and its
     terms in `metrics` are summed over the ranks: the global loss, alike on
-    every rank.
+    every rank.  On a tensor-parallel grid (parallel/tp.py, the model and
+    optimizer passed through `shard_state_tp`) the same step runs each
+    process's shard: "the ranks" are the dp blocks, the sharded blocks
+    place their own mp collectives, and the optimizer's norm counts each
+    shard once.
     """
     record = torch.profiler.record_function
 
@@ -191,7 +195,10 @@ def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generat
     draws.  Rank r > 0 of a data-parallel run folds r in too, so each rank's
     rows draw their own dropout masks and crops (the JAX package draws one
     mask over the global batch from its key; R ranks draw other masks than
-    one rank does)."""
+    one rank does).  On a tensor-parallel grid `rank` is the dp block's
+    (parallel/dist.py get_rank): a block's mp processes draw the same masks
+    and crops, each taking its shard's part where the activation is
+    sharded."""
     entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
     state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
@@ -226,12 +233,12 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
     status line and, with `logger`, the Train_details/ scalars (at the
     optimizer's step count) are written.  Nothing else waits for the device.
     Over several ranks the losses read back are the all-reduced ones, so
-    every rank aborts at the same step, and only rank 0 prints.
+    every rank aborts at the same step, and only process 0 prints.
     """
     iter_time = SmoothedValue(window_size=10)
     loss_avg = SmoothedValue(window_size=10)
     rank = pdist.get_rank()
-    if rank:
+    if not pdist.is_primary():
         log = lambda *a, **k: None  # noqa: E731
     pending = []
     metrics = {}

@@ -28,6 +28,11 @@ before the bias; the image tower's attention is kernel E-bf16's numerics
 causal attention is flax's stock bf16 attention (bf16 scores, masked with
 finfo(bf16).min, a bf16 softmax); LayerNorms are flax's with bf16 params
 (fp32 statistics, one rounding); both towers return fp32 features.
+
+On a tensor-parallel grid (parallel/tp.py) each block's attention runs its
+local heads (kernel E at heads / mp) and its MLP its local hidden units;
+under the teacher's no_grad that is one all-reduce after out_proj and one
+after c_proj.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from torch import nn
 
 from coda_neurips2023_tpu_torch.models.helpers import LayerNorm, flax_softmax, linear, rounded
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
+from coda_neurips2023_tpu_torch.parallel import tp
 
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -53,20 +59,26 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class MultiheadSelfAttention(nn.Module):
     """Self-attention with torch.nn.MultiheadAttention's parameter layout:
-    in_proj_weight (3W, W), in_proj_bias (3W,), out_proj (W -> W)."""
+    in_proj_weight (3W, W), in_proj_bias (3W,), out_proj (W -> W).  On a
+    tensor-parallel grid (`grid`, parallel/tp.py) it runs its heads / mp
+    local heads at the global head width W / heads, out_proj row-parallel."""
 
     def __init__(self, width: int, heads: int, device=None):
         super().__init__()
         self.heads = heads
+        self.grid = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width, device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width, device=device))
         self.out_proj = nn.Linear(width, width, device=device)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, s, w = x.shape
+        d = w // self.heads
+        h = self.heads // (self.grid.mp if self.grid is not None else 1)
         dt = self.in_proj_weight.dtype
+        (x,) = tp.copy_to_mp(x, grid=self.grid)
         qkv = linear(x, self.in_proj_weight, self.in_proj_bias, dt)
-        qkv = qkv.view(b, s, 3, self.heads, w // self.heads).permute(2, 0, 3, 1, 4)
+        qkv = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv)  # (B, H, S, D) each
         if causal:
             allowed = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
@@ -80,19 +92,28 @@ class MultiheadSelfAttention(nn.Module):
                 out = torch.matmul(flax_softmax(scores), v)
         else:
             out = vit_attention(q, k, v)
-        out = out.transpose(1, 2).reshape(b, s, w)
+        out = out.transpose(1, 2).reshape(b, s, h * d)
+        if self.grid is not None:
+            return tp.row_parallel(out, self.out_proj.weight, self.out_proj.bias, dt, self.grid)
         return linear(out, self.out_proj.weight, self.out_proj.bias, dt)
 
 
 class MLP(nn.Module):
+    """c_fc, quick_gelu, c_proj; on a tensor-parallel grid (`grid`) c_fc
+    column-parallel and c_proj row-parallel over the local hidden units."""
+
     def __init__(self, width: int, device=None):
         super().__init__()
+        self.grid = None
         self.c_fc = nn.Linear(width, 4 * width, device=device)
         self.c_proj = nn.Linear(4 * width, width, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.c_fc.weight.dtype
+        (x,) = tp.copy_to_mp(x, grid=self.grid)
         y = quick_gelu(linear(x, self.c_fc.weight, self.c_fc.bias, dt))
+        if self.grid is not None:
+            return tp.row_parallel(y, self.c_proj.weight, self.c_proj.bias, dt, self.grid)
         return linear(y, self.c_proj.weight, self.c_proj.bias, dt)
 
 

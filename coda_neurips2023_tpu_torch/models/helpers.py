@@ -96,13 +96,20 @@ def flax_softmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            columns: Optional[torch.Tensor] = None, width: int = 0) -> torch.Tensor:
     """flax nn.Dropout: where(keep, x / keep_prob, 0), keep_prob rounded to
-    x's dtype; identity at eval or rate 0."""
+    x's dtype; identity at eval or rate 0.  With `columns`, x holds those
+    positions of a last axis `width` wide (a tensor-parallel shard): the
+    mask is drawn at the full width and those columns kept, the shard of
+    the one-process mask."""
     if not training or rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape = x.shape if columns is None else (*x.shape[:-1], width)
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if columns is not None:
+        keep = keep[..., columns]
     return torch.where(keep, x / rounded(keep_prob, x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -57,6 +57,12 @@ masks (its rngs are lifted); checkpoint restores only the global RNG
 states, so `_checkpointed` also puts the explicit generator back to its
 state at the layer's entry for the recompute, and the recompute draws the
 forward's masks: the step is the step without remat, bit for bit.
+
+On a tensor-parallel grid (parallel/tp.py) each attention runs its local
+heads, nhead / mp of them, at the global head width d_model / nhead (kernel
+D at H / mp heads), and each FFN its local hidden units; `copy_to_mp` on
+the inputs of q/k/v (the memory's too in cross-attention) and of linear1,
+`row_parallel` for out_proj and linear2, their biases added after the sum.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from coda_neurips2023_tpu_torch.ops.masked_attention import (
     masked_attention,
     masked_attention_plain,
 )
+from coda_neurips2023_tpu_torch.parallel import tp
 
 # the masked encoder's squared radii (JAX model_3detr.py:100) and interim SA
 MASKING_RADIUS = tuple(x ** 2 for x in (0.4, 0.8, 1.2))
@@ -120,12 +127,16 @@ def _remat(module) -> bool:
 
 class MultiheadAttention(nn.Module):
     """Parameters as torch.nn.MultiheadAttention's: in_proj_weight (3C, C),
-    in_proj_bias (3C,), out_proj.{weight, bias}."""
+    in_proj_bias (3C,), out_proj.{weight, bias}.  On a tensor-parallel grid
+    (`grid`, set by parallel/tp.py shard_state_tp) the projections hold this
+    process's nhead / mp heads, out_proj.weight their input columns: the
+    inputs pass tp.copy_to_mp and the output projection is row-parallel."""
 
     def __init__(self, d_model: int, nhead: int, device=None, dtype=torch.float32):
         super().__init__()
         self.nhead = nhead
         self.dtype = dtype
+        self.grid = None
         self.in_proj_weight = nn.Parameter(torch.empty((3 * d_model, d_model), device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model, device=device))
         self.out_proj = Dense(d_model, d_model, device=device, weight_init="xavier_uniform",
@@ -139,8 +150,9 @@ class MultiheadAttention(nn.Module):
         radius of the query's point: xyz (B, S, 3)."""
         b, sq, c = query.shape
         skv = key.shape[1]
-        h = self.nhead
-        d = c // h
+        d = c // self.nhead  # the head width, of the global head count
+        h = self.nhead // (self.grid.mp if self.grid is not None else 1)  # the heads here
+        query, key, value = tp.copy_to_mp(query, key, value, grid=self.grid)
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         seed = None
@@ -165,7 +177,7 @@ class MultiheadAttention(nn.Module):
                     weights = bf16_drop(weights, attention_keep_mask(seed, sq, skv, dropout),
                                         dropout)
                 out = torch.matmul(weights, v)
-            return self.out_proj(out.transpose(1, 2).reshape(b, sq, c))
+            return self._out(out.transpose(1, 2).reshape(b, sq, h * d))
         q = nn.functional.linear(query, wq, bq).reshape(b, sq, h, d).transpose(1, 2)
         q = (q / math.sqrt(d)).contiguous()  # (B, H, Sq, D), flax scales first
         k = nn.functional.linear(key, wk, bk).reshape(b, skv, h, d).permute(0, 2, 3, 1)
@@ -177,7 +189,27 @@ class MultiheadAttention(nn.Module):
             kxyz_t = xyz.transpose(1, 2).contiguous()
         out = attend(q, k.contiguous(), v.contiguous(), qxyz, kxyz_t, radius, dropout=dropout,
                      seed=seed)
-        return self.out_proj(out.transpose(1, 2).reshape(b, sq, c))
+        return self._out(out.transpose(1, 2).reshape(b, sq, h * d))
+
+    def _out(self, x):
+        if self.grid is None:
+            return self.out_proj(x)
+        return tp.row_parallel(x, self.out_proj.weight, self.out_proj.bias, self.dtype, self.grid)
+
+
+def _feed_forward(layer, x, generator):
+    """linear2(dropout(activation(linear1(x)))) of an encoder or decoder
+    layer; on a tensor-parallel grid (`layer.grid`) linear1 holds this
+    process's hidden units (column-parallel, its dropout the columns of the
+    full-width mask) and linear2 their input columns (row-parallel)."""
+    if layer.grid is None:
+        return layer.linear2(layer._drop(layer.activation(layer.linear1(x)), generator))
+    (x,) = tp.copy_to_mp(x, grid=layer.grid)
+    w1 = layer.linear1.weight
+    hidden = dropout(layer.activation(layer.linear1(x)), layer.dropout, layer.training, generator,
+                     tp.local_columns(w1), len(w1.tp_owner))
+    return tp.row_parallel(hidden, layer.linear2.weight, layer.linear2.bias, layer.linear2.dtype,
+                           layer.grid)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -194,6 +226,7 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, device=device)
         self.norm2 = LayerNorm(d_model, device=device)
         self.activation = ACT[activation]()
+        self.grid = None  # the FFN's tensor-parallel grid (_feed_forward)
 
     def _drop(self, x, generator):
         return dropout(x, self.dropout, self.training, generator)
@@ -206,9 +239,8 @@ class TransformerEncoderLayer(nn.Module):
         attn = self.self_attn(q, q, src2, dropout=self.dropout, generator=generator, xyz=xyz,
                               radius=radius)
         src = src + self._drop(attn, generator)
-        src2 = self.norm2(src)
-        ff = self._drop(self.activation(self.linear1(src2)), generator)
-        return src + self._drop(self.linear2(ff), generator)  # fp32 + the dtype's: fp32
+        ff = _feed_forward(self, self.norm2(src), generator)
+        return src + self._drop(ff, generator)  # fp32 + the dtype's: fp32
 
 
 class TransformerEncoder(nn.Module):
@@ -284,6 +316,7 @@ class TransformerDecoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, device=device)
         self.norm3 = LayerNorm(d_model, device=device)
         self.activation = ACT[activation]()
+        self.grid = None  # the FFN's tensor-parallel grid (_feed_forward)
 
     def _drop(self, x, generator):
         return dropout(x, self.dropout, self.training, generator)
@@ -298,9 +331,8 @@ class TransformerDecoderLayer(nn.Module):
         kk = memory if pos is None else memory + pos
         ca = self.multihead_attn(qq, kk, memory, dropout=self.dropout, generator=generator)
         tgt = tgt + self._drop(ca, generator)
-        tgt2 = self.norm3(tgt)
-        ff = self._drop(self.activation(self.linear1(tgt2)), generator)
-        return tgt + self._drop(self.linear2(ff), generator)
+        ff = _feed_forward(self, self.norm3(tgt), generator)
+        return tgt + self._drop(ff, generator)
 
 
 class TransformerDecoder(nn.Module):

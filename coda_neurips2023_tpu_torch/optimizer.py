@@ -8,7 +8,8 @@ optax chain, in its order:
 
   * clip (optax clip_by_global_norm): g stays when ||g|| < max_norm, else
     becomes (g / ||g||) * max_norm.  (torch's clip_grad_norm_ adds 1e-6 to
-    the norm, so it is not used.)
+    the norm, so it is not used.)  On a tensor-parallel grid ||g|| is the
+    whole gradient's: each shard counted once.
   * Adam (optax scale_by_adam, b1 0.9, b2 0.999, eps 1e-8): m = 0.1 g +
     0.9 m, v = 0.001 g^2 + 0.999 v, u = m_hat / (sqrt(v_hat) + eps) with the
     bias corrections of step t = 1, 2, ... (1 - decay^t, in float32 as optax
@@ -126,6 +127,20 @@ class AdamW:
         for p in self.params:
             p.grad = None
 
+    def _global_norm(self, norms: torch.Tensor) -> torch.Tensor:
+        """The norm of every gradient, from each tensor's norm.  A shard of a
+        tensor-parallel grid (a parameter with `tp_grid`, parallel/tp.py)
+        holds one mp-th of its tensor: the shards' squares are summed over
+        the grid's mp group, so each shard counts once and each replicated
+        tensor once, as optax's global norm of the whole arrays."""
+        grids = [getattr(p, "tp_grid", None) for p in self.params]
+        grid = next((g for g in grids if g is not None), None)
+        if grid is None:
+            return torch.linalg.vector_norm(norms)
+        sharded = torch.tensor([g is not None for g in grids], device=norms.device)
+        squares = norms * norms
+        return torch.sqrt(squares[~sharded].sum() + grid.mp_sum(squares[sharded].sum()))
+
     @torch.no_grad()
     def step(self, lr) -> torch.Tensor:
         """One update from the parameters' .grad (a missing grad counts as
@@ -133,7 +148,7 @@ class AdamW:
         the parameters' device).  Returns the gradients' global norm before
         clipping."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        g_norm = self._global_norm(torch.stack(torch._foreach_norm(grads)))
         if self.clip_gradient > 0:
             # (g / ||g||) * max_norm where it triggers, g / 1 * 1 elsewhere
             clipped = g_norm >= self.clip_gradient

@@ -29,7 +29,12 @@ rank instead, and does by hand what the mesh does:
     `broadcast_state`, rank 0's parameters and buffers to every rank, as DDP
     does when it wraps a model.
 
-Tensor parallelism (the JAX package's parallel/tp.py) is not ported.
+Tensor parallelism is parallel/tp.py: on its (dp, mp) grid "the ranks" of
+the row rule and the gradient all-reduce are the dp blocks (parallel/dist.py
+narrows the reductions to a process's dp group): rank 0 sends block d's rows
+to each of its mp processes, and the gradient all-reduce runs over the dp
+group.  `broadcast_state` sends a shard over its dp group from block 0's
+process of that shard, and the rest from process 0.
 """
 
 from __future__ import annotations
@@ -167,7 +172,7 @@ def send_rows(rank: int, batch_rows: dict) -> None:
 def receive_rows() -> dict:
     """Rank r > 0: the next rows rank 0 sent it, as numpy arrays (views of
     the shared buffer) and lists, in the batch's key order."""
-    buffer, layout, others, keys = _ROW_QUEUES[pdist.get_rank()].get()
+    buffer, layout, others, keys = _ROW_QUEUES[pdist.process_rank()].get()
     flat = buffer.numpy()
     for k, start, dtype, shape in layout:
         dtype = np.dtype(dtype)
@@ -176,15 +181,19 @@ def receive_rows() -> dict:
 
 
 def all_reduce_gradients(params) -> int:
-    """Sum every parameter's gradient over the ranks, in place, in one flat
-    all-reduce (a missing gradient counts as zeros, as AdamW reads it);
-    returns the bytes all-reduced (0 in one process)."""
+    """Sum every parameter's gradient over the data-parallel ranks, in place,
+    in one flat all-reduce (a missing gradient counts as zeros, as AdamW
+    reads it); returns the bytes all-reduced (0 in one process, and on a
+    grid of one dp block).  On a tensor-parallel grid a replicated
+    parameter's gradient is already whole on each of a block's mp processes
+    (tp.copy_to_mp summed it) and a shard's is its own, so the dp group's sum
+    is the global gradient of each."""
     if not pdist.is_distributed():
         return 0
     params = list(params)
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params])
-    tdist.all_reduce(flat)
+    tdist.all_reduce(flat, group=pdist.data_parallel_group())
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad = g.view_as(p)
     return flat.numel() * flat.element_size()
@@ -192,15 +201,20 @@ def all_reduce_gradients(params) -> int:
 
 @torch.no_grad()
 def broadcast_state(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers, copied into every rank's `module`
-    (one broadcast a dtype)."""
-    if not pdist.is_distributed():
+    """Process 0's parameters and buffers, copied into every process's
+    `module` (one broadcast a dtype).  On a tensor-parallel grid a shard
+    comes from block 0's process of the same shard, over this process's dp
+    group, and every other tensor from process 0."""
+    if pdist.process_count() == 1:
         return
     groups = {}
     for t in [*module.parameters(), *module.buffers()]:
-        groups.setdefault(t.dtype, []).append(t)
-    for tensors in groups.values():
+        groups.setdefault((t.dtype, getattr(t, "tp_grid", None)), []).append(t)
+    for (_, grid), tensors in groups.items():
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        tdist.broadcast(flat, 0)
+        if grid is None:
+            tdist.broadcast(flat, 0)
+        else:  # block 0's process of this shard: process mp_rank
+            tdist.broadcast(flat, grid.mp_rank, group=grid.dp_group)
         for t, piece in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(piece.view_as(t))

@@ -12,6 +12,16 @@ loss normalizers.  A gloo group beside it (`dist.new_group(backend="gloo")`)
 carries host objects: string fields, eval outputs already copied back,
 metrics, and the barrier.  Outside a process group every function is what it
 is in one process: the identity, a no-op, rank 0 of 1.
+
+The ranks these collectives reduce over are the data-parallel ones.  In a
+plain data-parallel run they are every process.  Under a tensor-parallel
+grid (parallel/tp.py, `make_tp_grid`) process r = d * mp + m holds shard m of
+the model for data block d, and `use_data_parallel_groups` narrows
+`get_world_size`, `get_rank` and every reduction to the dp group of r's
+block peers {m, mp + m, ...} and its gloo twin: each block's rows count
+once, not once a shard.  `process_rank` / `process_count` stay the
+process group's own, and so do `is_primary` (process 0 writes) and the
+barrier.
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ import torch
 import torch.distributed as tdist
 
 _HOST_GROUP = None
+# under a tensor-parallel grid: (device group, gloo group) of this process's
+# data-parallel peers; (None, None) is the whole process group
+_DP_GROUPS = (None, None)
 
 
 def init(backend: str, init_method: str, world_size: int, rank: int) -> None:
@@ -31,18 +44,53 @@ def init(backend: str, init_method: str, world_size: int, rank: int) -> None:
 
 
 def shutdown() -> None:
-    global _HOST_GROUP
+    global _HOST_GROUP, _DP_GROUPS
     if tdist.is_available() and tdist.is_initialized():
         tdist.destroy_process_group()
-    _HOST_GROUP = None
+    _HOST_GROUP, _DP_GROUPS = None, (None, None)
+
+
+def use_data_parallel_groups(group, host_group) -> None:
+    """Reduce over `group` (device tensors) and `host_group` (host objects)
+    from now on: a tensor-parallel grid's dp group of this process."""
+    global _DP_GROUPS
+    _DP_GROUPS = (group, host_group)
+
+
+def data_parallel_group():
+    """The device group the data-parallel reductions run over (None: the
+    whole process group)."""
+    return _DP_GROUPS[0]
+
+
+def _initialized() -> bool:
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def process_count() -> int:
+    """The processes of the process group (1 outside one)."""
+    return tdist.get_world_size() if _initialized() else 1
+
+
+def process_rank() -> int:
+    return tdist.get_rank() if _initialized() else 0
 
 
 def get_world_size() -> int:
-    return tdist.get_world_size() if tdist.is_available() and tdist.is_initialized() else 1
+    """The data-parallel ranks: the processes, or a grid's dp blocks."""
+    return tdist.get_world_size(_DP_GROUPS[0]) if _initialized() else 1
 
 
 def get_rank() -> int:
-    return tdist.get_rank() if tdist.is_available() and tdist.is_initialized() else 0
+    """This process's data-parallel rank: its process rank, or its grid's dp
+    block."""
+    return tdist.get_rank(_DP_GROUPS[0]) if _initialized() else 0
+
+
+def data_parallel_rank(process: int) -> int:
+    """The data-parallel rank of process `process`: process // mp on a grid
+    of mp shards a block (r = d * mp + m), the process itself without one."""
+    return process // (process_count() // get_world_size())
 
 
 def is_distributed() -> bool:
@@ -50,13 +98,13 @@ def is_distributed() -> bool:
 
 
 def is_primary() -> bool:
-    """Whether this process writes logs, checkpoints and eval files: rank 0
-    of a data-parallel run, and the one process of any other."""
-    return get_rank() == 0
+    """Whether this process writes logs, checkpoints and eval files: process
+    0 of a process group, and the one process of any other."""
+    return process_rank() == 0
 
 
 def barrier() -> None:
-    if is_distributed():
+    if process_count() > 1:
         tdist.barrier(group=_HOST_GROUP)
 
 
@@ -66,7 +114,7 @@ def global_sum(tensor: torch.Tensor) -> torch.Tensor:
     if not is_distributed():
         return tensor
     out = tensor.detach().clone()
-    tdist.all_reduce(out)
+    tdist.all_reduce(out, group=_DP_GROUPS[0])
     return out
 
 
@@ -76,13 +124,13 @@ class _GlobalSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor):
         out = tensor.clone()
-        tdist.all_reduce(out)
+        tdist.all_reduce(out, group=_DP_GROUPS[0])
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        tdist.all_reduce(grad)
+        tdist.all_reduce(grad, group=_DP_GROUPS[0])
         return grad
 
 
@@ -120,7 +168,7 @@ def all_gather_dict(data: dict) -> dict:
     if not is_distributed():
         return data
     parts = [None] * get_world_size()
-    tdist.all_gather_object(parts, data, group=_HOST_GROUP)
+    tdist.all_gather_object(parts, data, group=_DP_GROUPS[1] or _HOST_GROUP)
     return {k: _concat([p[k] for p in parts]) for k in data}
 
 
@@ -129,7 +177,7 @@ def sum_over_ranks(value):
     if not is_distributed():
         return value
     parts = [None] * get_world_size()
-    tdist.all_gather_object(parts, value, group=_HOST_GROUP)
+    tdist.all_gather_object(parts, value, group=_DP_GROUPS[1] or _HOST_GROUP)
     total = parts[0]
     for p in parts[1:]:
         total = total + p

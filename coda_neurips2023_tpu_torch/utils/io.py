@@ -18,7 +18,11 @@ tensors come to the host in one copy for each dtype (the model's weights and
 buffers and AdamW's two moments, packed on the device first).  The JAX
 package keeps an orbax directory and a JSON sidecar instead; it reads the
 port's file through its own converter (utils/torch_convert.py), as it reads
-the reference's.
+the reference's.  Under a tensor-parallel grid (parallel/tp.py) every
+process calls `save_checkpoint`: each block's processes gather their shards
+of the weights and moments, and process 0 writes whole tensors, as the JAX
+package writes a sharded state; `resume_if_possible` reads whole tensors
+and keeps this process's slices.
 
 `restore_params_only` takes a reference-format checkpoint (`.pth` or `.pt`:
 a torch pickle of {"model": state_dict, ...}, or the state dict alone), for
@@ -44,6 +48,7 @@ import os
 
 import torch
 
+from coda_neurips2023_tpu_torch.parallel import tp
 from coda_neurips2023_tpu_torch.parallel.dist import is_primary
 
 # entries of a reference checkpoint that are not the detector's weights
@@ -84,12 +89,16 @@ def save_checkpoint(checkpoint_dir: str, model: torch.nn.Module, optimizer, epoc
                     best_val_metrics: dict = None, filename: str = "checkpoint") -> str:
     """Write `model`'s state dict, `optimizer`'s state, `epoch` and
     `best_val_metrics` to <checkpoint_dir>/<filename>.pth; returns the path
-    (None where this process does not write)."""
+    (None where this process does not write).  Under a grid every process
+    must call it: the shards are gathered first."""
+    grid = tp.grid_of(model)
+    if grid is not None:
+        model_sd, opt_sd = tp.gather_state_tp(grid, model), tp.gather_optimizer_tp(grid, optimizer)
     if not is_primary():
         return None
     os.makedirs(checkpoint_dir, exist_ok=True)
-    model_sd = model.state_dict()
-    opt_sd = optimizer.state_dict()
+    if grid is None:
+        model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
     names = list(model_sd)
     moments = [(key, name) for key in ("mu", "nu") for name in opt_sd[key]]
     host = _to_host([model_sd[n] for n in names] + [opt_sd[k][n] for k, n in moments])
@@ -118,8 +127,13 @@ def resume_if_possible(checkpoint_dir: str, model: torch.nn.Module, optimizer,
     if path is None or not os.path.isfile(path):
         return -1, {}
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(obj["model"], strict=True)
-    optimizer.load_state_dict(obj["optimizer"])
+    model_sd, opt_sd = obj["model"], obj["optimizer"]
+    if tp.grid_of(model) is not None:  # whole tensors: this process's slices
+        model_sd = tp.local_slices(model_sd, model.state_dict(keep_vars=True))
+        named = dict(zip(optimizer.names, optimizer.params))
+        opt_sd = dict(opt_sd, **{k: tp.local_slices(opt_sd[k], named) for k in ("mu", "nu")})
+    model.load_state_dict(model_sd, strict=True)
+    optimizer.load_state_dict(opt_sd)
     return int(obj["epoch"]), dict(obj.get("best_val_metrics", {}))
 
 

@@ -23,6 +23,7 @@ from coda_neurips2023_tpu.models.tokenizer import SimpleTokenizer as JaxTokenize
 
 from coda_neurips2023_tpu_torch.datasets import config as port_config
 from coda_neurips2023_tpu_torch.models import tokenizer as port_tokenizer
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "coda_neurips2023_tpu_torch"

@@ -41,6 +41,7 @@ from coda_neurips2023_tpu_torch.ops.masked_attention import (
     masked_attention_plain,
     masked_attention_split_plain,
 )
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 ATTN_TOL = 1e-4
 VIT_ATTN_TOL = 1e-4  # chip_smoke.py's bound for kernel E

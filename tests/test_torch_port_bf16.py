@@ -86,6 +86,7 @@ from coda_neurips2023_tpu_torch.utils.weights import clip_state_dict_from_flax, 
 from test_torch_port_clip import _perturb_clip
 from test_torch_port_model import NO_LAYER_AXIS, _assert_no_boundary_flip, _batch
 from test_torch_port_model import TINY, _build
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 TOWER_COS = 0.999

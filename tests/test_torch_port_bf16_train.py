@@ -78,6 +78,7 @@ from test_torch_port_clip import TINY_CLIP, _port_clip
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _build
 from test_torch_port_stage1 import CROP, N_SEL, STAGE1_ARGS, _image_scenes, _jax_sel
 from test_torch_port_train import BASELINE_ARGS
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 NO_DROPOUT = dict(mlp_dropout=0.0, enc_dropout=0.0, dec_dropout=0.0)

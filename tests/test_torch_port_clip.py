@@ -54,6 +54,7 @@ from coda_neurips2023_tpu_torch.stages import StageContext
 from coda_neurips2023_tpu_torch.utils.weights import clip_state_dict_from_flax, to_torch
 
 from test_torch_port_model import TINY, _build
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TOL = 1e-4
 ATTN_TOL = 2e-5

@@ -28,6 +28,7 @@ from coda_neurips2023_tpu_torch.models import clip as tclip
 from coda_neurips2023_tpu_torch.utils.weights import clip_state_dict_from_flax, to_torch
 
 from test_prompt_text import reference_insert
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 PROMPT_TOL = 1e-5
 PREPROCESS_TOL = 1e-4

@@ -42,6 +42,7 @@ from coda_neurips2023_tpu_torch.criterion import LOSSES, _LAST_LAYER_ONLY, build
 from coda_neurips2023_tpu_torch.datasets.config import SunrgbdAnonymousConfig
 
 from test_torch_port_train import BASELINE_ARGS, _outputs_near_targets, _scenes
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 LOSS_TOL = 1e-5
 NUM_LAYERS, NQ, EMB, NCLS = 3, 16, 16, 12  # NCLS: the text bank, above train_range_max 10

@@ -68,6 +68,7 @@ from test_torch_port_train import (
     _scenes,
 )
 from test_torch_port_train_loop import WEIGHT_TOL
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 WORLD = 2
 PER_RANK = 2

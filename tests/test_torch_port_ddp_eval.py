@@ -46,6 +46,7 @@ import torch_ddp_ranks
 from test_torch_port_clip import TINY_CLIP
 from test_torch_port_eval import METRIC_TOL, OUTPUT_TOL, _assert_metrics_close
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _build
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 WORLD = 2
 PER_RANK = 2

@@ -37,6 +37,7 @@ from test_torch_port_ddp_main import FLAGS as BASELINE_FLAGS
 from test_torch_port_ddp_main import with_flags
 from test_torch_port_stage2_loop import NOVEL_ROW, STAGE2_FLAGS
 from test_torch_port_train_loop import WEIGHT_TOL
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 WORLD = 2
 PER_RANK = 2

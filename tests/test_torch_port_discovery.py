@@ -48,6 +48,7 @@ from coda_neurips2023_tpu_torch.ops.projection import (
 
 from test_torch_port_clip import TINY_CLIP, _jax_clip, _port_clip
 from test_torch_port_train import BASELINE_ARGS, _outputs_near_targets, _scenes
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 IOU_TOL = 1e-6
 ROW_TOL = 1e-5

@@ -56,6 +56,7 @@ from coda_neurips2023_tpu_torch.utils.io import restore_params_only
 
 from test_torch_port_clip import TINY_CLIP, _port_clip
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _build
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 OUTPUT_TOL = 1e-4

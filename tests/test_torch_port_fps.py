@@ -28,6 +28,7 @@ from coda_neurips2023_tpu_torch.ops.sampling import (
 )
 
 from golden import fps_golden
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 

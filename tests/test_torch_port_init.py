@@ -43,6 +43,7 @@ from coda_neurips2023_tpu_torch.utils.weights import state_dict_from_flax, to_to
 
 from test_torch_port_clip import TINY_CLIP
 from test_torch_port_model import TINY
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 CONFIGS = {
     "sunrgbd": (JaxSunrgbdConfig, SunrgbdAnonymousConfig, {}),

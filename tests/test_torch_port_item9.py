@@ -65,6 +65,7 @@ from test_torch_port_model import (
     _perturb,
     _t,
 )
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 FLOAT_TOL = 1e-4
 EMBED_TOL = 1e-5

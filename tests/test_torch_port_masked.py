@@ -80,6 +80,7 @@ from test_torch_port_train import (
     _np,
     _scenes,
 )
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 MASKED = dict(enc_dim=32, dec_dim=64, enc_type="masked", enc_ffn_dim=32, dec_nlayers=2,
               dec_ffn_dim=32, preenc_npoints=64, nqueries=16)

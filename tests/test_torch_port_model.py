@@ -41,6 +41,7 @@ from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
 from coda_neurips2023_tpu_torch.ops.grouping import ball_query
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 from coda_neurips2023_tpu_torch.utils.weights import state_dict_from_flax, to_torch
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 TINY = dict(enc_dim=32, dec_dim=64, enc_nlayers=2, dec_nlayers=3, enc_ffn_dim=32,
             dec_ffn_dim=32, preenc_npoints=64, nqueries=16)

@@ -41,6 +41,7 @@ from coda_neurips2023_tpu_torch import stages
 
 from test_torch_port_clip import TINY_CLIP, _port_clip
 from test_torch_port_model import TINY, _build
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 FLOAT_TOL = 1e-5
 SCENES = 20  # a test split of 5: two batches of 2 and a tail of 1

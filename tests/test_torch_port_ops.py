@@ -54,6 +54,7 @@ from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gathe
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
 
 from golden import ball_query_golden, fps_golden
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 ATTN_TOL = 1e-5
 

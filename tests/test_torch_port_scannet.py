@@ -77,6 +77,7 @@ from test_torch_port_eval import METRIC_TOL, OUTPUT_TOL, _assert_batches_equal, 
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _perturb
 from test_torch_port_train import BASELINE_ARGS, GRAD_TOL, NO_DROPOUT, STEP_LOSS_TOL
 from test_vocab import SCANNET_TEST_LIST, SCANNET_TRAIN_LIST
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 PROJ_RTOL = 1e-5
 NUM_POINTS = 1024

@@ -60,6 +60,7 @@ from coda_neurips2023_tpu_torch.utils.weights import grads_from_flax
 from test_torch_port_clip import TINY_CLIP, _jax_clip, _port_clip
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _build
 from test_torch_port_train import BASELINE_ARGS, _outputs_near_targets, _scenes
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 EMB_TOL = 1e-5
 LOSS_TOL = 1e-5

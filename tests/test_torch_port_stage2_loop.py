@@ -39,6 +39,7 @@ from coda_neurips2023_tpu_torch import main as tmain
 
 from test_torch_port_clip import TINY_CLIP, _jax_clip, _port_clip
 from test_torch_port_train_resume import STAGE1_FLAGS
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 SCENES, BATCH, EPOCHS = 16, 4, 4
 IPE = SCENES // BATCH

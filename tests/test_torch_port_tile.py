@@ -48,6 +48,7 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
 
 from golden import ball_query_golden
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 FAR = 50.0
 

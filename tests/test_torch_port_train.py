@@ -78,6 +78,7 @@ from coda_neurips2023_tpu_torch.utils.weights import grads_from_flax, state_dict
 
 from golden import ball_query_golden, giou_golden
 from test_torch_port_model import TINY, _assert_no_boundary_flip, _perturb
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 NUM_POINTS = 1024
 GIOU_TOL = 1e-5

@@ -49,6 +49,7 @@ from coda_neurips2023_tpu_torch import main as tmain
 
 from test_torch_port_clip import TINY_CLIP, _port_clip
 from test_torch_port_model import TINY
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 STEP_LOSS_TOL = 1e-4
 STEP_DRIFT_TOL = 2.5e-5

@@ -50,6 +50,7 @@ from coda_neurips2023_tpu_torch.utils import io
 
 from test_torch_port_clip import TINY_CLIP, _jax_clip, _port_clip
 from test_torch_port_model import TINY, _assert_no_boundary_flip
+from torch_one_thread import one_intra_op_thread  # noqa: F401
 
 FLOAT_TOL = 1e-4
 

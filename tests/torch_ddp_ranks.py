@@ -1,4 +1,5 @@
-"""Rank functions of the port's data-parallel tests (tests/test_torch_port_ddp*.py).
+"""Rank functions of the port's data- and tensor-parallel tests
+(tests/test_torch_port_ddp*.py, tests/test_torch_port_tp.py).
 
 `parallel.ddp.launch` starts each rank in a fresh process, which imports the
 module of the function it runs; this module imports the port and nothing of
@@ -222,3 +223,177 @@ def tiny_clip_context(cls, clip_config, clip_params, pinned=None):
         return c
 
     return ctx
+
+
+def tp_steps(case, grid=None, checkpoint_dir=None):
+    """The training steps of `case` in this process, on `grid` (parallel/tp.py)
+    or, without one, in one process: the tiny detector of case["model"]
+    (loaded from case["state"], or drawn by reset_parameters from
+    case["init_seed"], its biases then drawn at case["bias_scale"] where
+    given), its AdamW and criterion from case["args"], with
+    case["clip"] (a config and flax-free state dict) the fused stage-1 step
+    with that frozen CLIP, sharded too; case["steps"] steps on this dp
+    block's rows of case["batch"], each with step_generator(case["seed"],
+    count, rank) when case["seed"] is given.  Returns the losses, each
+    step's global gradient norm and mp all-reduce counts, the sharded
+    parameters' and moments' slices before the first step, the whole
+    gradients of the last step and the whole state after it.  With
+    `checkpoint_dir`, on the grid, then also: the trained state saved there
+    by every process (utils/io.py; process 0 writes), a fresh model and
+    optimizer (drawn from init seed 100 + the dp rank) sharded,
+    broadcast_state's slices of it and, resumed from the checkpoint, its
+    slices, moments and step count."""
+    from coda_neurips2023_tpu_torch.criterion import build_criterion
+    from coda_neurips2023_tpu_torch.datasets import config
+    from coda_neurips2023_tpu_torch.engine import make_train_step, step_generator
+    from coda_neurips2023_tpu_torch.models.clip import CLIP
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.optimizer import build_optimizer
+    from coda_neurips2023_tpu_torch.parallel import tp
+    from coda_neurips2023_tpu_torch.stages import StageContext
+    from coda_neurips2023_tpu_torch.utils.weights import to_torch
+
+    args = types.SimpleNamespace(**case["args"])
+    cfg = config.SunrgbdAnonymousConfig()
+    model = CoDA3DETR(cfg, **case["model"])
+    if "state" in case:
+        model.load_state_dict(to_torch(case["state"]), strict=True)
+    else:
+        gen = torch.Generator().manual_seed(case["init_seed"])
+        reset_parameters(model, gen)
+        if case.get("bias_scale"):  # flax draws zero biases: give them values
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith("bias"):
+                        p.add_(case["bias_scale"] * torch.randn(p.shape, generator=gen))
+    optimizer, schedule = build_optimizer(args, model, 600)
+    criterion = build_criterion(args, cfg, num_replicas=pdist.get_world_size())
+    ctx = None
+    if "clip" in case:
+        clip = CLIP(**case["clip"]["config"])
+        clip.load_state_dict(to_torch(case["clip"]["state"]), strict=True)
+        ctx = StageContext(args, cfg, clip_model=clip, crop_size=16, device="cpu")
+    out = {}
+    if grid is not None:
+        tp.shard_state_tp(grid, model, optimizer)
+        if ctx is not None:
+            tp.shard_state_tp(grid, ctx.clip_model)
+        out["optimizer_holds_the_slices"] = all(
+            p is q for p, q in zip(optimizer.params, model.parameters()))
+        out["slices"] = {n: p.detach().numpy().copy() for n, p in model.named_parameters()
+                         if hasattr(p, "tp_grid")}
+        out["moment_shapes"] = {n: (tuple(m.shape), tuple(v.shape)) for n, m, v in zip(
+            optimizer.names, optimizer.mu, optimizer.nu)}
+    if ctx is not None:
+        step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
+    else:
+        step = make_train_step(model, criterion, optimizer, schedule)
+    norms = []
+    update = optimizer.step
+
+    def recorded(lr):
+        norm = update(lr)
+        norms.append(float(norm))
+        return norm
+
+    optimizer.step = recorded
+    dp, d = pdist.get_world_size(), pdist.get_rank()
+    b = len(case["batch"]["point_clouds"]) // dp
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[d * b:(d + 1) * b]))
+             for k, v in case["batch"].items()}
+    out.update(losses=[], counts=[], norms=norms)
+    for _ in range(case.get("steps", 1)):
+        tp.reset_counts()
+        gen = None
+        if case.get("seed") is not None:
+            gen = step_generator(case["seed"], optimizer.count, "cpu", d)
+        out["losses"].append(float(step(dict(batch), gen)["loss"]))
+        out["counts"].append(dict(tp.COUNTS))
+    params = dict(model.named_parameters())
+    out["grads"] = {n: (tp.gather_shard(grid, p.grad, p) if hasattr(p, "tp_grid") else
+                        p.grad.detach()).numpy().copy() for n, p in params.items()}
+    state = tp.gather_state_tp(grid, model) if grid is not None else model.state_dict()
+    out["state"] = {k: v.detach().numpy().copy() for k, v in state.items()}
+    out["local"] = {n: p.detach().numpy().copy() for n, p in params.items()}
+    out["sharded"] = sorted(n for n, p in params.items() if hasattr(p, "tp_grid"))
+    out["summary"] = tp.tp_param_summary(model, grid.mp if grid is not None else 1)
+    if checkpoint_dir is not None:
+        out.update(tp_checkpoint(case, grid, model, optimizer, checkpoint_dir))
+    return out
+
+
+def tp_checkpoint(case, grid, model, optimizer, checkpoint_dir):
+    """tp_steps' checkpoint round trip on `grid` (see there)."""
+    from coda_neurips2023_tpu_torch.datasets import config
+    from coda_neurips2023_tpu_torch.models.helpers import reset_parameters
+    from coda_neurips2023_tpu_torch.models.model_3detr import CoDA3DETR
+    from coda_neurips2023_tpu_torch.optimizer import build_optimizer
+    from coda_neurips2023_tpu_torch.parallel import ddp, tp
+    from coda_neurips2023_tpu_torch.utils import io
+
+    def local(m, opt):
+        return dict(params={n: p.detach().numpy().copy() for n, p in m.named_parameters()},
+                    mu=[t.numpy().copy() for t in opt.mu], nu=[t.numpy().copy() for t in opt.nu],
+                    count=opt.count)
+
+    out = {"trained": local(model, optimizer)}
+    path = io.save_checkpoint(checkpoint_dir, model, optimizer, epoch=3)
+    out["wrote"] = path is not None
+    out["moments"] = {k: {n: t.numpy().copy() for n, t in v.items()}
+                      for k, v in tp.gather_optimizer_tp(grid, optimizer).items() if k != "count"}
+    fresh = CoDA3DETR(config.SunrgbdAnonymousConfig(), **case["model"])
+    reset_parameters(fresh, torch.Generator().manual_seed(100 + grid.dp_rank))
+    opt, _ = build_optimizer(types.SimpleNamespace(**case["args"]), fresh, 600)
+    tp.shard_state_tp(grid, fresh, opt)
+    ddp.broadcast_state(fresh)
+    out["broadcast"] = {k: v.numpy().copy() for k, v in tp.gather_state_tp(grid, fresh).items()}
+    pdist.barrier()  # process 0's file is whole before anyone reads it
+    out["epoch"] = io.resume_if_possible(checkpoint_dir, fresh, opt)[0]
+    out["resumed"] = local(fresh, opt)
+    return out
+
+
+def tensor_parallel(out_dir, grid_cases, pair_cases, pair_urls):
+    """tests/test_torch_port_tp.py's ranks: on the (dp 2, mp 2) grid of the
+    four processes, the scans of each batch of a RankLoader over
+    grid_cases["loader"]'s synthetic scenes (2 rows a dp block), the tiny
+    CLIP's slices and grid_cases' steps; then
+    processes 0-1 and 2-3 each join a process group of two at pair_urls[0]
+    and [1], and run pair_cases[0] and [1] on its (dp 1, mp 2) grid; then,
+    outside any process group, process p steps the p-th of the pair cases in
+    one process ("one").  Writes <out_dir>/rank<process>.pkl."""
+    from coda_neurips2023_tpu_torch.datasets import config
+    from coda_neurips2023_tpu_torch.datasets.loader import make_loader, shard
+    from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset
+    from coda_neurips2023_tpu_torch.models.clip import CLIP
+    from coda_neurips2023_tpu_torch.parallel import tp
+    from coda_neurips2023_tpu_torch.utils.weights import to_torch
+
+    process = pdist.process_rank()
+    result = {}
+    grid = tp.make_tp_grid(2)
+    result["layout"] = dict(dp=grid.dp, mp=grid.mp, dp_rank=grid.dp_rank, mp_rank=grid.mp_rank,
+                          world=pdist.get_world_size(), rank=pdist.get_rank(),
+                          primary=pdist.is_primary())
+    result["loader"] = [b["scan_idx"].tolist() for b in shard(make_loader(
+        SyntheticDetectionDataset(config.SunrgbdAnonymousConfig(), **grid_cases["loader"]),
+        2 * grid.dp, shuffle=True, seed=5, num_workers=1))]
+    clip = CLIP(**grid_cases["clip"]["config"])
+    clip.load_state_dict(to_torch(grid_cases["clip"]["state"]), strict=True)
+    tp.shard_state_tp(grid, clip)
+    result["clip_slices"] = {n: p.detach().numpy().copy() for n, p in clip.named_parameters()
+                             if hasattr(p, "tp_grid")}
+    result["clip_whole"] = {k: v.numpy().copy() for k, v in tp.gather_state_tp(grid, clip).items()}
+    for name, case in grid_cases["steps"].items():
+        result[name] = tp_steps(case, grid, os.path.join(out_dir, name))
+    pdist.shutdown()
+    pdist.init("gloo", pair_urls[process // 2], 2, process % 2)
+    grid = tp.make_tp_grid(2)
+    for name, case in pair_cases[process // 2].items():
+        result[name] = tp_steps(case, grid)
+    pdist.shutdown()
+    cases = [(name, case) for pair in pair_cases for name, case in pair.items()]
+    result["one"] = {name: tp_steps(case) for name, case in cases[process::4]}
+    with open(os.path.join(out_dir, f"rank{process}.pkl"), "wb") as f:
+        pickle.dump(result, f)
