@@ -18,7 +18,12 @@ result):
      32 x 2048 -> 128, 8 x 20000 -> 2048 and 8 x 40000 -> 2048, each at the
      cluster size its policy picks on this card, beside the floor of its
      loop (the same barriers and cross-block merge without the points'
-     work).
+     work).  Kernel C over GATHER_WIDTHS at (4, 2048) -> (4, 1024, 32): each
+     width with the features aligned and one element into their storage
+     (C % 4 == 0 takes the 16-byte branch only when aligned), with R ragged
+     against a warp's 32 rows (1023 x 31) and as gather_points' (B, 1, M)
+     view, bit for bit against group_points_plain; for C >= 64 its time,
+     torch.gather's in turns and the bytes bound.
   4. The flagship CoDA model (enc 256, dec 512, 3 + 8 layers, 2048 points,
      128 queries) with random weights from a seed, eval step on 3 batches of
      32 synthetic 20000-point scenes against the 46-class text bank, which
@@ -218,7 +223,8 @@ result):
      timed window (as D decides it), the bound counting the allowed pairs'
      products and every pair's distance test; D at the decoder's 1024 keys
      against SDPA; B at 32 x 1024 over 2048 bit for bit; C on the 256-d
-     features (1.07 GB out) bit for bit against torch.gather.  (b) The same
+     features (1.07 GB out) bit for bit against torch.gather, and the ms of
+     the torch.cat that follows it in query_and_group.  (b) The same
      weights on the CPU on 2 scenes: integer outputs equal, floats within
      MODEL_TOL.  (c) `main --test_only --enc_type masked --test_ckpt` (a
      .pth of (a)'s weights with the encoder.interim_downsampling.* names) on
@@ -350,6 +356,9 @@ EVAL_CLASSES = 46
 STEPS = 3
 REPS = 7
 SPAN_MS = 5.0  # a timed run of phase 3 spans at least this long
+# phase 3's sweep of kernel C: the xyz branch (3), the 16-byte tile branch
+# (C % 4 == 0 on aligned features) and the single-float one (the rest)
+GATHER_WIDTHS = (1, 2, 4, 5, 8, 16, 64, 128, 256, 259, 512)
 SEED = 0
 # fp32 attention: the kernel sums the 64/128-term dot products and the
 # softmax-weighted values in another order than cuBLAS, in 3xTF32 (about 22
@@ -650,6 +659,49 @@ def fps_floor(torch, xyz, npoint, cs):
                                                     cs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         fail(f"coda_fps_barrier_floor: CUDA error {err} at launch")
+
+
+def gather_sweep(torch):
+    """Phase 3: kernel C at every width of GATHER_WIDTHS, each case bit for
+    bit against group_points_plain: (B, 2048, C) features aligned and one
+    element into their storage, gathered at (B, 1024, 32) indices with the
+    ball query's padding, at ragged (B, 1023, 31) ones and as gather_points'
+    (B, 1, 1021) view; for C >= 64 kernel and torch.gather ms in turns
+    beside the bytes bound (aligned features, the (B, 1024, 32) indices)."""
+    from coda_neurips2023_tpu_torch.ops import grouping, sampling
+
+    b, n = 4, 2048
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    idx = torch.randint(0, n, (b, 1024, 32), device=DEVICE, generator=gen, dtype=torch.int32)
+    hits = torch.randint(1, 33, (b, 1024, 1), device=DEVICE, generator=gen)
+    idx = torch.where(torch.arange(32, device=DEVICE) < hits, idx, idx[..., :1])
+    ragged = idx[:, :1023, :31].contiguous()
+    sel = idx[:, :, 0].reshape(-1)[: b * 1021].reshape(b, 1021).contiguous()
+    for c in GATHER_WIDTHS:
+        feats = torch.randn((b, n, c), device=DEVICE, generator=gen)
+        storage = torch.empty(feats.numel() + 1, device=DEVICE)
+        storage[1:] = feats.reshape(-1)
+        for where, f in (("aligned", feats), ("offset", storage[1:].view(b, n, c))):
+            for label, got, want in (
+                ("1024x32", lambda: grouping.group_points(f, idx),
+                 lambda: grouping.group_points_plain(f, idx)),
+                ("1023x31", lambda: grouping.group_points(f, ragged),
+                 lambda: grouping.group_points_plain(f, ragged)),
+                ("gather_points 1021", lambda: sampling.gather_points(f, sel),
+                 lambda: grouping.group_points_plain(f, sel[:, None, :]).reshape(b, 1021, c)),
+            ):
+                a, w = got(), want()
+                torch.cuda.synchronize()
+                if a.shape != w.shape or not torch.equal(a, w):
+                    fail(f"gather C={c} {where} {label}: kernel differs from plain version")
+        line = f"  {'gather':16s} {f'B={b} N={n} C={c} aligned and offset, 3 index shapes':44s}"
+        if c >= 64:
+            flat = idx.reshape(b, -1, 1).long().expand(-1, -1, c)
+            ms, library_ms = time_in_turns(torch, lambda: grouping.group_points(feats, idx),
+                                           lambda: torch.gather(feats, 1, flat))
+            bnd = bound(0, 4 * (feats.numel() + idx.numel() + idx.numel() * c))
+            line += f" kernel_ms={ms!r} library_ms={library_ms!r} bound_ms={bnd[0]!r} ({bnd[1]})"
+        print(line + " bit-equal")
 
 
 def compare_kernels(torch, xyz, xyz40, scan, results):
@@ -3500,7 +3552,12 @@ def masked_kernel_rows(torch, model, batch, results):
     nbytes = 4 * (feats.numel() + idx.numel() + got.numel())
     row("gather", f"features B={b} N=2048 M=1024 K=32 C={c}", 0.0, ms, time_ms(torch, plain),
         bound(0, nbytes), library_ms, f"interim_c{c}")
-    print(f"  {'':16s} {'':44s} output {got.numel() * 4 / 1e9!r} GB")
+    # the concat after C in query_and_group (grouping.py), at its shapes
+    grouped_xyz = grouping.group_points_plain(pre_xyz, idx) - half[:, :, None, :]
+    cat_ms = time_ms(torch, lambda: torch.cat([grouped_xyz, got], dim=-1))
+    results["gather"][f"interim_c{c}_cat_ms"] = cat_ms
+    print(f"  {'':16s} {'':44s} output {got.numel() * 4 / 1e9!r} GB; the torch.cat after it "
+          f"(B, 1024, 32, 3 + {c}) ms={cat_ms!r}")
 
 
 def masked_eval_phase(torch, cfg, text, results):
@@ -4681,6 +4738,7 @@ def main():
     with torch.inference_mode():
         compare_kernels(torch, batches[0]["point_clouds"][..., :3].contiguous(),
                         xyz40[..., :3].contiguous(), load_scan_kernels(scan_so), results)
+        gather_sweep(torch)
     del xyz40
     compare_attention_backward(torch)
 

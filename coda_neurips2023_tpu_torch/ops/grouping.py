@@ -11,10 +11,16 @@ Counterparts of coda_neurips2023_tpu/ops/grouping.py:
   * `group_points`: the batched gather out[b, m, k] = features[b, idx[b, m, k]].
     Kernel C (csrc/gather.cu) on CUDA, bit-equal to `torch.gather` on the
     CPU; it offsets inside a batch row in 32 bits, so M*K*C and N*C must lie
-    below 2^31 and B at most 65535.  Where features need a gradient it runs
-    as an autograd Function: the backward is the scatter-add of the JAX
-    package's custom VJP (grouping.py:169-178), in plain PyTorch
-    (`index_add_`).
+    below 2^31 and B at most 65535.  It serves every width, bit-equal to the
+    plain version (the JAX package reaches its Pallas gather only for fp32
+    at C <= 8 and N >= 4096, and takes XLA's gather elsewhere): at C = 3 its
+    xyz branch; at C % 4 == 0 with the features' storage 16-byte aligned a
+    tile of 32 rows a warp in 16-byte units; anywhere else the same tile in
+    single floats (features that start one element into their storage,
+    say).  The kernel checks the alignment at launch.  Where features need a
+    gradient it runs as an autograd Function: the backward is the
+    scatter-add of the JAX package's custom VJP (grouping.py:169-178), in
+    plain PyTorch (`index_add_`).
   * `ball_query_group`: both in one pass, `ball_query` then `group_points` of
     the coordinates.  Kernel F (csrc/ball_query_group.cu) on CUDA.
   * `query_and_group`: the above, re-centred and radius-normalized, with
@@ -590,7 +596,8 @@ def group_points_plain(features: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 def _gather_kernel(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, n, c = features.shape
     _, m, k = idx.shape
-    # kernel C offsets inside a batch row in 32 bits
+    # kernel C offsets inside a batch row in 32 bits; it picks its branch by
+    # C and by the features' and output's alignment (csrc/gather.cu)
     if m * k * c >= 2 ** 31 or n * c >= 2 ** 31:
         raise ValueError(f"group_points: a batch row of {m * k} x {c} outputs or {n} x {c}"
                          " features needs offsets of 2^31 or more")

@@ -7,6 +7,13 @@
 //   v8: v6 with each lane reading its row's index from device memory
 //   v9: a thread a row: 3 loads, 3 stores
 //   v10: a thread per 4 output floats strided by the block, as an elementwise kernel
+// and the wide layouts (`gw`), features (B, N, C) with C % 4 == 0, any R:
+//   w0: a thread a row, C floats one by one (kernel C at C != 3 before its
+//       tile branch)
+//   w1..w4: kernel C's tile branch (a warp takes 32 rows, lane l copies the
+//       float4s l, l + 32, ... of the tile), kBatch loads in flight a lane:
+//       w1 8 with streaming stores, w2 8 with plain stores, w3 4 with
+//       streaming stores, w4 16 with streaming stores (kernel C's)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,7 +100,66 @@ __global__ void __launch_bounds__(kThreads) v10(const float* __restrict__ f0, co
 #pragma unroll
   for (int k = 0; k < 4; ++k) { const int e = base + k * kThreads; if (e < 3 * r) ob[e] = x[k]; }
 }
+
+__global__ void __launch_bounds__(kThreads) w0(const float* __restrict__ f0, const int* __restrict__ idx, float* __restrict__ out, int n, int r, int c) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  if (row >= r) return;
+  const long long b = blockIdx.y;
+  const float* p = f0 + b * n * c + clampi(idx[b * r + row], n) * c;
+  float* o = out + (b * r + row) * c;
+  for (int ch = 0; ch < c; ++ch) o[ch] = __ldg(p + ch);
+}
+
+template <int kBatch, bool kStream>
+__global__ void __launch_bounds__(kThreads) wt(const float4* __restrict__ f0, const int* __restrict__ idx, float4* __restrict__ out, int n, int r, int units) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * 32;
+  if (row0 >= r) return;
+  const int total = min(32, r - row0) * units;
+  const long long b = blockIdx.y;
+  const float4* f = f0 + b * n * units;
+  const int* ib = idx + b * r + row0;
+  float4* o = out + (b * r + row0) * units;
+  const int start = lane < total / units ? clampi(__ldg(ib + lane), n) * units : 0;
+  const int row_step = 32 / units, unit_step = 32 % units;
+  int row = lane / units, unit = lane % units;
+  for (int k0 = 0; k0 < units; k0 += kBatch) {
+    float4 x[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int u = lane + 32 * (k0 + j);
+      const int src = __shfl_sync(0xffffffffu, start, row);
+      if (k0 + j < units && u < total) x[j] = __ldg(f + src + unit);
+      row += row_step;
+      unit += unit_step;
+      if (unit >= units) { unit -= units; ++row; }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int u = lane + 32 * (k0 + j);
+      if (k0 + j < units && u < total) {
+        if (kStream) __stcs(o + u, x[j]); else o[u] = x[j];
+      }
+    }
+  }
+}
 }  // namespace
+
+extern "C" int gw(int which, const float* f, const int* idx, float* out, int b, int n, int r, int c, cudaStream_t st) {
+  if (c % 4) return (int)cudaErrorInvalidValue;
+  const float4* f4 = reinterpret_cast<const float4*>(f);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  dim3 g0((r + kThreads - 1) / kThreads, b), gt((r + kThreads - 1) / kThreads, b);  // 8 warps x 32 rows
+  switch (which) {
+    case 0: w0<<<g0, kThreads, 0, st>>>(f, idx, out, n, r, c); break;
+    case 1: wt<8, true><<<gt, kThreads, 0, st>>>(f4, idx, o4, n, r, c / 4); break;
+    case 2: wt<8, false><<<gt, kThreads, 0, st>>>(f4, idx, o4, n, r, c / 4); break;
+    case 3: wt<4, true><<<gt, kThreads, 0, st>>>(f4, idx, o4, n, r, c / 4); break;
+    case 4: wt<16, true><<<gt, kThreads, 0, st>>>(f4, idx, o4, n, r, c / 4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int gv(int which, const float* f, const int* idx, float* out, int b, int n, int r, cudaStream_t st) {
   const int rpb = kThreads / 32 * kRows;

@@ -405,11 +405,20 @@ def test_ball_query_dispatch_launches(dev, monkeypatch):
             ball_query(0.2, 64, xyz, centres)
 
 
-@pytest.mark.parametrize("c", [1, 3, 5])
-def test_gather_kernel(dev, c):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 64, 256, 259])
+def test_gather_kernel(dev, c, offset):
+    """Every branch of kernel C: the xyz branch (C = 3), the 16-byte tile
+    branch (C % 4 == 0 on aligned features) and the single-float tile branch
+    (any other C, and features that start `offset` elements into their
+    storage); R = 350 rows a batch row, ragged against a warp's 32."""
     rng = np.random.default_rng(c)
     feats = torch.from_numpy(rng.standard_normal((3, 777, c)).astype(np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 777, (3, 50, 7)).astype(np.int32)).to(dev)
+    if offset:
+        storage = torch.zeros(feats.numel() + offset, device=dev)
+        storage[offset:] = feats.reshape(-1)
+        feats = storage[offset:].view(3, 777, c)
     assert torch.equal(group_points(feats, idx), group_points_plain(feats, idx))
 
 
