@@ -169,7 +169,6 @@ class Matcher:
         self.cost_objectness = cost_objectness
         self.cost_giou = cost_giou
         self.cost_center = cost_center
-        self.last_host_ms = 0.0
 
     @torch.no_grad()
     def __call__(self, outputs, targets):
@@ -186,8 +185,7 @@ class Matcher:
             + self.cost_center * outputs["center_dist"]
             + self.cost_giou * -outputs["gious"]
         )
-        assignments, self.last_host_ms = matcher_assignments(cost, targets["nactual_gt"])
-        return assignments
+        return matcher_assignments(cost, targets["nactual_gt"])
 
 
 class SetCriterion:

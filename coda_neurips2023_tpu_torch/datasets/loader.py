@@ -31,6 +31,12 @@ host pays one copy of the other ranks' rows a batch, and no rank builds a
 sample twice.  The epoch counter, the task seeds and len() are the global
 loader's.
 
+Each batch's build is stamped on `time.perf_counter()` where it runs (a
+worker process, a worker thread, or the caller's thread without workers)
+and returned beside the batch; the loader records it as a "loader:build"
+span (utils/spans.py) when the batch is handed out, with the worker that
+built it and the count of workers.  The batch itself is unchanged.
+
 `to_device` is the one piece with no JAX counterpart: it copies a batch's
 arrays to the device, from pinned host memory and non-blocking on a card.
 """
@@ -40,9 +46,14 @@ from __future__ import annotations
 import concurrent.futures as cf
 import copy
 import multiprocessing as mp
+import os
+import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
+
+from coda_neurips2023_tpu_torch.utils import spans
 
 _STRING_KEYS = ("im_name", "pseudo_box_path", "calib_name")
 
@@ -89,9 +100,18 @@ def _build_batch(dataset, idxs, batch_size, pad_last, task_seed):
     return batch
 
 
+def _thread_build_batch(*args):
+    """(batch, t0, t1, worker): `_build_batch` stamped, in a worker thread."""
+    t0 = time.perf_counter()
+    batch = _build_batch(*args)
+    return batch, t0, time.perf_counter(), threading.current_thread().name
+
+
 def _proc_build_batch(args):
-    idxs, batch_size, pad_last, task_seed = args
-    return _build_batch(_WORKER_DATASET, idxs, batch_size, pad_last, task_seed)
+    """(batch, t0, t1, worker): `_build_batch` stamped, in a worker process."""
+    t0 = time.perf_counter()
+    batch = _build_batch(_WORKER_DATASET, *args)
+    return batch, t0, time.perf_counter(), os.getpid()
 
 
 class Loader:
@@ -134,14 +154,23 @@ class Loader:
     def __iter__(self) -> Iterator[dict]:
         tasks = self._index_batches()
         if self.use_processes:
-            yield from self._iter_processes(tasks)
+            built = self._iter_processes(tasks)
         elif self.num_workers > 1:
-            yield from self._iter_threads(tasks)
+            built = self._iter_threads(tasks)
         else:
-            for idxs, task_seed in tasks:
-                yield _build_batch(
-                    self.dataset, idxs, self.batch_size, self.pad_last, task_seed
-                )
+            built = self._iter_serial(tasks)
+        for bi, (batch, t0, t1, worker) in enumerate(built):
+            spans.record("loader:build", t0, t1, step=bi, worker=worker,
+                         workers=max(self.num_workers, 1))
+            yield batch
+
+    # each backend yields (batch, t0, t1, worker) in the tasks' order
+
+    def _iter_serial(self, tasks):
+        for idxs, task_seed in tasks:
+            t0 = time.perf_counter()
+            batch = _build_batch(self.dataset, idxs, self.batch_size, self.pad_last, task_seed)
+            yield batch, t0, time.perf_counter(), None
 
     def _iter_threads(self, tasks):
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
@@ -149,7 +178,7 @@ class Loader:
             for idxs, task_seed in tasks:
                 futures.append(
                     pool.submit(
-                        _build_batch, self.dataset, idxs, self.batch_size,
+                        _thread_build_batch, self.dataset, idxs, self.batch_size,
                         self.pad_last, task_seed,
                     )
                 )

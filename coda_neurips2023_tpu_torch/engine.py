@@ -42,6 +42,7 @@ from coda_neurips2023_tpu_torch.parallel import dist as pdist
 from coda_neurips2023_tpu_torch.utils import ap_calculator
 from coda_neurips2023_tpu_torch.utils.device import resolve_device
 from coda_neurips2023_tpu_torch.utils.misc import SmoothedValue
+from coda_neurips2023_tpu_torch.utils.spans import RING, span
 
 # keys of the batch the criterion reads as targets
 TARGET_KEYS = (
@@ -67,11 +68,11 @@ METER_KEYS = ("point_clouds", "gt_box_corners", "gt_box_sem_cls_label", "gt_box_
 
 # what the last `evaluate` measured: "batches", "scans"; "wall_s", its loop from the
 # first batch to the last meter; per batch, "load_s" (the loop waiting for
-# the loader), "device_ms" (CUDA events from
+# the loader, the eval:load span), "device_ms" (CUDA events from
 # before the batch's copy to the card to after its outputs' copy back: the
 # device's span for the batch, idle gaps inside it included), "meter_s"
-# (the host's AP metering) and "wait_s" (the host blocked on the outputs'
-# copy).  Empty lists for device_ms on the CPU.
+# (the host's AP metering, eval:meter) and "wait_s" (the host blocked on the
+# outputs' copy, eval:wait).  Empty lists for device_ms on the CPU.
 EVAL_STATS: dict = {}
 
 
@@ -104,7 +105,9 @@ def make_eval_step(
     @torch.inference_mode()
     def eval_step(batch: dict) -> dict:
         model.eval()  # each call: a training loop puts the model back in training mode
-        last = last_layer(model(batch), eval_layer_id)
+        with span("eval:detector"):
+            outputs = model(batch)
+        last = last_layer(outputs, eval_layer_id)
         if clip_crop_fn is not None:
             last["sem_cls_prob"] = clip_crop_fn(last, batch)
         elif eval_text_features is not None:
@@ -135,10 +138,12 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
 
     The step leaves each parameter's gradient in `.grad`; `metrics` holds
     the total loss, the lr and every loss term, as 0-d tensors on the device
-    (nothing syncs but the matcher's one host round trip).  The phases run
-    inside `torch.profiler.record_function` ranges ("train:forward",
-    "train:targets", "train:criterion", "train:backward", "train:allreduce",
-    "train:optimizer").
+    (nothing is read back but the matcher's one host round trip; copies of
+    host constants to the card, as in the gIoU, the criterion's layer mask
+    and the crops' normalisation, also wait for the device).  The phases run
+    inside spans (utils/spans.py: "train:forward", "train:targets",
+    "train:criterion", "train:backward", "train:allreduce",
+    "train:optimizer"), ranges of a trace while torch.profiler runs.
 
     Over several ranks (parallel/ddp.py) the batch is this rank's rows, the
     criterion gives this rank's share of the global loss, the gradients are
@@ -151,8 +156,6 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     place their own mp collectives, and the optimizer's norm counts each
     shard once.
     """
-    record = torch.profiler.record_function
-
     def train_step(batch: dict, generator: Optional[torch.Generator] = None):
         model.train()
         lr = batch.get("lr")
@@ -161,20 +164,20 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
                 raise ValueError("no learning rate: pass batch['lr'] or lr_schedule=")
             lr = lr_schedule(optimizer.count)
         optimizer.zero_grad()
-        with record("train:forward"):
+        with span("train:forward"):
             outputs = model(batch, generator=generator)
         targets = {k: batch[k] for k in TARGET_KEYS if k in batch}
         targets.update(criterion_consts or {})
         if extra_targets_fn is not None:
-            with record("train:targets"), torch.no_grad():
+            with span("train:targets"), torch.no_grad():
                 targets.update(extra_targets_fn(outputs, batch, generator))
-        with record("train:criterion"):
+        with span("train:criterion"):
             loss, loss_dict = criterion(outputs, targets)
-        with record("train:backward"):
+        with span("train:backward"):
             loss.backward()
-        with record("train:allreduce"):
+        with span("train:allreduce"):
             ddp.all_reduce_gradients(optimizer.params)
-        with record("train:optimizer"):
+        with span("train:optimizer"):
             optimizer.step(lr)
         lr = torch.as_tensor(lr, dtype=torch.float32)
         losses = pdist.reduce_dict({"loss": loss.detach(),
@@ -234,6 +237,14 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
     optimizer's step count) are written.  Nothing else waits for the device.
     Over several ranks the losses read back are the all-reduced ones, so
     every rank aborts at the same step, and only process 0 prints.
+
+    The loop's parts run inside spans (utils/spans.py): "train:load" (the
+    loader's next()), "train:to_device", "train:step" (the step and the
+    discovery) and "train:drain" (the losses' read-back), each with the
+    iteration as its step.  The status line's `iter_time` is the wall time
+    between two read-backs over the steps between them, so it counts the
+    device's time; `host` is the mean over those steps of train:step less
+    its matcher:wait, the main thread's time launching a step.
     """
     iter_time = SmoothedValue(window_size=10)
     loss_avg = SmoothedValue(window_size=10)
@@ -245,7 +256,8 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
     profiler = None
 
     def drain():
-        values = [float(x) for x in pending]
+        with span("train:drain"):
+            values = [float(x) for x in pending]
         pending.clear()
         for v in values:
             if not math.isfinite(v):
@@ -254,17 +266,24 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
             loss_avg.update(v)
 
     cuda = device is not None and torch.device(device).type == "cuda"
-    for it, host_batch in enumerate(batches):
+    batches = iter(batches)
+    mark, host_ms = time.perf_counter(), []  # the last read-back; each step's host ms since
+    it = 0
+    while True:
         if profile_dir is not None and it == 2:
             profiler = _start_profile(cuda)
         if profiler is not None and it == 6:
             _stop_profile(profiler, profile_dir)
             profiler = None
-        t0 = time.perf_counter()
+        with span("train:load", step=it):
+            host_batch = next(batches, None)
+        if host_batch is None:
+            break
         batch = dict(host_batch)
         if device is not None:
-            host_only = {k: batch.pop(k) for k in ("gt_ori_box_num",) if k in batch}
-            batch = dict(to_device(batch, device), **host_only)
+            with span("train:to_device", step=it):
+                host_only = {k: batch.pop(k) for k in ("gt_ori_box_num",) if k in batch}
+                batch = dict(to_device(batch, device), **host_only)
         batch["curr_epoch"] = curr_epoch
         batch["all_epoch"] = curr_epoch if all_epoch is None else all_epoch
         if lr_fn is not None:
@@ -273,30 +292,49 @@ def train_one_epoch(train_step, batches, curr_epoch: int = 0, log_every: int = 1
         if seed is not None and optimizer is not None:
             gen = step_generator(seed, optimizer.count, device if device is not None else "cpu",
                                  rank)
-        result = train_step(batch, gen)
-        if isinstance(result, tuple):
-            metrics, last_outputs = result
-            if discovery_fn is not None:
-                discovery_fn(last_outputs, batch)
-        else:
-            metrics = result
+        with span("train:step", step=it) as step:
+            result = train_step(batch, gen)
+            if isinstance(result, tuple):
+                metrics, last_outputs = result
+                if discovery_fn is not None:
+                    discovery_fn(last_outputs, batch)
+            else:
+                metrics = result
+        host_ms.append(_step_host_ms(step))
         pending.append(metrics["loss"])
-        iter_time.update(time.perf_counter() - t0)
         if it % log_every == 0:
             drain()
+            now = time.perf_counter()
+            iter_time.update((now - mark) / len(host_ms))
+            host = sum(host_ms) / len(host_ms)
+            mark, host_ms = now, []
             mem = ""
             if cuda:
                 mem = f"; mem {torch.cuda.memory_allocated(device) / 2**30:.2f}GiB"
             log(f"Epoch [{curr_epoch}] iter [{it}] loss {loss_avg.avg:.4f} "
-                f"iter_time {iter_time.avg * 1000:.0f}ms{mem}")
+                f"iter_time {iter_time.avg * 1000:.0f}ms host {host:.0f}ms{mem}")
             if logger is not None:
                 logger.log_scalars({k: float(v) for k, v in metrics.items()},
                                    optimizer.count if optimizer is not None else it,
                                    prefix="Train_details/")
+        it += 1
     if profiler is not None:
         _stop_profile(profiler, profile_dir)
     drain()  # the epoch's tail: the abort covers every step
     return metrics
+
+
+def _step_host_ms(step) -> float:
+    """The host ms of a closed train:step span less its matcher:wait, read
+    from the ring: the newest spans back to the first that ended before the
+    step began are the step's own."""
+    wait = 0.0
+    for s in reversed(RING):
+        if s.t1 < step.t0:
+            break
+        if s.name == "matcher:wait":
+            wait += s.t1 - s.t0
+    return 1e3 * (step.t1 - step.t0 - wait)
 
 
 def _start_profile(cuda: bool):
@@ -340,6 +378,13 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
     boolean mask (each rank's padding sits inside the concatenation, as in
     the JAX package's multi-host gather) and meters them.  Returns the APCalculator on rank 0
     and None on the others, which wait at a barrier for rank 0's last meter.
+
+    The loop's parts run inside spans (utils/spans.py), each with the batch's
+    index as its step: "eval:load" (next()), "eval:to_device", "eval:step"
+    (the eval step's launches), "eval:copy" (the outputs' pinned copies and
+    their event), "eval:wait" (the host blocked on that event) and
+    "eval:meter" (the gather and the AP meter); EVAL_STATS's load_s, wait_s
+    and meter_s are their spans' own durations.
     """
     device = resolve_device(device)
     cuda = device.type == "cuda"
@@ -353,67 +398,71 @@ def evaluate(eval_step, batches, dataset_config, device="cuda", class2type_map=N
     )
     events, load_s, meter_s, wait_s = [], [], [], []
 
-    def launch(batch):
+    def launch(batch, i):
         start = torch.cuda.Event(enable_timing=True) if cuda else None
         if cuda:
             start.record()
-        outputs = eval_step(to_device(batch, device))
+        with span("eval:to_device", step=i):
+            batch = to_device(batch, device)
+        with span("eval:step", step=i):
+            outputs = eval_step(batch)
         if not cuda:
             return {k: outputs[k].numpy() for k in EVAL_KEYS}, None
-        host = {}
-        for k in EVAL_KEYS:
-            v = outputs[k]
-            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            host[k].copy_(v, non_blocking=True)
-        done = torch.cuda.Event(enable_timing=True)
-        done.record()
+        with span("eval:copy", step=i):
+            host = {}
+            for k in EVAL_KEYS:
+                v = outputs[k]
+                host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
         events.append((start, done))
         return host, done
 
-    def meter(host, done, targets, pad_mask):
-        t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
-            host = {k: v.numpy() for k, v in host.items()}
-        t1 = time.perf_counter()
-        if pdist.is_distributed():
-            n = len(host[EVAL_KEYS[0]])
-            rows = pdist.all_gather_dict({
-                **host, **targets,
-                "pad_mask": np.ones(n, bool) if pad_mask is None else np.asarray(pad_mask, bool)})
-            if not primary:
-                wait_s.append(t1 - t0)
-                meter_s.append(time.perf_counter() - t1)
-                return
-            host = {k: rows[k] for k in host}
-            targets = {k: rows[k] for k in targets}
-            pad_mask = rows["pad_mask"]
-        if pad_mask is not None and not np.all(pad_mask):
-            mask = np.asarray(pad_mask, bool)
-            host = {k: v[mask] for k, v in host.items()}
-            targets = {k: v[mask] for k, v in targets.items()}
-        ap.step_meter({"outputs": host}, targets)
-        wait_s.append(t1 - t0)
-        meter_s.append(time.perf_counter() - t1)
+    def meter(i, host, done, targets, pad_mask):
+        with span("eval:wait", step=i) as waited:
+            if done is not None:
+                done.synchronize()
+                host = {k: v.numpy() for k, v in host.items()}
+        wait_s.append(waited.t1 - waited.t0)
+        with span("eval:meter", step=i) as metered:
+            if pdist.is_distributed():
+                n = len(host[EVAL_KEYS[0]])
+                rows = pdist.all_gather_dict({
+                    **host, **targets,
+                    "pad_mask": (np.ones(n, bool) if pad_mask is None
+                                 else np.asarray(pad_mask, bool))})
+                host = {k: rows[k] for k in host}
+                targets = {k: rows[k] for k in targets}
+                pad_mask = rows["pad_mask"]
+            if primary:
+                if pad_mask is not None and not np.all(pad_mask):
+                    mask = np.asarray(pad_mask, bool)
+                    host = {k: v[mask] for k, v in host.items()}
+                    targets = {k: v[mask] for k, v in targets.items()}
+                ap.step_meter({"outputs": host}, targets)
+        meter_s.append(metered.t1 - metered.t0)
 
     t_start = time.perf_counter()
     if primary:
         ap_calculator.start_pool()
     pending = None
     batches = iter(batches)
+    i = 0
     while True:
-        t0 = time.perf_counter()
-        batch = next(batches, None)
+        with span("eval:load", step=i) as loaded:
+            batch = next(batches, None)
         if batch is None:
             break
-        load_s.append(time.perf_counter() - t0)
+        load_s.append(loaded.t1 - loaded.t0)
         device_batch = {k: v for k, v in batch.items()
                         if not isinstance(v, list) and k != "pad_mask"}
-        host, done = launch(device_batch)
+        host, done = launch(device_batch, i)
         if pending is not None:
             meter(*pending)
-        pending = (host, done, {k: batch[k] for k in METER_KEYS if k in batch},
+        pending = (i, host, done, {k: batch[k] for k in METER_KEYS if k in batch},
                    batch.get("pad_mask"))
+        i += 1
     if pending is not None:
         meter(*pending)
     pdist.barrier()

@@ -41,6 +41,7 @@ from coda_neurips2023_tpu_torch.models.distillation import (
     preprocess_crops,
 )
 from coda_neurips2023_tpu_torch.ops.projection import corners_to_image_rects, unaugment_corners
+from coda_neurips2023_tpu_torch.utils.spans import span
 
 # what `discover_novel_boxes` reports beside its rows: the survivors gate by
 # gate, then among the crops CLIP classified, the top class probability's
@@ -168,12 +169,13 @@ def discover_novel_boxes(outputs_last: dict, batch: dict, clip_image_fn, superse
     top_idx = torch.topk(comp_scores, max_discovery_crops, dim=1).indices  # (B, S)
     slot_valid = torch.gather(save_mask, 1, top_idx)
     sel_rects = torch.gather(rects, 1, top_idx[..., None].expand(-1, -1, 4))
-    crops = torch.cat([
-        crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i],
-                                 crop_size)
-        for i in range(b)
-    ])
-    emb = clip_image_fn(preprocess_crops(crops)).to(torch.float32)
+    with span("clip:crops"):
+        crops = preprocess_crops(torch.cat([
+            crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i],
+                                     crop_size)
+            for i in range(b)
+        ]))
+    emb = clip_image_fn(crops).to(torch.float32)
     emb = emb.reshape(b, max_discovery_crops, -1)
     emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)
     logits = torch.matmul(emb, superset_text_features.to(torch.float32).t())

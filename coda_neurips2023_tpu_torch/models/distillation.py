@@ -50,6 +50,7 @@ import torch
 
 from coda_neurips2023_tpu_torch.models.clip import IMAGE_MEAN, IMAGE_STD
 from coda_neurips2023_tpu_torch.ops.projection import corners_to_image_rects, unaugment_corners
+from coda_neurips2023_tpu_torch.utils.spans import span
 
 
 def _cubic_kernel(x):
@@ -230,9 +231,10 @@ def clip_crop_scores(outputs_last: dict, batch: dict, clip_image_fn, text_featur
     rects, valid = crop_rects(outputs_last, batch, expand_box)
     probs = []
     for i in range(rects.shape[0]):
-        image = batch["input_image"][i].to(torch.float32)
-        crops = crop_square_resize_white(image, rects[i], crop_size)
-        emb = clip_image_fn(preprocess_crops(crops)).to(torch.float32)
+        with span("clip:crops"):
+            image = batch["input_image"][i].to(torch.float32)
+            crops = preprocess_crops(crop_square_resize_white(image, rects[i], crop_size))
+        emb = clip_image_fn(crops).to(torch.float32)
         probs.append(_clip_softmax(emb, text_features, logit_scale) * valid[i][:, None])
     return torch.stack(probs)
 
@@ -345,11 +347,13 @@ def build_clip_distillation_targets(outputs: dict, batch: dict, clip_image_fn, s
     rects, valid_all = crop_rects(outputs, batch)
     sel_rects = _take(rects, sel)
     valid = torch.gather(valid_all, 1, sel)
-    crops = torch.cat([
-        crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i], crop_size)
-        for i in range(b)
-    ])
-    emb = clip_image_fn(preprocess_crops(crops)).to(torch.float32).reshape(b, n_sel, -1)
+    with span("clip:crops"):
+        crops = preprocess_crops(torch.cat([
+            crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i],
+                                     crop_size)
+            for i in range(b)
+        ]))
+    emb = clip_image_fn(crops).to(torch.float32).reshape(b, n_sel, -1)
     emb = emb * valid[..., None]
     width = emb.shape[-1]
     gt_emb = torch.zeros((b, nq, width), dtype=torch.float32, device=emb.device)

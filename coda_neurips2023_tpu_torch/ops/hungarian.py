@@ -13,49 +13,49 @@ once for the matcher, not once per layer.  Problem (l, b) is the cost of its
 first nactual_gt[b] columns (the live ground truth); the result is an
 optimal assignment, with the same total cost as the JAX one (an assignment
 itself may differ only where costs tie).
+
+The round trip runs in two spans (utils/spans.py): "matcher:wait", the
+copy down, which waits for the device to finish computing the cost, and
+"matcher:solve", the host's solve and the copy back up.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
 
+from coda_neurips2023_tpu_torch.utils.spans import span
 
-def matcher_assignments(cost: torch.Tensor, nactual_gt: torch.Tensor):
-    """cost (..., B, nprop, ngt), nactual_gt (B,) int.
 
-    Returns (assignments, host_ms): assignments is a dict of
+def matcher_assignments(cost: torch.Tensor, nactual_gt: torch.Tensor) -> dict:
+    """cost (..., B, nprop, ngt), nactual_gt (B,) int -> a dict of
       per_prop_gt_inds (..., B, nprop) int64: matched ground-truth index per
         proposal, 0 where unmatched;
       proposal_matched_mask (..., B, nprop) float32: 1 where matched;
-    on the cost's device; host_ms is the host's wall time from the cost's
-    arrival (the copy waits for the device to finish computing it) to the
-    assignments' copy back.
+    on the cost's device.
     """
     lead = cost.shape[:-3]
     b, nprop, ngt = cost.shape[-3:]
     # one copy down: the costs with the ground-truth counts appended
     packed = torch.cat([cost.detach().float().reshape(-1), nactual_gt.detach().float()])
-    packed = packed.cpu().numpy()
-    t0 = time.perf_counter()
-    host = packed[: cost.numel()].reshape(-1, b, nprop, ngt)
-    nactual = packed[cost.numel():].astype(np.int64)
-    # -1 marks an unmatched proposal
-    inds = np.full(host.shape[:-1], -1, np.int64)
-    for layer in range(host.shape[0]):
-        for bi in range(b):
-            n = int(nactual[bi])
-            if n == 0:
-                continue
-            rows, cols = linear_sum_assignment(host[layer, bi, :, :n])
-            inds[layer, bi, rows] = cols
-    # one copy up; the two outputs are formed on the device
-    inds = torch.from_numpy(inds.reshape(*lead, b, nprop)).to(cost.device)
-    out = {
+    with span("matcher:wait"):
+        packed = packed.cpu().numpy()
+    with span("matcher:solve"):
+        host = packed[: cost.numel()].reshape(-1, b, nprop, ngt)
+        nactual = packed[cost.numel():].astype(np.int64)
+        # -1 marks an unmatched proposal
+        inds = np.full(host.shape[:-1], -1, np.int64)
+        for layer in range(host.shape[0]):
+            for bi in range(b):
+                n = int(nactual[bi])
+                if n == 0:
+                    continue
+                rows, cols = linear_sum_assignment(host[layer, bi, :, :n])
+                inds[layer, bi, rows] = cols
+        # one copy up; the two outputs are formed on the device
+        inds = torch.from_numpy(inds.reshape(*lead, b, nprop)).to(cost.device)
+    return {
         "per_prop_gt_inds": torch.clamp(inds, min=0),
         "proposal_matched_mask": (inds >= 0).float(),
     }
-    return out, (time.perf_counter() - t0) * 1e3

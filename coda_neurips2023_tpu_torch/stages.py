@@ -58,6 +58,7 @@ from coda_neurips2023_tpu_torch.models.distillation import (
 )
 from coda_neurips2023_tpu_torch.models.text_bank import build_text_banks
 from coda_neurips2023_tpu_torch.utils.device import resolve_device
+from coda_neurips2023_tpu_torch.utils.spans import span
 
 # entries of an OpenAI CLIP archive that are hyper-parameters, not weights
 _OPENAI_META_KEYS = ("input_resolution", "context_length", "vocab_size")
@@ -147,10 +148,11 @@ class StageContext:
         return other
 
     def clip_image_fn(self, images: torch.Tensor) -> torch.Tensor:
-        """The frozen image tower: (N, S, S, 3) normalised crops -> (N, 512).
-        Under no_grad, not inference_mode: the training step keeps tensors
-        made from its output for the backward."""
-        with torch.no_grad():
+        """The frozen image tower: (N, S, S, 3) normalised crops -> (N, 512),
+        in a "clip:tower" span (the tower's one entry).  Under no_grad, not
+        inference_mode: the training step keeps tensors made from its output
+        for the backward."""
+        with span("clip:tower"), torch.no_grad():
             return self.clip_model.encode_image(images)
 
     # ------------------------------------------------------------ train glue
@@ -342,7 +344,9 @@ class StageContext:
         @torch.inference_mode()
         def eval_step(batch: dict) -> dict:
             model.eval()  # each call: a training loop puts the model back in training mode
-            last = last_layer(model(batch), -1)
+            with span("eval:detector"):
+                outputs = model(batch)
+            last = last_layer(outputs, -1)
             if if_use_gt_box:
                 nq = last["objectness_prob"].shape[1]
 

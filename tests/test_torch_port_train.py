@@ -279,7 +279,7 @@ def test_matcher_matches_jax(nprop, ngt, nactual):
     rng = np.random.default_rng(nprop + ngt)
     cost = rng.standard_normal((3, nprop, ngt)).astype(np.float32)
     nactual = np.asarray(nactual, np.int32)
-    got, _ = matcher_assignments(torch.from_numpy(cost)[None], torch.from_numpy(nactual))
+    got = matcher_assignments(torch.from_numpy(cost)[None], torch.from_numpy(nactual))
     want = jhungarian.matcher_assignments(jnp.asarray(cost), jnp.asarray(nactual))
     np.testing.assert_array_equal(got["per_prop_gt_inds"][0].numpy(), np.asarray(want["per_prop_gt_inds"]))
     np.testing.assert_array_equal(got["proposal_matched_mask"][0].numpy(),
@@ -291,7 +291,7 @@ def test_matcher_ties_have_equal_total_cost():
     cost = np.round(rng.uniform(0, 2, (4, 12, 6)), 0).astype(np.float32)  # many ties
     cost[:, :, 3] = cost[:, :, 1]  # two interchangeable ground-truth columns
     nactual = np.asarray([6, 4, 5, 1], np.int32)
-    got, _ = matcher_assignments(torch.from_numpy(cost), torch.from_numpy(nactual))
+    got = matcher_assignments(torch.from_numpy(cost), torch.from_numpy(nactual))
     want = jax.tree.map(np.asarray, jhungarian.matcher_assignments(jnp.asarray(cost),
                                                                    jnp.asarray(nactual)))
     for b in range(4):
