@@ -297,6 +297,21 @@ result):
      the local heads, timed beside SDPA.  The kernels line gives each
      kernel tp_launches (rank 0's over (a)'s steps), and D and E a "tp"
      entry of those rows.
+ 22. The crop kernel (csrc/crop.cu) at the cells' shapes, run after phase 7:
+     CROP_CASES rects a scene on phase 4's 531 x 730 frames (32 x 128, the
+     CLIP-crop eval's batch; 8 x 32, a stage-1 step's), seeded, with the
+     whole frame and a zero-width rect among them, through `clip_crops`
+     (one launch) and unnormalised: a scene at a time against the plain
+     path on the card, the integers equal except where the plain sum lies
+     within 1e-3 of a half (there at most 1 apart; the count that differ is
+     printed, 0 where the kernel sums in PyTorch's order), the normalised
+     values bit-equal to the plain normalisation of its integers.  Timed
+     in turns: the kernel and the plain path a scene at a time (as the
+     einsum path ran), beside the bound (the output's and the frames' bytes
+     over HBM_RATE, the separable sums' operations, counted from the
+     interpolation matrices' nonzero taps, over FP32_PEAK).
+     Phases 6 and 10 (and 15 (b)) hold the kernel to one launch a batch or
+     step.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -406,6 +421,8 @@ KERNELS = {
                          "coda_neurips2023_tpu/ops/pallas_ball_query_sorted.py:461"),
     "ball_query_tile": ("coda_neurips2023_tpu_torch/csrc/ball_query_tile.cu",
                         "coda_neurips2023_tpu/ops/pallas_ball_query.py:346"),
+    "crop": ("coda_neurips2023_tpu_torch/csrc/crop.cu",
+             "none: the einsum crops of coda_neurips2023_tpu/models/distillation.py:110, left to XLA"),
 }
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet, 700 W): fp32
 # outside the tensor cores, TF32 on them (dense), and device memory
@@ -422,6 +439,10 @@ SCANNET_POINTS = 40000  # datasets/scannet.py's point count
 PLANE_POINTS = 5000
 PLANE_Z = 1.0
 N_SEL = 32  # --distillation_box_num, main.py's default
+# phase 22: (scenes, rects a scene) of the CLIP-crop eval's batch and a
+# stage-1 step's, at CLIP's crop size
+CROP_CASES = ((BATCH, 128), (TRAIN_BATCH, N_SEL))
+CROP_SIZE = 224
 # phase 11: a crop rect is an integer truncation of projected corners; the
 # two devices' boxes differ by about 1e-5 m, a few thousandths of a pixel,
 # so boxes whose rect coordinates lie this far from an integer cut the same
@@ -1072,6 +1093,8 @@ def clip_eval_phase(torch, ctx, cfg, batches):
     if launches["vit_attention"] != STEPS * BATCH * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{STEPS * BATCH * CLIP_LAYERS} (every image-tower layer of every scene)")
+    if launches["crop"] != STEPS:
+        fail(f"crop launched {launches['crop']} times, expected {STEPS} (one a batch)")
     med = statistics.median(times)
     print(f"  valid boxes (rows summing to 1): {n_valid} of {STEPS * BATCH * nq}")
     print(f"  CLIP eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
@@ -1121,6 +1144,97 @@ def clip_cpu_phase(torch, ctx, detector, batch):
           f"(valid rows {int((cpu[0].sum(-1) > 0).sum())})")
     if not err <= CLIP_TOL:
         fail(f"GPU vs CPU CLIP crop scores differ by {err!r} > {CLIP_TOL}")
+
+
+def crop_ops(torch, dist, rects, h, w, size):
+    """The separable sums' operations for `rects` (n, 4) of an h x w frame: a
+    multiply and an add for each nonzero tap of the vertical sums over the
+    crop's columns and of the horizontal sums over the output's."""
+    xmin, ymin, xmax, ymax = rects.unbind(-1)
+    len_y, len_x = ymax - ymin, xmax - xmin
+    edge = torch.maximum(len_y, len_x)
+    taps = dist._crop_max_taps(h, w, size)
+    ky, _ = dist._bicubic_matrix(edge, ymin, ((edge - len_y) // 2).to(torch.float32), len_y, h,
+                                 size, taps)
+    kx, _ = dist._bicubic_matrix(edge, xmin, ((edge - len_x) // 2).to(torch.float32), len_x, w,
+                                 size, taps)
+    cols = (torch.clamp(xmax, max=w) - torch.clamp(xmin, min=0)).clamp(min=0) * 3
+    vertical = ((ky != 0).sum((-1, -2)) * cols).sum().item()
+    horizontal = (kx != 0).sum().item() * size * 3
+    return 2 * (vertical + horizontal)
+
+
+def crop_phase(torch, images, results):
+    """Phase 22: the crop kernel against the plain path at the cells' shapes."""
+    import numpy as np
+
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.models import distillation as dist
+
+    h, w = images.shape[1:3]
+    rng = np.random.default_rng(SEED + 22)
+    row = {}
+    for b, n in CROP_CASES:
+        print(f"phase 22: the crop kernel, {b} x {n} rects on {h} x {w} frames -> "
+              f"{CROP_SIZE} x {CROP_SIZE}")
+        frames = images[:b].contiguous()
+        x0, y0 = rng.integers(0, w, (b, n)), rng.integers(0, h, (b, n))
+        rects = np.stack([x0, y0, np.minimum(x0 + rng.integers(0, w * 3 // 4, (b, n)), w),
+                          np.minimum(y0 + rng.integers(0, h * 3 // 4, (b, n)), h)], -1)
+        rects[:, 0] = [0, 0, w, h]  # the whole frame
+        rects[:, 1] = [5, 5, 5, 40]  # zero width: all white
+        rects = torch.from_numpy(rects.astype(np.int32)).cuda()
+        flat = rects.reshape(b * n, 4)
+        scene = torch.arange(b, dtype=torch.int32, device="cuda").repeat_interleave(n)
+        _kernels.reset_launches()
+        got = dist.clip_crops(frames, rects, CROP_SIZE)
+        torch.cuda.synchronize()
+        if _kernels.LAUNCHES["crop"] != 1:
+            fail(f"clip_crops launched the crop kernel {_kernels.LAUNCHES['crop']} times, not once")
+        ints = dist._crop_kernel(frames, flat, scene, CROP_SIZE, normalize=False)
+        err = flips = near = ops = 0
+        for i in range(b):
+            image = frames[i].to(torch.float32)
+            raw = torch.clamp(dist._crop_unrounded(image, rects[i], CROP_SIZE), 0.0, 255.0)
+            want = torch.round(raw)
+            mine = ints[i * n:(i + 1) * n]
+            boundary = (raw - torch.floor(raw) - 0.5).abs() < 1e-3
+            differ = mine != want
+            if (differ & ~boundary).any():
+                fail(f"crop kernel, scene {i}: {int((differ & ~boundary).sum())} integers differ "
+                     "from the plain path away from a rounding boundary")
+            err = max(err, (mine - want).abs().max().item())
+            flips += int(differ.sum())
+            near += int(boundary.sum())
+            if not torch.equal(got[i * n:(i + 1) * n], dist.preprocess_crops(mine)):
+                fail(f"crop kernel, scene {i}: the normalised crops are not the plain "
+                     "normalisation of its integers, bit for bit")
+            ops += crop_ops(torch, dist, rects[i], h, w, CROP_SIZE)
+        if err > 1:
+            fail(f"crop kernel: an integer {err} from the plain path's")
+        if not (ints.view(b, n, -1)[:, 1] == 255).all():
+            fail("crop kernel: the zero-width rect is not all white")
+        del ints
+
+        def plain():
+            return torch.cat([dist.preprocess_crops(dist.crop_square_resize_white_plain(
+                frames[i].to(torch.float32), rects[i], CROP_SIZE)) for i in range(b)])
+
+        ms, plain_ms = time_in_turns(
+            torch, lambda: dist._crop_kernel(frames, flat, scene, CROP_SIZE, normalize=True), plain)
+        nbytes = got.numel() * 4 + frames.numel() + flat.numel() * 4 + scene.numel() * 4
+        bound_ms, bounded_by = bound(ops, nbytes)
+        print(f"  {b * n} crops: integers equal but {flips} ({flips / got.numel():.2e}), all "
+              f"within 1e-3 of a half ({near} such sums); max_abs_err {err!r}")
+        print(f"  kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms ({bounded_by}: "
+              f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP), "
+              f"{100 * bound_ms / ms:.1f}% of the bound")
+        tag = "" if (b, n) == CROP_CASES[0] else "stage1_"
+        row.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms, f"{tag}bound_ms": bound_ms,
+                    f"{tag}flips": flips})
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+        del got
+    results["crop"] = row
 
 
 def train_objects(torch, cfg, dropout: bool, device, seed, flags=None):
@@ -1321,6 +1435,8 @@ def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_q
     if launches["vit_attention"] != steps * CLIP_LAYERS:
         fail(f"vit_attention launched {launches['vit_attention']} times, expected "
              f"{steps * CLIP_LAYERS} (one tower call of every step's crops)")
+    if launches["crop"] != steps:
+        fail(f"crop launched {launches['crop']} times, expected {steps} (one a step)")
     med = statistics.median(times)
     if title is None:
         STEP_TIMES["phase 10"] = dict(median=med, peak_gb=peak_gb)
@@ -4803,6 +4919,7 @@ def main():
 
     launches6, detector = clip_eval_phase(torch, ctx, cfg, batches)
     clip_cpu_phase(torch, ctx, detector, batches[0])
+    crop_phase(torch, batches[0]["input_image"], results)
     # phase 12 reruns phase 4's first batch
     phase4_batch = {k: batches[0][k] for k in ("point_clouds", "point_cloud_dims_min",
                                                "point_cloud_dims_max")}
@@ -4853,11 +4970,11 @@ def main():
     tp_launches = tp_phase(torch, smi, results)
 
     # each kernel's count from the path it serves: A-D the detector eval
-    # (phase 4), E the CLIP-crop eval (phase 6), F the baseline training step
-    # (phase 8), G the stage-1 training step (phase 10)
+    # (phase 4), E and the crops the CLIP-crop eval (phase 6), F the baseline
+    # training step (phase 8), G the stage-1 training step (phase 10)
     launches = dict(launches4, vit_attention=launches6["vit_attention"],
                     ball_query_group=launches8["ball_query_group"],
-                    ball_query_tile=launches10["ball_query_tile"])
+                    ball_query_tile=launches10["ball_query_tile"], crop=launches6["crop"])
     kernels = [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -139,8 +139,8 @@ def make_train_step(model, criterion, optimizer, lr_schedule: Optional[Callable]
     The step leaves each parameter's gradient in `.grad`; `metrics` holds
     the total loss, the lr and every loss term, as 0-d tensors on the device
     (nothing is read back but the matcher's one host round trip; copies of
-    host constants to the card, as in the gIoU, the criterion's layer mask
-    and the crops' normalisation, also wait for the device).  The phases run
+    host constants to the card, as in the gIoU and the criterion's layer
+    mask, also wait for the device).  The phases run
     inside spans (utils/spans.py: "train:forward", "train:targets",
     "train:criterion", "train:backward", "train:allreduce",
     "train:optimizer"), ranges of a trace while torch.profiler runs.

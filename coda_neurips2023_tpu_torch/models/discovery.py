@@ -14,7 +14,7 @@ novel-object pseudo labels (`discover_novel_boxes`, :96-230), in this order:
      scene exceeds 0.25 (`aabb_iou_3d`);
   5. keep those of objectness >= save_objectness;
   6. compact the survivors into `max_discovery_crops` (32) slots by score,
-     crop them (`distillation.crop_square_resize_white`), and classify the
+     crop them (`distillation.clip_crops`), and classify the
      crops with CLIP against the (superset) text bank: a box stays when its
      top probability exceeds clip_driven_keep_thres and its class is not a
      seen one (argmax >= train_range_max);
@@ -36,10 +36,7 @@ import os
 import numpy as np
 import torch
 
-from coda_neurips2023_tpu_torch.models.distillation import (
-    crop_square_resize_white,
-    preprocess_crops,
-)
+from coda_neurips2023_tpu_torch.models.distillation import clip_crops
 from coda_neurips2023_tpu_torch.ops.projection import corners_to_image_rects, unaugment_corners
 from coda_neurips2023_tpu_torch.utils.spans import span
 
@@ -170,11 +167,7 @@ def discover_novel_boxes(outputs_last: dict, batch: dict, clip_image_fn, superse
     slot_valid = torch.gather(save_mask, 1, top_idx)
     sel_rects = torch.gather(rects, 1, top_idx[..., None].expand(-1, -1, 4))
     with span("clip:crops"):
-        crops = preprocess_crops(torch.cat([
-            crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i],
-                                     crop_size)
-            for i in range(b)
-        ]))
+        crops = clip_crops(batch["input_image"], sel_rects, crop_size)
     emb = clip_image_fn(crops).to(torch.float32)
     emb = emb.reshape(b, max_discovery_crops, -1)
     emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-32)

@@ -11,14 +11,17 @@ the baseline detector with --if_with_clip (`clip_crop_scores`, :51-254):
      (torchvision's tensor path, PIL's a = -0.5 kernel), rounded to integral
      values.  As in the JAX package the resample is two dense interpolation
      matrices over the original image axes plus a separable white-mass term
-     (`crop_square_resize_white`), so no square is materialised;
+     (`crop_square_resize_white_plain`), so no square is materialised;
   3. CLIP-normalise the crops, encode them with the frozen image tower, and
      take the softmax of their cosine against a text bank times the logit
      scale; invalid boxes keep all-zero rows.
 
-Crops go through the tower one scene at a time (the JAX package maps over
-scenes the same way), so at ViT-B/16 and 128 queries a tower call is 128
-crops.
+Steps 2 and 3's crops and normalisation are `clip_crops`, for every scene of
+a batch at once: on the card one launch of the crop kernel (csrc/crop.cu,
+the same weights and rounding in one pass, nothing read back to the host),
+on the CPU the plain path a scene at a time.  Crops go through the tower
+one scene at a time (the JAX package maps over scenes the same way), so at
+ViT-B/16 and 128 queries a tower call is 128 crops.
 
 The training half (:257-461), stage 1's distillation targets:
 `select_distillation_boxes` draws, per scene, the `distillation_box_num`
@@ -48,6 +51,7 @@ import math
 
 import torch
 
+from coda_neurips2023_tpu_torch import _kernels
 from coda_neurips2023_tpu_torch.models.clip import IMAGE_MEAN, IMAGE_STD
 from coda_neurips2023_tpu_torch.ops.projection import corners_to_image_rects, unaugment_corners
 from coda_neurips2023_tpu_torch.utils.spans import span
@@ -106,11 +110,9 @@ def _crop_max_taps(h_img: int, w_img: int, out_size: int) -> int:
     return int(math.ceil(4.0 * max(1.0, max(h_img, w_img) / out_size))) + 2
 
 
-def crop_square_resize_white(image, rects, out_size: int = 224):
-    """image (H, W, 3) float in [0, 255]; rects (..., 4) int32 [xmin, ymin,
-    xmax, ymax] -> (..., out_size, out_size, 3): each rect cropped,
-    white-padded to a centred square, bicubic+antialias resized and rounded
-    (half to even, as jnp.round) to integral values in [0, 255]."""
+def _crop_unrounded(image, rects, out_size: int):
+    """The plain path's crops before the clamp and the rounding: the vertical
+    sums first, then the horizontal ones, then the white share."""
     h_img, w_img = image.shape[0], image.shape[1]
     xmin, ymin, xmax, ymax = rects.unbind(-1)
     w = ymax - ymin  # vertical extent (the reference's naming)
@@ -124,8 +126,70 @@ def crop_square_resize_white(image, rects, out_size: int = 224):
     kx, mx = _bicubic_matrix(max_edge, xmin, x_begin, h, w_img, out_size, max_taps)
     tmp = torch.einsum("...oh,hwc->...owc", ky, image)
     val = torch.einsum("...pw,...owc->...opc", kx, tmp)
-    val = val + 255.0 * (1.0 - my[..., :, None] * mx[..., None, :])[..., None]
-    return torch.round(torch.clamp(val, 0.0, 255.0))
+    return val + 255.0 * (1.0 - my[..., :, None] * mx[..., None, :])[..., None]
+
+
+def crop_square_resize_white_plain(image, rects, out_size: int = 224):
+    """Plain PyTorch version of `crop_square_resize_white`, on any device."""
+    return torch.round(torch.clamp(_crop_unrounded(image, rects, out_size), 0.0, 255.0))
+
+
+def crop_square_resize_white(image, rects, out_size: int = 224):
+    """image (H, W, 3) in [0, 255], float (or uint8 on the card); rects
+    (..., 4) int32 [xmin, ymin, xmax, ymax] inside the image ->
+    (..., out_size, out_size, 3): each rect cropped, white-padded to a
+    centred square, bicubic+antialias resized and rounded (half to even, as
+    jnp.round) to integral values in [0, 255].  On a CUDA tensor one launch
+    of the crop kernel, else the plain path."""
+    if image.device.type == "cpu":
+        return crop_square_resize_white_plain(image, rects, out_size)
+    flat = rects.reshape(-1, 4)
+    scene = torch.zeros((flat.shape[0],), dtype=torch.int32, device=image.device)
+    crops = _crop_kernel(image[None], flat, scene, out_size, normalize=False)
+    return crops.reshape(*rects.shape[:-1], out_size, out_size, 3)
+
+
+def _crop_kernel(images, rects, scene, out_size: int, normalize: bool):
+    """csrc/crop.cu: images (B, H, W, 3) uint8 or float32, rects (N, 4) and
+    scene (N,) int32 -> (N, S, S, 3) float32, each rect of its scene's image
+    through crop_square_resize_white and, with `normalize`, preprocess_crops.
+    One launch; the taps a window come from H and W (_crop_max_taps)."""
+    b, h, w, c = images.shape
+    n = rects.shape[0]
+    if c != 3 or images.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"crop: images (B, H, W, 3) uint8 or float32, got {tuple(images.shape)} "
+                         f"{images.dtype}")
+    if rects.shape != (n, 4) or scene.shape != (n,) or rects.dtype != torch.int32 \
+            or scene.dtype != torch.int32:
+        raise ValueError(f"crop: rects (N, 4) and scene (N,) int32, got {tuple(rects.shape)} "
+                         f"{rects.dtype} and {tuple(scene.shape)} {scene.dtype}")
+    if not (images.is_contiguous() and rects.is_contiguous() and scene.is_contiguous()):
+        raise ValueError("crop: images, rects and scene must be contiguous")
+    if not (rects.device == scene.device == images.device):
+        raise ValueError("crop: images, rects and scene must be on one device")
+    _kernels.check_no_grad("crop", images)
+    out = torch.empty((n, out_size, out_size, 3), dtype=torch.float32, device=images.device)
+    _kernels.launch("coda_crop", images, rects, scene, out, n, b, h, w, out_size,
+                    _crop_max_taps(h, w, out_size), int(images.dtype == torch.uint8),
+                    int(normalize))
+    return out
+
+
+def clip_crops(images, rects, out_size: int = 224):
+    """images (B, H, W, 3) in [0, 255], uint8 or float; rects (B, n, 4) int32
+    -> (B * n, S, S, 3): every scene's rects through crop_square_resize_white
+    and preprocess_crops, scene-major.  On a CUDA tensor one launch of the
+    crop kernel for the whole batch, with nothing read back; on the CPU the
+    plain path a scene at a time."""
+    b, n = rects.shape[:2]
+    if images.device.type == "cpu":
+        return preprocess_crops(torch.cat([
+            crop_square_resize_white_plain(images[i].to(torch.float32), rects[i], out_size)
+            for i in range(b)
+        ]))
+    scene = torch.arange(b, dtype=torch.int32, device=images.device)[:, None].expand(b, n)
+    return _crop_kernel(images, rects.reshape(b * n, 4).contiguous(), scene.reshape(b * n),
+                        out_size, normalize=True)
 
 
 def _interp_matrix(coords, size: int):
@@ -163,10 +227,18 @@ def crop_square_resize_white_bilinear(image, rects, out_size: int = 224):
     return torch.where(inside[..., None], val, torch.full((), 255.0, device=image.device))
 
 
+_NORMALISE = {}  # device -> CLIP's mean and std there, copied once
+
+
 def preprocess_crops(crops):
-    """(N, S, S, 3) in [0, 255] -> CLIP-normalised."""
-    mean = torch.from_numpy(IMAGE_MEAN).to(crops.device)
-    std = torch.from_numpy(IMAGE_STD).to(crops.device)
+    """(N, S, S, 3) in [0, 255] -> CLIP-normalised, (x / 255 - mean) / std."""
+    consts = _NORMALISE.get(crops.device)
+    if consts is None:
+        with torch.inference_mode(False):
+            consts = _NORMALISE.setdefault(crops.device, (
+                torch.from_numpy(IMAGE_MEAN).to(crops.device),
+                torch.from_numpy(IMAGE_STD).to(crops.device)))
+    mean, std = consts
     return (crops / 255.0 - mean) / std
 
 
@@ -229,12 +301,12 @@ def clip_crop_scores(outputs_last: dict, batch: dict, clip_image_fn, text_featur
     layer, by CLIP zero-shot classification of its image crop;
     `clip_image_fn` maps (N, S, S, 3) normalised crops to (N, 512)."""
     rects, valid = crop_rects(outputs_last, batch, expand_box)
+    b, nq = rects.shape[:2]
+    with span("clip:crops"):
+        crops = clip_crops(batch["input_image"], rects, crop_size)
     probs = []
-    for i in range(rects.shape[0]):
-        with span("clip:crops"):
-            image = batch["input_image"][i].to(torch.float32)
-            crops = preprocess_crops(crop_square_resize_white(image, rects[i], crop_size))
-        emb = clip_image_fn(crops).to(torch.float32)
+    for i in range(b):
+        emb = clip_image_fn(crops[i * nq:(i + 1) * nq]).to(torch.float32)
         probs.append(_clip_softmax(emb, text_features, logit_scale) * valid[i][:, None])
     return torch.stack(probs)
 
@@ -348,11 +420,7 @@ def build_clip_distillation_targets(outputs: dict, batch: dict, clip_image_fn, s
     sel_rects = _take(rects, sel)
     valid = torch.gather(valid_all, 1, sel)
     with span("clip:crops"):
-        crops = preprocess_crops(torch.cat([
-            crop_square_resize_white(batch["input_image"][i].to(torch.float32), sel_rects[i],
-                                     crop_size)
-            for i in range(b)
-        ]))
+        crops = clip_crops(batch["input_image"], sel_rects, crop_size)
     emb = clip_image_fn(crops).to(torch.float32).reshape(b, n_sel, -1)
     emb = emb * valid[..., None]
     width = emb.shape[-1]

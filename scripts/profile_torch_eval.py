@@ -113,13 +113,13 @@ def main():
         optimizer, schedule = build_optimizer(train_args, model.train(), 600)
         train_step = ctx.make_fused_train_step(model, criterion, optimizer, lr_schedule=schedule)
         phases = {"image_tower": ctx.clip_model.visual}
-        crop = distillation.crop_square_resize_white
+        crop = distillation.clip_crops
 
         def timed_crop(*a, **kw):
             with torch.profiler.record_function("phase:crops"):
                 return crop(*a, **kw)
 
-        distillation.crop_square_resize_white = timed_crop
+        distillation.clip_crops = timed_crop
 
         def step(b):
             return train_step(b, gen)
@@ -141,13 +141,13 @@ def main():
         ctx = StageContext(stage_args, SunrgbdImageConfig(), device="cuda", generator=gen)
         step = ctx.make_clip_eval_step(model)
         phases = {"detector": model, "image_tower": ctx.clip_model.visual}
-        crop = distillation.crop_square_resize_white
+        crop = distillation.clip_crops
 
         def timed_crop(*a, **kw):
             with torch.profiler.record_function("phase:crops"):
                 return crop(*a, **kw)
 
-        distillation.crop_square_resize_white = timed_crop
+        distillation.clip_crops = timed_crop
     else:
         text = torch.randn((46, 512), device="cuda", generator=gen)
         text = text / torch.linalg.vector_norm(text, dim=1, keepdim=True)

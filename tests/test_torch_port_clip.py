@@ -278,6 +278,47 @@ def test_crops_match_jax(out_size):
     assert (got.numpy()[0] == 255).all()  # zero-width rect: all white
 
 
+def test_preprocess_crops_constants_per_device():
+    """The plain normalisation copies CLIP's constants to a device once and
+    gives, bit for bit, the formula that copied them at every call."""
+    crops = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (3, 8, 8, 3))
+                             .astype(np.float32))
+    want = (crops / 255.0 - torch.from_numpy(tdist.IMAGE_MEAN)) / torch.from_numpy(tdist.IMAGE_STD)
+    got = tdist.preprocess_crops(crops)
+    consts = tdist._NORMALISE[crops.device]
+    with torch.inference_mode():
+        again = tdist.preprocess_crops(crops)
+    assert tdist._NORMALISE[crops.device] is consts
+    assert not any(c.is_inference() for c in consts)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(again.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_clip_crops_cpu_takes_the_plain_path(monkeypatch, dtype):
+    """On the CPU `clip_crops` and `crop_square_resize_white` never reach the
+    crop kernel: every scene's crops are the plain crop and normalisation of
+    its own image, bit for bit, scene-major."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU crop reached the kernel")
+
+    monkeypatch.setattr(tdist._kernels, "launch", refuse)
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (2, 64, 96, 3)).astype(dtype)
+    rects = np.stack([_rect_cases(), _rect_cases()[::-1]])
+    got = tdist.clip_crops(torch.from_numpy(images), torch.from_numpy(rects), 16)
+    assert got.shape == (2 * len(rects[0]), 16, 16, 3) and got.dtype == torch.float32
+    for i in range(2):
+        image = torch.from_numpy(images[i].astype(np.float32))
+        plain = tdist.crop_square_resize_white_plain(image, torch.from_numpy(rects[i]), 16)
+        want = tdist.preprocess_crops(plain)
+        np.testing.assert_array_equal(got[i * len(rects[i]):(i + 1) * len(rects[i])].numpy(),
+                                      want.numpy())
+        np.testing.assert_array_equal(
+            tdist.crop_square_resize_white(image, torch.from_numpy(rects[i]), 16).numpy(),
+            plain.numpy())
+
+
 def _calibrated_corners(seed):
     rng = np.random.default_rng(seed)
     b, q = 2, 6

@@ -20,7 +20,14 @@ p to bf16 at the same place, so they differ only where a p lies at a
 rounding boundary (their exp and sums differ in the last fp32 bits), by one
 bf16 ulp of that p, at most 2^-7 of it: at most 2^-7 sum_j p_j |v_j| before
 the output's rounding, which adds one bf16 ulp of the row's largest
-magnitude.
+magnitude.  The crop kernel sums as the plain crop does on the card (the
+einsums in sequence, the normaliser and row sums in torch.sum's order), so
+its integers equal the plain crop's; the test allows 1 apart where the plain
+sum lies within 1e-3 of a half, where another order of the sums (another
+PyTorch) would decide the rounding.  Where they agree, its normalised values
+are bit-equal to the plain normalisation.  The plain path runs on the card:
+there PyTorch divides by a Python number as a product with its reciprocal, as
+the kernel does, and on the CPU truly.
 """
 
 import numpy as np
@@ -28,6 +35,10 @@ import pytest
 import torch
 
 from coda_neurips2023_tpu_torch import _kernels
+from coda_neurips2023_tpu_torch.datasets.config import SunrgbdAnonymousConfig
+from coda_neurips2023_tpu_torch.datasets.synthetic import SyntheticDetectionDataset, make_batch
+from coda_neurips2023_tpu_torch.models import distillation as dist
+from coda_neurips2023_tpu_torch.models.clip import CLIP, init_clip_parameters
 from coda_neurips2023_tpu_torch.ops.grouping import (
     GRID_LAUNCHES,
     GRID_MAX_SAMPLES,
@@ -641,7 +652,7 @@ def test_launch_counts_and_refusals(dev):
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": GRID_LAUNCHES, "gather": 1, "attention": 1,
                                  "vit_attention": 1, "ball_query_group": GRID_LAUNCHES,
                                  "ball_query_tile": TILE_LAUNCHES, "attention_bf16": 0,
-                                 "vit_attention_bf16": 0}
+                                 "vit_attention_bf16": 0, "crop": 0}
     # keys split across blocks: the combine is D's second launch
     q = torch.randn((1, 1, 16, 32), device=dev)
     assert attention_splits(1, 1, 16, 1000, 32, multi_processor_count(dev))[0] > 1
@@ -664,6 +675,130 @@ def test_launch_counts_and_refusals(dev):
         masked_attention(*(torch.zeros((1, 1, 8, 8), device=dev),) * 3)
     with pytest.raises(ValueError):
         group_points(xyz[:, ::2], idx)  # not contiguous
+
+
+# ------------------------------------------------------------ the crop kernel
+
+
+def _crop_rects(h, w, seed):
+    """Rects on an h x w image as tests/test_torch_port_clip.py's
+    _rect_cases() makes them: zero width, the whole image, tiny (upscaled),
+    touching each edge, a point, random ones, and each of them grown to a
+    square (--if_expand_box)."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.integers(0, w - 1, 10), rng.integers(0, h - 1, 10)
+    random = np.stack([x0, y0, np.minimum(x0 + rng.integers(0, w // 2, 10), w),
+                       np.minimum(y0 + rng.integers(0, h // 2, 10), h)], 1)
+    fixed = [[3, 4, 3, 20], [0, 0, w, h], [10, 10, 11, 12], [0, 5, 7, h // 2], [w - 9, 2, w, 11],
+             [4, 0, w // 3, 3], [5, h - 6, 25, h], [0, 0, 1, h], [w - 1, 0, w, 1], [2, 2, 2, 2]]
+    rects = np.concatenate([np.array(fixed), random]).astype(np.int32)
+    return np.concatenate([rects, dist.expand_box(torch.from_numpy(rects), h, w).numpy()])
+
+
+@pytest.mark.parametrize("out_size", [16, 224])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("h,w", [(64, 96), (531, 730), (968, 1296)])
+def test_crop_kernel(dev, h, w, dtype, out_size):
+    rng = np.random.default_rng(h)
+    images = rng.integers(0, 256, (2, h, w, 3)).astype(np.uint8)
+    images = torch.from_numpy(images).to(dev)
+    if dtype == torch.float32:  # not only integral values
+        images = images.to(torch.float32) + torch.rand(images.shape, device=dev)
+        images = torch.clamp(images, 0.0, 255.0)
+    rects = [_crop_rects(h, w, seed) for seed in (1, 2)]
+    n = len(rects[0])
+    # the two scenes' rects interleaved, each with its scene index
+    flat = torch.from_numpy(np.stack(rects, 1).reshape(-1, 4)).to(dev)
+    scene = torch.arange(2, dtype=torch.int32, device=dev).repeat(n)
+    _kernels.reset_launches()
+    got_int = dist._crop_kernel(images, flat, scene, out_size, normalize=False)
+    got = dist._crop_kernel(images, flat, scene, out_size, normalize=True)
+    batched = dist.clip_crops(images, torch.from_numpy(np.stack(rects)).to(dev), out_size)
+    assert _kernels.LAUNCHES["crop"] == 3
+    torch.cuda.synchronize()
+    for i in range(2):
+        image = images[i].to(torch.float32)
+        r = torch.from_numpy(rects[i]).to(dev)
+        raw = np.clip(dist._crop_unrounded(image, r, out_size).cpu().numpy(), 0.0, 255.0)
+        want = dist.crop_square_resize_white_plain(image, r, out_size).cpu().numpy()
+        mine = got_int[i::2].cpu().numpy()
+        boundary = np.abs(raw - np.floor(raw) - 0.5) < 1e-3
+        assert boundary.mean() < 0.01
+        np.testing.assert_array_equal(mine[~boundary], want[~boundary])
+        assert np.abs(mine - want).max() <= 1.0
+        assert (mine[0] == 255).all()  # zero width: all white
+        # normalised: the plain normalisation on the card of the kernel's own
+        # integers, bit for bit, and of the plain integers where they agree
+        normed = got[i::2].cpu().numpy()
+        np.testing.assert_array_equal(normed, dist.preprocess_crops(got_int[i::2]).cpu().numpy())
+        agree = mine == want
+        plain = dist.preprocess_crops(torch.from_numpy(want).to(dev)).cpu().numpy()
+        np.testing.assert_array_equal(normed[agree], plain[agree])
+        np.testing.assert_array_equal(batched[i * n:(i + 1) * n].cpu().numpy(), normed)
+
+
+def _crop_scene_batch(dev, b, hw):
+    ds = SyntheticDetectionDataset(SunrgbdAnonymousConfig(), num_scenes=b, num_points=500, seed=3,
+                                   with_images=True, image_hw=hw)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(ds, 0, b).items()}
+    # the ground truth as the predictions, as --if_use_gt_box takes them
+    outputs = {"box_corners_xyz": batch["gt_box_corners_xyz"],
+               "size_unnormalized": batch["gt_box_sizes"]}
+    return batch, outputs
+
+
+def test_crop_launches_and_no_host_sync(dev):
+    """A crop stage is one launch a call, and the CLIP-crop eval's crops and
+    tower and stage 1's targets run with no host synchronisation."""
+    b = 3
+    batch, outputs = _crop_scene_batch(dev, b, (64, 96))
+    nq = outputs["box_corners_xyz"].shape[1]
+    clip = CLIP(embed_dim=512, image_resolution=16, vision_patch_size=8, vision_width=64,
+                vision_layers=1, text_width=32, text_layers=1, text_heads=2, context_length=8,
+                vocab_size=64).to(dev).eval()
+    init_clip_parameters(clip, torch.Generator(device=dev).manual_seed(1))
+    text = torch.nn.functional.normalize(torch.randn((5, 512), device=dev), dim=-1)
+
+    def tower(crops):
+        with torch.no_grad():
+            return clip.encode_image(crops)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sel = dist.select_distillation_boxes(gen, b, nq, 4)
+
+    def run():
+        _kernels.reset_launches()
+        with torch.inference_mode():
+            probs = dist.clip_crop_scores(outputs, batch, tower, text, 100.0, crop_size=16)
+        eval_launches = _kernels.LAUNCHES["crop"]
+        targets = dist.build_clip_distillation_targets(outputs, batch, tower, sel, crop_size=16)
+        return probs, targets, eval_launches, _kernels.LAUNCHES["crop"] - eval_launches
+
+    want = run()  # builds and warms up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got[2:] == (1, 1) == want[2:]
+    assert got[0].shape == (b, nq, 5) and got[0].isfinite().all()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for key, value in want[1].items():
+        torch.testing.assert_close(got[1][key], value, rtol=0, atol=0)
+    # one launch for a single image's rects too, unnormalised
+    _kernels.reset_launches()
+    crops = dist.crop_square_resize_white(batch["input_image"][0].to(torch.float32),
+                                          torch.tensor([[0, 0, 96, 64], [3, 4, 9, 5]],
+                                                       dtype=torch.int32, device=dev), 16)
+    assert _kernels.LAUNCHES["crop"] == 1 and crops.shape == (2, 16, 16, 3)
+    with pytest.raises(ValueError):  # int64 rects
+        dist._crop_kernel(batch["input_image"], torch.zeros((1, 4), dtype=torch.int64, device=dev),
+                          torch.zeros((1,), dtype=torch.int32, device=dev), 16, True)
+    with pytest.raises(ValueError):  # not contiguous
+        dist._crop_kernel(batch["input_image"][:, ::2], torch.zeros((1, 4), dtype=torch.int32,
+                                                                     device=dev),
+                          torch.zeros((1,), dtype=torch.int32, device=dev), 16, True)
 
 
 # ------------------------------------------------------------ bf16 kernels

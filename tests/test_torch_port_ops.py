@@ -31,6 +31,7 @@ from coda_neurips2023_tpu.ops.sampling import furthest_point_sample as jax_fps
 from coda_neurips2023_tpu.ops.sampling import gather_points as jax_gather_points
 
 from coda_neurips2023_tpu_torch import _kernels
+from coda_neurips2023_tpu_torch.models.distillation import clip_crops, crop_square_resize_white
 from coda_neurips2023_tpu_torch.ops.grouping import (
     GRID_DOUBLINGS,
     ball_query,
@@ -329,9 +330,13 @@ def test_cpu_calls_launch_nothing():
     masked_attention(q, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 16, 8), compute_dtype="bfloat16")
     vit_attention(q, torch.randn(1, 2, 16, 8), torch.randn(1, 2, 16, 8))
     vit_attention(*(torch.randn(1, 2, 16, 8, dtype=torch.bfloat16) for _ in range(3)))
+    images = torch.from_numpy(rng.integers(0, 256, (2, 20, 30, 3)).astype(np.uint8))
+    rects = torch.tensor([[[0, 0, 30, 20], [3, 4, 9, 5]]] * 2, dtype=torch.int32)
+    clip_crops(images, rects, 8)
+    crop_square_resize_white(images[0].to(torch.float32), rects[0], 8)
     assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
                                  "vit_attention": 0, "ball_query_group": 0, "ball_query_tile": 0,
-                                 "attention_bf16": 0, "vit_attention_bf16": 0}
+                                 "attention_bf16": 0, "vit_attention_bf16": 0, "crop": 0}
 
 
 @pytest.mark.parametrize(

@@ -204,7 +204,7 @@ def test_evaluate_records_its_spans_and_eval_stats_are_theirs(monkeypatch):
     for i in range(3):
         own = {s.name: [x for x in RING if x.name == s.name and x.step == i] for s in RING}
         outer, = own["eval:step"]
-        for name, count in (("eval:detector", 1), ("clip:crops", 2), ("clip:tower", 2)):
+        for name, count in (("eval:detector", 1), ("clip:crops", 1), ("clip:tower", 2)):
             assert len(own[name]) == count, name
             assert all(s.parent == "eval:step" and _inside(s, outer) for s in own[name]), name
         assert own["eval:to_device"][0].t1 <= outer.t0
