@@ -67,6 +67,7 @@ the inputs of q/k/v (the memory's too in cross-attention) and of linear1,
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -90,6 +91,7 @@ from coda_neurips2023_tpu_torch.ops.masked_attention import (
     masked_attention_plain,
 )
 from coda_neurips2023_tpu_torch.parallel import tp
+from coda_neurips2023_tpu_torch.utils.spans import span
 
 # the masked encoder's squared radii (JAX model_3detr.py:100) and interim SA
 MASKING_RADIUS = tuple(x ** 2 for x in (0.4, 0.8, 1.2))
@@ -187,8 +189,10 @@ class MultiheadAttention(nn.Module):
         if radius > 0:
             qxyz = xyz.contiguous()
             kxyz_t = xyz.transpose(1, 2).contiguous()
-        out = attend(q, k.contiguous(), v.contiguous(), qxyz, kxyz_t, radius, dropout=dropout,
-                     seed=seed)
+        k, v = k.contiguous(), v.contiguous()
+        # the masked encoder's radius-masked call alone inside its span
+        with span("encoder:radius") if radius > 0 else contextlib.nullcontext():
+            out = attend(q, k, v, qxyz, kxyz_t, radius, dropout=dropout, seed=seed)
         return self._out(out.transpose(1, 2).reshape(b, sq, h * d))
 
     def _out(self, x):
@@ -288,15 +292,19 @@ class MaskedTransformerEncoder(nn.Module):
     def forward(self, src, xyz, pos=None, generator=None):
         """src (B, S, d), xyz (B, S, 3) -> (xyz (B, S', 3), features (B, S',
         d), inds (B, S') int32: the kept points' indices into xyz), S' = the
-        interim SA's npoint."""
+        interim SA's npoint.  The whole forward runs inside an `encoder:masked`
+        span and the interim SA inside `encoder:interim`; MultiheadAttention
+        opens `encoder:radius` around each radius-masked attention call."""
         out, inds = src, None
-        for i, (layer, radius) in enumerate(zip(self.layers, MASKING_RADIUS)):
-            if _remat(self):
-                out = _checkpointed(layer, generator, out, pos, xyz, radius)
-            else:
-                out = layer(out, pos=pos, xyz=xyz, radius=radius, generator=generator)
-            if i == 0:
-                xyz, out, inds = self.interim_downsampling(xyz, out)
+        with span("encoder:masked"):
+            for i, (layer, radius) in enumerate(zip(self.layers, MASKING_RADIUS)):
+                if _remat(self):
+                    out = _checkpointed(layer, generator, out, pos, xyz, radius)
+                else:
+                    out = layer(out, pos=pos, xyz=xyz, radius=radius, generator=generator)
+                if i == 0:
+                    with span("encoder:interim"):
+                        xyz, out, inds = self.interim_downsampling(xyz, out)
         return xyz, out, inds
 
 

@@ -47,6 +47,11 @@ NAMES = (
     "eval:detector",
     # the CLIP crops cut and normalised, and the frozen image tower
     "clip:crops", "clip:tower",
+    # models/transformer.py, the masked encoder alone (--enc_type masked):
+    # its forward, inside it the interim SA and each radius-masked attention
+    # call (under --remat a layer's recompute opens encoder:radius again, on
+    # the autograd thread)
+    "encoder:masked", "encoder:interim", "encoder:radius",
     # datasets/loader.py: one batch built by a worker, recorded on receipt
     "loader:build",
 )
