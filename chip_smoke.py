@@ -312,6 +312,16 @@ result):
      interpolation matrices' nonzero taps, over FP32_PEAK).
      Phases 6 and 10 (and 15 (b)) hold the kernel to one launch a batch or
      step.
+ 23. Kernel H (csrc/tower_gemm.cu), the image tower's four linear layers
+     (TOWER_LAYERS) at the CLIP-crop eval's per-scene M (128 crops x 197
+     tokens) and a stage-1 step's (256 crops), run after phase 22: each
+     against the plain path on the card (F.linear and the same epilogue:
+     the worst error relative to the output's largest value, and the same
+     output from two runs), timed in turns with the plain path and with
+     F.linear alone (library_ms), beside the bound (2 M N K at the
+     fp32-accurate TF32_PEAK / 3, and at TF32_PEAK); qkv also against the
+     bias epilogue followed by the permute and copies its layout saves.
+     Phases 6 and 10 hold H to four launches a tower block.
 Phase 3 also holds kernel F against its plain version and against kernel B
 followed by kernel C, bit for bit; kernels B and F (a cell grid) on a
 degenerate scene (PLANE_POINTS of each scene's points on one z) and against
@@ -443,6 +453,16 @@ N_SEL = 32  # --distillation_box_num, main.py's default
 # stage-1 step's, at CLIP's crop size
 CROP_CASES = ((BATCH, 128), (TRAIN_BATCH, N_SEL))
 CROP_SIZE = 224
+# phase 23: the image tower's linear layers (ViT-B/16: width 768, 12 heads)
+# as (name, K, N, epilogue), and M at the CLIP-crop eval's per-scene call and
+# at a stage-1 step's (197 tokens a crop)
+TOWER_LAYERS = (("qkv", 768, 2304, "qkv"), ("out_proj", 768, 768, "residual"),
+                ("c_fc", 768, 3072, "gelu"), ("c_proj", 3072, 768, "residual"))
+TOWER_TOKENS = 197
+TOWER_HEADS = 12
+TOWER_CROPS = (128, TRAIN_BATCH * N_SEL)
+# kernel H against the plain path: 3xTF32 keeps about 22 of fp32's 24 bits
+TOWER_TOL = 1e-5
 # phase 11: a crop rect is an integer truncation of projected corners; the
 # two devices' boxes differ by about 1e-5 m, a few thousandths of a pixel,
 # so boxes whose rect coordinates lie this far from an integer cut the same
@@ -1095,6 +1115,9 @@ def clip_eval_phase(torch, ctx, cfg, batches):
              f"{STEPS * BATCH * CLIP_LAYERS} (every image-tower layer of every scene)")
     if launches["crop"] != STEPS:
         fail(f"crop launched {launches['crop']} times, expected {STEPS} (one a batch)")
+    if launches["tower_gemm"] != 4 * STEPS * BATCH * CLIP_LAYERS:
+        fail(f"tower_gemm launched {launches['tower_gemm']} times, expected "
+             f"{4 * STEPS * BATCH * CLIP_LAYERS} (four an image-tower block of every scene)")
     med = statistics.median(times)
     print(f"  valid boxes (rows summing to 1): {n_valid} of {STEPS * BATCH * nq}")
     print(f"  CLIP eval step ms: median {med!r} min {min(times)!r} max {max(times)!r}")
@@ -1235,6 +1258,69 @@ def crop_phase(torch, images, results):
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
         del got
     results["crop"] = row
+
+
+def tower_gemm_phase(torch, results):
+    """Phase 23: kernel H against the plain path at the tower's shapes."""
+    from coda_neurips2023_tpu_torch import _kernels
+    from coda_neurips2023_tpu_torch.ops import tower_gemm as tg
+
+    log = (_kernels.BUILD_DIR / "build.log").read_text().splitlines()
+    notes = [line for line in log if "C75" in line and "tower_gemm" in line]
+    print("phase 23: kernel H (the image tower's linear layers), ptxas notes: "
+          + ("; ".join(notes) if notes else "none (no wgmma serialized)"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    row = {"max_abs_err": 0.0}
+    for crops in TOWER_CROPS:
+        m = crops * TOWER_TOKENS
+        for name, k, n, epi in TOWER_LAYERS:
+            x = torch.randn((crops, TOWER_TOKENS, k), device="cuda", generator=gen)
+            w = torch.randn((n, k), device="cuda", generator=gen) * k ** -0.5
+            b = torch.randn((n,), device="cuda", generator=gen) * 0.02
+            res = torch.randn((crops, TOWER_TOKENS, n), device="cuda", generator=gen)
+            kw = dict(residual=res if epi == "residual" else None,
+                      heads=TOWER_HEADS if epi == "qkv" else None)
+            with torch.inference_mode():
+                _kernels.reset_launches()
+                got = tg.tower_linear(x, w, b, epi, **kw)
+                again = tg.tower_linear(x, w, b, epi, **kw)
+                want = tg.tower_linear_plain(x, w, b, epi, **kw)
+                torch.cuda.synchronize()
+                if _kernels.LAUNCHES["tower_gemm"] != 2:
+                    fail(f"kernel H: {_kernels.LAUNCHES['tower_gemm']} launches for 2 calls")
+                if not torch.equal(got, again):
+                    fail(f"kernel H, {name}: two runs differ")
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().item()
+                if not rel <= TOWER_TOL:
+                    fail(f"kernel H, {name} at M {m}: error {rel!r} of the output's largest "
+                         f"value > {TOWER_TOL}")
+                del got, again, want
+                ms, plain_ms, lib_ms = time_in_turns(
+                    torch, lambda: tg.tower_linear(x, w, b, epi, **kw),
+                    lambda: tg.tower_linear_plain(x, w, b, epi, **kw),
+                    lambda: torch.nn.functional.linear(x, w, b))
+                extra = ""
+                if epi == "qkv":
+                    unfused_ms = time_ms(torch, lambda: tg._qkv_layout(
+                        tg.tower_linear(x, w, b), TOWER_HEADS))
+                    extra = f", bias epilogue + permute and copies {unfused_ms!r} ms"
+            flops = 2 * m * n * k
+            bound_ms = flops / (TF32_PEAK / 3) * 1e3
+            tflops = flops / ms / 1e9
+            print(f"  {name} M {m} K {k} N {n} ({epi}): kernel {ms!r} ms ({tflops:.1f} TFLOP/s, "
+                  f"{100 * bound_ms / ms:.1f}% of {TF32_PEAK / 3e12:.0f}), plain {plain_ms!r} ms, "
+                  f"F.linear {lib_ms!r} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), bound "
+                  f"{bound_ms!r} ms (at {TF32_PEAK / 1e12:.0f}: "
+                  f"{flops / TF32_PEAK * 1e3!r}){extra}; error {rel!r} of the largest value")
+            tag = f"{name}_m{m}_"
+            row.update({f"{tag}ms": ms, f"{tag}plain_ms": plain_ms, f"{tag}library_ms": lib_ms,
+                        f"{tag}bound_ms": bound_ms, f"{tag}tflops": tflops, f"{tag}rel_err": rel})
+            if epi == "qkv":
+                row[f"{tag}unfused_ms"] = unfused_ms
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del x, w, b, res
+    results["tower_gemm"] = row
 
 
 def train_objects(torch, cfg, dropout: bool, device, seed, flags=None):
@@ -1437,6 +1523,9 @@ def stage1_phase(torch, cfg, batches, stage_args=None, bank_cfg=None, bq="ball_q
              f"{steps * CLIP_LAYERS} (one tower call of every step's crops)")
     if launches["crop"] != steps:
         fail(f"crop launched {launches['crop']} times, expected {steps} (one a step)")
+    if launches["tower_gemm"] != 4 * steps * CLIP_LAYERS:
+        fail(f"tower_gemm launched {launches['tower_gemm']} times, expected "
+             f"{4 * steps * CLIP_LAYERS} (four an image-tower block a step)")
     med = statistics.median(times)
     if title is None:
         STEP_TIMES["phase 10"] = dict(median=med, peak_gb=peak_gb)
@@ -4920,6 +5009,7 @@ def main():
     launches6, detector = clip_eval_phase(torch, ctx, cfg, batches)
     clip_cpu_phase(torch, ctx, detector, batches[0])
     crop_phase(torch, batches[0]["input_image"], results)
+    tower_gemm_phase(torch, results)
     # phase 12 reruns phase 4's first batch
     phase4_batch = {k: batches[0][k] for k in ("point_clouds", "point_cloud_dims_min",
                                                "point_cloud_dims_max")}
@@ -4999,6 +5089,14 @@ def main():
             **{key: value for key, value in results[name].items() if key != "max_abs_err"},
         }
         for name, (src, rep) in BF16_KERNELS.items()
+    ] + [
+        {
+            "name": "tower_gemm", "route": "cuda",
+            "source": "coda_neurips2023_tpu_torch/csrc/tower_gemm.cu",
+            "replaces": "none: the JAX package's CLIP Dense layers, left to XLA",
+            "launches": launches6["tower_gemm"], "stage1_launches": launches10["tower_gemm"],
+            **results["tower_gemm"],
+        }
     ]
     print(f"chip_smoke took {time.perf_counter() - started:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))

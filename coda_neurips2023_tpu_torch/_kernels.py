@@ -44,7 +44,7 @@ NVCC_FLAGS = (
 # kernel name -> launches since the last reset_launches()
 LAUNCHES = {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0, "vit_attention": 0,
             "ball_query_group": 0, "ball_query_tile": 0, "attention_bf16": 0,
-            "vit_attention_bf16": 0, "crop": 0}
+            "vit_attention_bf16": 0, "crop": 0, "tower_gemm": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +80,7 @@ _SIGNATURES = {
         "ball_query_tile", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]
     ),
     "coda_crop": ("crop", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "coda_tower_gemm": ("tower_gemm", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -197,7 +198,7 @@ def launch(fn: str, *args, count_as: str | None = None) -> None:
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     """Refuse inputs that would need a gradient, for kernels without a
-    backward (A, B, E, F, G, E-bf16, the crops: point coordinates, images
+    backward (A, B, E, F, G, H, E-bf16, the crops: point coordinates, images
     and the frozen CLIP tower take none).  Kernels C, D and D-bf16 have one,
     through their autograd Functions."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

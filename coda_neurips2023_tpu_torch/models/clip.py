@@ -13,8 +13,13 @@ OpenAI's module, the text tower's parameters sit at the top level of `CLIP`.
 
 The image tower takes (B, H, W, 3) CLIP-normalized images, the JAX layout,
 and its attention goes through `ops.vit_attention` (kernel E, or E-bf16, on
-a CUDA tensor).  The text tower's attention is causal and stays plain
-matmul + softmax, as the JAX package leaves it to stock flax.
+a CUDA tensor).  In fp32 its blocks' four linear layers go through
+`ops.tower_gemm.tower_linear` (kernel H on a CUDA tensor), with the bias,
+QuickGELU and the residual adds in the product's epilogue and qkv written
+in kernel E's layout; `quick_gelu` is defined there, beside that plain
+epilogue.  The text tower's attention is causal and stays plain
+matmul + softmax, as the JAX package leaves it to stock flax, and its
+linear layers stay `helpers.linear`.
 
 The towers compute in their weights' dtype (`CLIP.dtype`): fp32, or bf16
 once the module is cast (`.to(torch.bfloat16)`), as StageContext casts the
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from coda_neurips2023_tpu_torch.models.helpers import LayerNorm, flax_softmax, linear, rounded
+from coda_neurips2023_tpu_torch.ops.tower_gemm import quick_gelu, tower_linear
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
 from coda_neurips2023_tpu_torch.parallel import tp
 
@@ -52,34 +58,40 @@ IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """x * sigmoid(1.702 x), the constant rounded to x's dtype as JAX rounds it."""
-    return x * torch.sigmoid(rounded(1.702, x.dtype) * x)
-
-
 class MultiheadSelfAttention(nn.Module):
     """Self-attention with torch.nn.MultiheadAttention's parameter layout:
     in_proj_weight (3W, W), in_proj_bias (3W,), out_proj (W -> W).  On a
     tensor-parallel grid (`grid`, parallel/tp.py) it runs its heads / mp
-    local heads at the global head width W / heads, out_proj row-parallel."""
+    local heads at the global head width W / heads, out_proj row-parallel.
+    `forward` returns the attention of x added to `residual` (the block's
+    stream).  With `tower_gemm` (the image tower's blocks), in fp32 and off
+    a grid, both projections are kernel H (`ops.tower_gemm.tower_linear`):
+    qkv written straight into q, k and v's (B, H, S, D), the residual added
+    in out_proj's epilogue."""
 
-    def __init__(self, width: int, heads: int, device=None):
+    def __init__(self, width: int, heads: int, device=None, tower_gemm: bool = False):
         super().__init__()
         self.heads = heads
         self.grid = None
+        self.tower_gemm = tower_gemm
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width, device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width, device=device))
         self.out_proj = nn.Linear(width, width, device=device)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor,
+                causal: bool = False) -> torch.Tensor:
         b, s, w = x.shape
         d = w // self.heads
         h = self.heads // (self.grid.mp if self.grid is not None else 1)
         dt = self.in_proj_weight.dtype
-        (x,) = tp.copy_to_mp(x, grid=self.grid)
-        qkv = linear(x, self.in_proj_weight, self.in_proj_bias, dt)
-        qkv = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)  # (B, H, S, D) each
+        fused = self.tower_gemm and self.grid is None and dt == torch.float32
+        if fused:
+            q, k, v = tower_linear(x, self.in_proj_weight, self.in_proj_bias, "qkv", heads=h)
+        else:
+            (x,) = tp.copy_to_mp(x, grid=self.grid)
+            qkv = linear(x, self.in_proj_weight, self.in_proj_bias, dt)
+            qkv = qkv.view(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+            q, k, v = (t.contiguous() for t in qkv)  # (B, H, S, D) each
         if causal:
             allowed = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
             if dt == torch.float32:
@@ -93,48 +105,62 @@ class MultiheadSelfAttention(nn.Module):
         else:
             out = vit_attention(q, k, v)
         out = out.transpose(1, 2).reshape(b, s, h * d)
+        if fused:
+            return tower_linear(out, self.out_proj.weight, self.out_proj.bias, "residual",
+                                residual)
         if self.grid is not None:
-            return tp.row_parallel(out, self.out_proj.weight, self.out_proj.bias, dt, self.grid)
-        return linear(out, self.out_proj.weight, self.out_proj.bias, dt)
+            return residual + tp.row_parallel(out, self.out_proj.weight, self.out_proj.bias, dt,
+                                              self.grid)
+        return residual + linear(out, self.out_proj.weight, self.out_proj.bias, dt)
 
 
 class MLP(nn.Module):
-    """c_fc, quick_gelu, c_proj; on a tensor-parallel grid (`grid`) c_fc
-    column-parallel and c_proj row-parallel over the local hidden units."""
+    """c_fc, quick_gelu, c_proj, added to `residual` (the block's stream);
+    on a tensor-parallel grid (`grid`) c_fc column-parallel and c_proj
+    row-parallel over the local hidden units.  With `tower_gemm`, in fp32
+    and off a grid, both are kernel H, QuickGELU in c_fc's epilogue and the
+    residual in c_proj's."""
 
-    def __init__(self, width: int, device=None):
+    def __init__(self, width: int, device=None, tower_gemm: bool = False):
         super().__init__()
         self.grid = None
+        self.tower_gemm = tower_gemm
         self.c_fc = nn.Linear(width, 4 * width, device=device)
         self.c_proj = nn.Linear(4 * width, width, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         dt = self.c_fc.weight.dtype
+        if self.tower_gemm and self.grid is None and dt == torch.float32:
+            y = tower_linear(x, self.c_fc.weight, self.c_fc.bias, "gelu")
+            return tower_linear(y, self.c_proj.weight, self.c_proj.bias, "residual", residual)
         (x,) = tp.copy_to_mp(x, grid=self.grid)
         y = quick_gelu(linear(x, self.c_fc.weight, self.c_fc.bias, dt))
         if self.grid is not None:
-            return tp.row_parallel(y, self.c_proj.weight, self.c_proj.bias, dt, self.grid)
-        return linear(y, self.c_proj.weight, self.c_proj.bias, dt)
+            return residual + tp.row_parallel(y, self.c_proj.weight, self.c_proj.bias, dt,
+                                              self.grid)
+        return residual + linear(y, self.c_proj.weight, self.c_proj.bias, dt)
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, device=None):
+    def __init__(self, width: int, heads: int, device=None, tower_gemm: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, device=device)
-        self.attn = MultiheadSelfAttention(width, heads, device=device)
+        self.attn = MultiheadSelfAttention(width, heads, device=device, tower_gemm=tower_gemm)
         self.ln_2 = LayerNorm(width, device=device)
-        self.mlp = MLP(width, device=device)
+        self.mlp = MLP(width, device=device, tower_gemm=tower_gemm)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), causal)
-        return x + self.mlp(self.ln_2(x))
+        x = self.attn(self.ln_1(x), x, causal)
+        return self.mlp(self.ln_2(x), x)
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, device=None):
+    def __init__(self, width: int, layers: int, heads: int, device=None,
+                 tower_gemm: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, device=device) for _ in range(layers)
+            ResidualAttentionBlock(width, heads, device=device, tower_gemm=tower_gemm)
+            for _ in range(layers)
         )
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
@@ -153,7 +179,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(width, device=device))
         self.positional_embedding = nn.Parameter(torch.empty(n_tok, width, device=device))
         self.ln_pre = LayerNorm(width, device=device)
-        self.transformer = Transformer(width, layers, heads, device=device)
+        self.transformer = Transformer(width, layers, heads, device=device, tower_gemm=True)
         self.ln_post = LayerNorm(width, device=device)
         self.proj = nn.Parameter(torch.empty(width, output_dim, device=device))
 

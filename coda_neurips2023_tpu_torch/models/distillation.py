@@ -188,8 +188,8 @@ def clip_crops(images, rects, out_size: int = 224):
             for i in range(b)
         ]))
     scene = torch.arange(b, dtype=torch.int32, device=images.device)[:, None].expand(b, n)
-    return _crop_kernel(images, rects.reshape(b * n, 4).contiguous(), scene.reshape(b * n),
-                        out_size, normalize=True)
+    return _crop_kernel(images, rects.reshape(b * n, 4).contiguous(),
+                        scene.reshape(b * n).contiguous(), out_size, normalize=True)
 
 
 def _interp_matrix(coords, size: int):

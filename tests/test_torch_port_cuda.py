@@ -27,7 +27,10 @@ sum lies within 1e-3 of a half, where another order of the sums (another
 PyTorch) would decide the rounding.  Where they agree, its normalised values
 are bit-equal to the plain normalisation.  The plain path runs on the card:
 there PyTorch divides by a Python number as a product with its reciprocal, as
-the kernel does, and on the CPU truly.
+the kernel does, and on the CPU truly.  Kernel H (the image tower's linear
+layers) agrees with F.linear and the same epilogue within TOWER_TOL of the
+output's largest value: its 3xTF32 products, promoted into fp32 sums once a
+stage, are summed in another order than cuBLAS's, each within about 1e-6.
 """
 
 import numpy as np
@@ -75,6 +78,7 @@ from coda_neurips2023_tpu_torch.ops.sampling import (
     furthest_point_sample,
     furthest_point_sample_plain,
 )
+from coda_neurips2023_tpu_torch.ops.tower_gemm import tower_linear, tower_linear_plain
 from coda_neurips2023_tpu_torch.ops.vit_attention import (
     max_sequence,
     vit_attention,
@@ -652,7 +656,7 @@ def test_launch_counts_and_refusals(dev):
     assert _kernels.LAUNCHES == {"fps": 1, "ball_query": GRID_LAUNCHES, "gather": 1, "attention": 1,
                                  "vit_attention": 1, "ball_query_group": GRID_LAUNCHES,
                                  "ball_query_tile": TILE_LAUNCHES, "attention_bf16": 0,
-                                 "vit_attention_bf16": 0, "crop": 0}
+                                 "vit_attention_bf16": 0, "crop": 0, "tower_gemm": 0}
     # keys split across blocks: the combine is D's second launch
     q = torch.randn((1, 1, 16, 32), device=dev)
     assert attention_splits(1, 1, 16, 1000, 32, multi_processor_count(dev))[0] > 1
@@ -792,6 +796,10 @@ def test_crop_launches_and_no_host_sync(dev):
                                           torch.tensor([[0, 0, 96, 64], [3, 4, 9, 5]],
                                                        dtype=torch.int32, device=dev), 16)
     assert _kernels.LAUNCHES["crop"] == 1 and crops.shape == (2, 16, 16, 3)
+    # a batch of one scene (its scene index is a broadcast view before the copy)
+    rects = torch.tensor([[[0, 0, 96, 64], [3, 4, 9, 5]]] * b, dtype=torch.int32, device=dev)
+    assert torch.equal(dist.clip_crops(batch["input_image"][:1], rects[:1], 16),
+                       dist.clip_crops(batch["input_image"], rects, 16)[:2])
     with pytest.raises(ValueError):  # int64 rects
         dist._crop_kernel(batch["input_image"], torch.zeros((1, 4), dtype=torch.int64, device=dev),
                           torch.zeros((1,), dtype=torch.int32, device=dev), 16, True)
@@ -799,6 +807,102 @@ def test_crop_launches_and_no_host_sync(dev):
         dist._crop_kernel(batch["input_image"][:, ::2], torch.zeros((1, 4), dtype=torch.int32,
                                                                      device=dev),
                           torch.zeros((1,), dtype=torch.int32, device=dev), 16, True)
+
+
+# ------------------------------------------------------------ kernel H
+
+# 3xTF32 keeps about 22 of fp32's 24 bits: the error against the plain path
+# (cuBLAS in fp32) relative to the output's largest value
+TOWER_TOL = 1e-5
+# the image tower's layers (name, K, N, epilogue) and the text tower's widths
+TOWER_SHAPES = [("qkv", 768, 2304, "qkv"), ("qkv_rows", 768, 2304, "bias"),
+                ("out_proj", 768, 768, "residual"), ("c_fc", 768, 3072, "gelu"),
+                ("c_proj", 3072, 768, "residual"), ("text_c_fc", 512, 2048, "gelu"),
+                ("text_c_proj", 2048, 512, "residual")]
+
+
+def _tower_case(dev, crops, tokens, k, n, epi, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((crops, tokens, k), device=dev, generator=gen)
+    w = torch.randn((n, k), device=dev, generator=gen) * k ** -0.5
+    b = torch.randn((n,), device=dev, generator=gen) * 0.02
+    kw = {}
+    if epi == "residual":
+        kw["residual"] = torch.randn((crops, tokens, n), device=dev, generator=gen)
+    if epi == "qkv":
+        kw["heads"] = n // 3 // 64
+    return x, w, b, kw
+
+
+@pytest.mark.parametrize("name,k,n,epi", TOWER_SHAPES)
+@pytest.mark.parametrize("crops,tokens", [(128, 197), (1, 197), (5, 200), (2, 3)])
+def test_tower_gemm_kernel(dev, crops, tokens, name, k, n, epi):
+    """Kernel H against the plain path at the tower's shapes (M = 25,216, the
+    eval's per-scene call) and ragged M (197, 1,000, 6), the same output from
+    two runs, one launch a call."""
+    x, w, b, kw = _tower_case(dev, crops, tokens, k, n, epi, crops + k + n)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        got = tower_linear(x, w, b, epi, **kw)
+        again = tower_linear(x, w, b, epi, **kw)
+        want = tower_linear_plain(x, w, b, epi, **kw)
+    assert _kernels.LAUNCHES["tower_gemm"] == 2
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= TOWER_TOL, err
+
+
+def test_tower_gemm_weight_parts_follow_the_weight(dev):
+    """The TF32 parts of a weight are kept between calls and made anew when
+    the weight is written in place."""
+    x, w, b, _ = _tower_case(dev, 2, 197, 768, 768, "bias", 0)
+    with torch.no_grad():
+        first = tower_linear(x, w, b)
+        w.mul_(2.0)
+        second = tower_linear(x, w, b)
+        want = tower_linear_plain(x, w, b)
+    assert (second - want).abs().max().item() <= TOWER_TOL * want.abs().max().item()
+    assert not torch.allclose(first, second)
+
+
+def test_tower_gemm_refusals(dev):
+    x, w, b, _ = _tower_case(dev, 2, 197, 768, 768, "bias", 1)
+    with pytest.raises(ValueError):  # K not a multiple of 4
+        tower_linear(x[..., :766].contiguous(), w[:, :766].contiguous(), b)
+    with pytest.raises(ValueError):  # N not a multiple of 8
+        tower_linear(x, w[:764].contiguous(), b[:764].contiguous())
+    flat = torch.randn(x.numel() + 1, device=dev)
+    with pytest.raises(ValueError):  # contiguous but not 16-byte aligned
+        tower_linear(flat[1:].view(x.shape), w, b)
+    with pytest.raises(ValueError):  # not fp32
+        tower_linear(x.bfloat16(), w.bfloat16(), b.bfloat16())
+    with pytest.raises(RuntimeError):  # forward only: no fallback that would take a gradient
+        tower_linear(x.clone().requires_grad_(), w, b)
+
+
+def test_clip_image_tower_takes_kernel_h(dev):
+    """The fp32 image tower launches H four times a block, the text tower
+    never; both agree with the towers' plain linear layers."""
+    clip = CLIP(embed_dim=512, image_resolution=32, vision_patch_size=16, vision_width=768,
+                vision_layers=2, text_width=512, text_layers=1, text_heads=8, context_length=8,
+                vocab_size=64).to(dev).eval().requires_grad_(False)
+    init_clip_parameters(clip, torch.Generator(device=dev).manual_seed(2))
+    images = torch.randn((6, 32, 32, 3), device=dev)
+    tokens = torch.randint(1, 63, (4, 8), device=dev)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        img = clip.encode_image(images)
+        txt = clip.encode_text(tokens)
+        assert _kernels.LAUNCHES["tower_gemm"] == 4 * 2
+        for module in clip.modules():
+            if hasattr(module, "tower_gemm"):
+                module.tower_gemm = False
+        img_plain = clip.encode_image(images)
+        txt_plain = clip.encode_text(tokens)
+    assert _kernels.LAUNCHES["tower_gemm"] == 4 * 2
+    assert (img - img_plain).abs().max().item() <= 1e-4 * img_plain.abs().max().item()
+    assert torch.equal(txt, txt_plain)
 
 
 # ------------------------------------------------------------ bf16 kernels

@@ -52,6 +52,7 @@ from coda_neurips2023_tpu_torch.ops.grouping import (
 )
 from coda_neurips2023_tpu_torch.ops.masked_attention import masked_attention, masked_attention_plain
 from coda_neurips2023_tpu_torch.ops.sampling import furthest_point_sample, gather_points
+from coda_neurips2023_tpu_torch.ops.tower_gemm import tower_linear
 from coda_neurips2023_tpu_torch.ops.vit_attention import vit_attention
 
 from golden import ball_query_golden, fps_golden
@@ -334,9 +335,11 @@ def test_cpu_calls_launch_nothing():
     rects = torch.tensor([[[0, 0, 30, 20], [3, 4, 9, 5]]] * 2, dtype=torch.int32)
     clip_crops(images, rects, 8)
     crop_square_resize_white(images[0].to(torch.float32), rects[0], 8)
+    tower_linear(torch.randn(2, 3, 8), torch.randn(24, 8), torch.randn(24), "qkv", heads=2)
     assert _kernels.LAUNCHES == {"fps": 0, "ball_query": 0, "gather": 0, "attention": 0,
                                  "vit_attention": 0, "ball_query_group": 0, "ball_query_tile": 0,
-                                 "attention_bf16": 0, "vit_attention_bf16": 0, "crop": 0}
+                                 "attention_bf16": 0, "vit_attention_bf16": 0, "crop": 0,
+                                 "tower_gemm": 0}
 
 
 @pytest.mark.parametrize(
